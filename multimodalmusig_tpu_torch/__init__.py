@@ -1,5 +1,6 @@
-"""multimodalmusig_tpu_torch — the MMCTM restart fit in PyTorch, with its
-λ Newton/PCG solve as a hand-written CUDA kernel for Hopper (H100).
+"""multimodalmusig_tpu_torch — the MMCTM and IMMCTM restart fits in PyTorch,
+with the λ Newton/PCG solve and the θ moments as hand-written CUDA kernels
+for Hopper (H100).
 
 The port of the JAX package `multimodalmusig_tpu`, which stays as the
 reference: the module names are the same, so each counterpart is easy to
@@ -9,10 +10,15 @@ Entry points:
   * `fit_restarts(seed, X, config, alpha, restarts, ..., device="cuda")` —
     best-of-N restarts as one batch (parallel/restarts.py);
   * `MMCTM(k, alpha, X, device=...)` and `.fit()` — one model with the
-    reference's field surface (models/mmctm.py).
+    reference's field surface (models/mmctm.py);
+  * `fit_immctm_restarts(k, alpha, features, X, restarts, ..., device="cuda")`
+    — best-of-N IMMCTM with f64 re-scored selection (parallel/restarts.py);
+  * `IMMCTM(k, alpha, features, X, device=...)` and `.fit()` — one
+    feature-factorized model (models/immctm.py).
 """
 
-from .interop import state_from_numpy
+from .interop import immctm_state_from_numpy, state_from_numpy
+from .models.immctm import IMMCTM, IMMCTMConfig, IMMCTMFitResult, IMMCTMState
 from .models.mmctm import (
     MMCTM,
     MMCTMConfig,
@@ -21,8 +27,11 @@ from .models.mmctm import (
     fit,
     init_with_alpha,
 )
-from .ops import lambda_kernel
+from .ops import lambda_kernel, theta_kernel
+from .parallel.rescore import rescore_immctm_f64
 from .parallel.restarts import (
+    fit_immctm_restarts,
+    fit_immctm_restarts_from_states,
     fit_restarts,
     fit_restarts_from_states,
     lane,
@@ -41,6 +50,10 @@ from .utils.formatting import (
 )
 
 __all__ = [
+    "IMMCTM",
+    "IMMCTMConfig",
+    "IMMCTMFitResult",
+    "IMMCTMState",
     "MMCTM",
     "MMCTMConfig",
     "MMCTMFitResult",
@@ -49,11 +62,16 @@ __all__ = [
     "init_with_alpha",
     "fit_restarts",
     "fit_restarts_from_states",
+    "fit_immctm_restarts",
+    "fit_immctm_restarts_from_states",
+    "rescore_immctm_f64",
     "lane",
     "pick_optimal_modality_restarts",
     "pick_optimal_restart",
     "state_from_numpy",
+    "immctm_state_from_numpy",
     "lambda_kernel",
+    "theta_kernel",
     "brca_counts_path",
     "brca_data_dir",
     "read_counts_tsv",

@@ -8,33 +8,49 @@
 //
 //   f(λ) = -½(λ-μ_r)ᵀ Σ_r⁻¹ (λ-μ_r) + λ·sumθ - Σ Ndivζ·exp(λ + ν/2)
 //
-// over MK coordinates: n_iter damped Newton steps, each solving
-// (Σ_r⁻¹ + diag(w)) δ = g by cg_iter Jacobi-PCG iterations and taking the
-// best step of {8, 4, 2, 1, ½, ..., 2⁻¹², 0} on the expanded quadratic, then
-// polish_iter guarded Newton steps under a 2.0 trust region. It computes
-// what ops/solvers.py maximize_lambda (the plain version) computes, step for
-// step, in float32.
+// over MK ≤ 128 coordinates (the TPU kernel's PALLAS_MAX_MK): n_iter damped
+// Newton steps, each solving (Σ_r⁻¹ + diag(w)) δ = g by cg_iter Jacobi-PCG
+// iterations and taking the best step of {8, 4, 2, 1, ½, ..., 2⁻¹², 0} on the
+// expanded quadratic, then polish_iter guarded Newton steps under a 2.0 trust
+// region. It computes what ops/solvers.py maximize_lambda (the plain version)
+// computes, step for step, in float32.
 //
-// Layout. One group of P lanes (P = 16 or 32, the next power of two ≥ MK)
-// serves one (r, d) problem, one coordinate per lane. A block of 256
-// threads holds 256 / P documents of one restart, stages Σ_r⁻¹ in shared
-// memory once, and every lane keeps its row of Σ_r⁻¹ in registers (Σ⁻¹ is
-// symmetric, so the row is also the column). A matvec is P __shfl_sync
-// broadcasts of v_i times that row; a reduction over coordinates is an
-// xor-shuffle butterfly, after which every lane of the group holds the
-// bit-identical sum. That matters: the step choice, the trust region and
-// the all-finite check must agree across the group's lanes. Padding lanes
-// (j ≥ MK) and padding documents (d ≥ D) are inert: identity row,
-// Ndivζ = sumθ = 0, ν = 1, λ = μ = 0, so their gradient and step are 0.
+// Layout. One group of P lanes serves one (r, d) problem, one coordinate per
+// lane; a block of 256 threads holds 256 / P documents of one restart. The
+// solve itself (newton_step, polish_step, pcg) is written once against a
+// group type that supplies the matvec and the reductions, in two layouts:
+//  * WarpGroup, P = 16 or 32 (MK ≤ 32): the group lies inside one warp.
+//    Σ_r⁻¹ is staged in shared memory once per block and every lane keeps
+//    its row in registers (Σ⁻¹ is symmetric, so the row is also the column).
+//    A matvec is P __shfl_sync broadcasts of v_i times that row; a reduction
+//    is an xor-shuffle butterfly.
+//  * BlockGroup, P = 64 or 128 (32 < MK ≤ 128): the group spans P/32 warps,
+//    too many coordinates for a row in registers. Σ_r⁻¹ (64 KB at P = 128)
+//    stays in dynamic shared memory; a matvec writes v to a shared vector and
+//    each lane reads column j of Σ⁻¹ (consecutive lanes, consecutive banks).
+//    A reduction is a butterfly inside each warp, then each warp's sum goes
+//    to shared memory and every lane adds the P/32 sums in warp order. Each
+//    exchange is double-buffered, so it costs one __syncthreads; every loop
+//    of the solve has the same trip count in all groups, so every thread of
+//    the block reaches every barrier.
+// In both layouts every lane of the group ends a reduction holding the
+// bit-identical sum. That matters: the step choice, the trust region and the
+// all-finite check must agree across the group's lanes without a vote.
+// Padding lanes (j ≥ MK) and padding documents (d ≥ D) are inert: identity
+// row, Ndivζ = sumθ = 0, ν = 1, λ = μ = 0, so their gradient and step are 0.
 //
 // Bounds. At the f32 CAVI budgets (Newton 3, PCG 4, polish 1) one problem
-// costs about 12 kFLOP and moves about 5·MK·4 bytes; at R = 100 restarts of
-// the D = 560, MK = 14 BRCA workload that is about 0.7 GFLOP and 16 MB per
-// CAVI iteration, far below both the card's float32 rate and its memory
-// bandwidth. The kernel is bound by latency (the dependent shuffle chains
-// of PCG and the line search) and by its launch; the design keeps every
-// intermediate in registers and launches once per λ solve instead of the
-// hundreds of small kernels the plain version issues.
+// costs about 12 kFLOP at MK = 14 and moves about 5·MK·4 bytes; at R = 100
+// restarts of the D = 560, MK = 14 BRCA workload that is about 0.7 GFLOP and
+// 16 MB per CAVI iteration, far below both the card's float32 rate and its
+// memory bandwidth. The kernel is bound by latency (the dependent chains of
+// PCG and the line search) and by its launch; the design keeps every
+// intermediate on chip and launches once per λ solve instead of the hundreds
+// of small kernels the plain version launches. The BlockGroup layout adds one
+// block barrier per reduction and per matvec (about 110 per problem at the
+// CAVI budgets), and re-reads Σ_r⁻¹ from L2 once per block of 256 / P
+// documents. On an H100 80GB HBM3 at 700 W, R = 100 by D = 560 problems took
+// 0.20 ms at MK = 14, 1.5 ms at MK = 40 and 5.2 ms at MK = 128.
 //
 // Full-precision float32 throughout: expf and sqrtf, and no --use_fast_math.
 
@@ -49,44 +65,93 @@ constexpr float kExpClip = 60.f;     // solvers.EXP_CLIP
 constexpr float kPolishMaxStep = 2.f;  // solvers.POLISH_MAX_STEP
 constexpr float kTiny = 1e-30f;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxMK = 128;          // PALLAS_MAX_MK of the TPU kernel
 
+// A group of P ≤ 32 lanes inside one warp, Σ⁻¹ row j in registers.
 template <int P>
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = P / 2; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off, P);
-  return x;
-}
+struct WarpGroup {
+  float row[P];
+  float diag;
 
-template <int P>
-__device__ __forceinline__ float group_max(float x) {
+  __device__ __forceinline__ float sum(float x) {
 #pragma unroll
-  for (int off = P / 2; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, off, P));
-  return x;
-}
+    for (int off = P / 2; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off, P);
+    return x;
+  }
 
-// (Σ⁻¹ v)_j for this lane's coordinate j: row = Σ⁻¹[j, :].
-template <int P>
-__device__ __forceinline__ float matvec(const float (&row)[P], float v) {
-  float out = 0.f;
+  __device__ __forceinline__ float max(float x) {
 #pragma unroll
-  for (int i = 0; i < P; ++i) out += row[i] * __shfl_sync(kFull, v, i, P);
-  return out;
-}
+    for (int off = P / 2; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, off, P));
+    return x;
+  }
+
+  // (Σ⁻¹ v)_j for this lane's coordinate j.
+  __device__ __forceinline__ float matvec(float v) {
+    float out = 0.f;
+#pragma unroll
+    for (int i = 0; i < P; ++i) out += row[i] * __shfl_sync(kFull, v, i, P);
+    return out;
+  }
+};
+
+// A group of P = 64 or 128 lanes, P/32 whole warps, Σ⁻¹ in shared memory.
+template <int P>
+struct BlockGroup {
+  static constexpr int kWarps = P / 32;
+  const float* S;  // (P, P) shared, symmetric: column j = row j
+  float* vbuf;     // [2][P] shared, this group's matvec operand
+  float* red;      // [2][kWarps] shared, this group's per-warp sums
+  int j, warp, lane;
+  int vphase = 0, rphase = 0;
+  float diag;
+
+  template <typename Op>
+  __device__ __forceinline__ float reduce(float x, Op op) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) x = op(x, __shfl_xor_sync(kFull, x, off));
+    float* slot = red + rphase * kWarps;
+    if (lane == 0) slot[warp] = x;
+    __syncthreads();
+    float out = slot[0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) out = op(out, slot[w]);
+    rphase ^= 1;
+    return out;
+  }
+
+  __device__ __forceinline__ float sum(float x) {
+    return reduce(x, [](float a, float b) { return a + b; });
+  }
+
+  __device__ __forceinline__ float max(float x) {
+    return reduce(x, [](float a, float b) { return fmaxf(a, b); });
+  }
+
+  __device__ __forceinline__ float matvec(float v) {
+    float* vb = vbuf + vphase * P;
+    vb[j] = v;
+    __syncthreads();
+    float out = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < P; ++i) out += S[i * P + j] * vb[i];
+    vphase ^= 1;
+    return out;
+  }
+};
 
 // Jacobi-PCG for (Σ⁻¹ + diag(w)) δ = g; returns this lane's δ_j.
-template <int P>
-__device__ __forceinline__ float pcg(const float (&row)[P], float diag, float w,
-                                     float g, int cg_iter) {
-  const float M = diag + w;
+template <typename G>
+__device__ __forceinline__ float pcg(G& grp, float w, float g, int cg_iter) {
+  const float M = grp.diag + w;
   float x = 0.f, r = g, z = r / M, p = z;
-  float rz = group_sum<P>(r * z);
+  float rz = grp.sum(r * z);
   for (int k = 0; k < cg_iter; ++k) {
-    const float Ap = matvec<P>(row, p) + w * p;
-    const float alpha = rz / (group_sum<P>(p * Ap) + kTiny);
+    const float Ap = grp.matvec(p) + w * p;
+    const float alpha = rz / (grp.sum(p * Ap) + kTiny);
     x += alpha * p;
     r -= alpha * Ap;
     z = r / M;
-    const float rz_new = group_sum<P>(r * z);
+    const float rz_new = grp.sum(r * z);
     const float beta = rz_new / (rz + kTiny);
     p = z + beta * p;
     rz = rz_new;
@@ -94,27 +159,26 @@ __device__ __forceinline__ float pcg(const float (&row)[P], float diag, float w,
   return x;
 }
 
-template <int P>
-__device__ __forceinline__ float newton_step(const float (&row)[P], float diag,
-                                             float lam, float nu, float ndz,
+template <typename G>
+__device__ __forceinline__ float newton_step(G& grp, float lam, float nu, float ndz,
                                              float st, float mu, int cg_iter) {
   const float w = ndz * expf(lam + 0.5f * nu);
   const float diff = lam - mu;
-  const float Sdiff = matvec<P>(row, diff);
-  const float delta = pcg<P>(row, diag, w, -Sdiff + st - w, cg_iter);
-  const float Sdelta = matvec<P>(row, delta);
-  const float q0 = group_sum<P>(diff * Sdiff);
-  const float b = group_sum<P>(delta * Sdiff);
-  const float c2 = group_sum<P>(delta * Sdelta);
-  const float lin0 = group_sum<P>(lam * st);
-  const float lind = group_sum<P>(delta * st);
-  float best_f = -0.5f * q0 + lin0 - group_sum<P>(w);  // s = 0: stay put
+  const float Sdiff = grp.matvec(diff);
+  const float delta = pcg(grp, w, -Sdiff + st - w, cg_iter);
+  const float Sdelta = grp.matvec(delta);
+  const float q0 = grp.sum(diff * Sdiff);
+  const float b = grp.sum(delta * Sdiff);
+  const float c2 = grp.sum(delta * Sdelta);
+  const float lin0 = grp.sum(lam * st);
+  const float lind = grp.sum(delta * st);
+  float best_f = -0.5f * q0 + lin0 - grp.sum(w);  // s = 0: stay put
   float best_s = 0.f;
   // Every lane of the group computes the same f, so the branch is uniform
-  // within the group; the shuffles sit outside it.
+  // within the group; the reductions sit outside it.
   auto consider = [&](float s, float e_s) {
     const float f = -0.5f * (q0 + 2.f * s * b + s * s * c2) + lin0 + s * lind -
-                    group_sum<P>(w * e_s);
+                    grp.sum(w * e_s);
     if (isfinite(f) && f > best_f) {
       best_f = f;
       best_s = s;
@@ -133,43 +197,35 @@ __device__ __forceinline__ float newton_step(const float (&row)[P], float diag,
   return lam + best_s * delta;
 }
 
-template <int P>
-__device__ __forceinline__ float polish_step(const float (&row)[P], float diag,
-                                             float lam, float nu, float ndz,
+template <typename G>
+__device__ __forceinline__ float polish_step(G& grp, float lam, float nu, float ndz,
                                              float st, float mu, int cg_iter) {
   const float w = ndz * expf(lam + 0.5f * nu);
-  const float g = -matvec<P>(row, lam - mu) + st - w;
-  float delta = pcg<P>(row, diag, w, g, cg_iter);
-  const float dmax = group_max<P>(fabsf(delta));
+  const float g = -grp.matvec(lam - mu) + st - w;
+  float delta = pcg(grp, w, g, cg_iter);
+  const float dmax = grp.max(fabsf(delta));
   delta *= fminf(1.f, kPolishMaxStep / fmaxf(dmax, kTiny));
   const float step = lam + delta;
-  const float n_bad = group_sum<P>(isfinite(step) ? 0.f : 1.f);
+  const float n_bad = grp.sum(isfinite(step) ? 0.f : 1.f);
   return n_bad == 0.f ? step : lam;
 }
 
+// Stage Σ_r⁻¹ into a (P, P) shared tile, identity on the padding.
 template <int P>
-__global__ void __launch_bounds__(kThreads)
-lambda_newton_kernel(const float* __restrict__ lam0, const float* __restrict__ nu,
-                     const float* __restrict__ ndz, const float* __restrict__ st,
-                     const float* __restrict__ mu, const float* __restrict__ inv_sigma,
-                     float* __restrict__ out, int D, int MK, int n_iter, int cg_iter,
-                     int polish_iter) {
-  __shared__ float S[P * P];
-  const int r = blockIdx.y;
-  const float* S_r = inv_sigma + static_cast<size_t>(r) * MK * MK;
+__device__ __forceinline__ void stage_inv_sigma(float* S, const float* S_r, int MK) {
   for (int idx = threadIdx.x; idx < P * P; idx += kThreads) {
     const int i = idx / P, k = idx % P;
     S[idx] = (i < MK && k < MK) ? S_r[i * MK + k] : (i == k ? 1.f : 0.f);
   }
   __syncthreads();
+}
 
-  const int j = threadIdx.x % P;
-  const int d = blockIdx.x * (kThreads / P) + threadIdx.x / P;
-  float row[P];
-#pragma unroll
-  for (int i = 0; i < P; ++i) row[i] = S[j * P + i];
-  const float diag = S[j * P + j];
-
+// The solve for this thread's (r, d, j), shared by both layouts.
+template <typename G>
+__device__ __forceinline__ void solve(G& grp, const float* lam0, const float* nu,
+                                      const float* ndz, const float* st, const float* mu,
+                                      float* out, int r, int d, int j, int D, int MK,
+                                      int n_iter, int cg_iter, int polish_iter) {
   const bool live = j < MK && d < D;
   const size_t off = (static_cast<size_t>(r) * D + d) * MK + j;
   float lam = live ? lam0[off] : 0.f;
@@ -179,41 +235,118 @@ lambda_newton_kernel(const float* __restrict__ lam0, const float* __restrict__ n
   const float mu_j = live ? mu[static_cast<size_t>(r) * MK + j] : 0.f;
 
   for (int it = 0; it < n_iter; ++it)
-    lam = newton_step<P>(row, diag, lam, nu_j, ndz_j, st_j, mu_j, cg_iter);
+    lam = newton_step(grp, lam, nu_j, ndz_j, st_j, mu_j, cg_iter);
   for (int it = 0; it < polish_iter; ++it)
-    lam = polish_step<P>(row, diag, lam, nu_j, ndz_j, st_j, mu_j, cg_iter);
+    lam = polish_step(grp, lam, nu_j, ndz_j, st_j, mu_j, cg_iter);
   if (live) out[off] = lam;
 }
 
 template <int P>
-void launch(const float* lam0, const float* nu, const float* ndz, const float* st,
-            const float* mu, const float* inv_sigma, float* out, int R, int D, int MK,
-            int n_iter, int cg_iter, int polish_iter, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+lambda_newton_warp_kernel(const float* __restrict__ lam0, const float* __restrict__ nu,
+                          const float* __restrict__ ndz, const float* __restrict__ st,
+                          const float* __restrict__ mu, const float* __restrict__ inv_sigma,
+                          float* __restrict__ out, int D, int MK, int n_iter, int cg_iter,
+                          int polish_iter) {
+  __shared__ float S[P * P];
+  const int r = blockIdx.y;
+  stage_inv_sigma<P>(S, inv_sigma + static_cast<size_t>(r) * MK * MK, MK);
+
+  const int j = threadIdx.x % P;
+  const int d = blockIdx.x * (kThreads / P) + threadIdx.x / P;
+  WarpGroup<P> grp;
+#pragma unroll
+  for (int i = 0; i < P; ++i) grp.row[i] = S[j * P + i];
+  grp.diag = S[j * P + j];
+  solve(grp, lam0, nu, ndz, st, mu, out, r, d, j, D, MK, n_iter, cg_iter, polish_iter);
+}
+
+template <int P>
+constexpr size_t block_smem_bytes() {
+  constexpr int groups = kThreads / P;
+  return sizeof(float) * (P * P + groups * 2 * P + groups * 2 * (P / 32));
+}
+
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+lambda_newton_block_kernel(const float* __restrict__ lam0, const float* __restrict__ nu,
+                           const float* __restrict__ ndz, const float* __restrict__ st,
+                           const float* __restrict__ mu, const float* __restrict__ inv_sigma,
+                           float* __restrict__ out, int D, int MK, int n_iter, int cg_iter,
+                           int polish_iter) {
+  extern __shared__ float smem[];
+  constexpr int groups = kThreads / P;
+  float* S = smem;
+  float* vbuf = S + P * P;            // [groups][2][P]
+  float* red = vbuf + groups * 2 * P;  // [groups][2][P/32]
+  const int r = blockIdx.y;
+  stage_inv_sigma<P>(S, inv_sigma + static_cast<size_t>(r) * MK * MK, MK);
+
+  const int group = threadIdx.x / P;
+  BlockGroup<P> grp;
+  grp.S = S;
+  grp.vbuf = vbuf + group * 2 * P;
+  grp.red = red + group * 2 * BlockGroup<P>::kWarps;
+  grp.j = threadIdx.x % P;
+  grp.warp = grp.j / 32;
+  grp.lane = grp.j % 32;
+  grp.diag = S[grp.j * P + grp.j];
+  const int d = blockIdx.x * groups + group;
+  solve(grp, lam0, nu, ndz, st, mu, out, r, d, grp.j, D, MK, n_iter, cg_iter, polish_iter);
+}
+
+template <int P>
+int launch_warp(const float* lam0, const float* nu, const float* ndz, const float* st,
+                const float* mu, const float* inv_sigma, float* out, int R, int D, int MK,
+                int n_iter, int cg_iter, int polish_iter, cudaStream_t stream) {
   constexpr int kDocsPerBlock = kThreads / P;
   const dim3 grid((D + kDocsPerBlock - 1) / kDocsPerBlock, R);
-  lambda_newton_kernel<P><<<grid, kThreads, 0, stream>>>(
+  lambda_newton_warp_kernel<P><<<grid, kThreads, 0, stream>>>(
       lam0, nu, ndz, st, mu, inv_sigma, out, D, MK, n_iter, cg_iter, polish_iter);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int P>
+int launch_block(const float* lam0, const float* nu, const float* ndz, const float* st,
+                 const float* mu, const float* inv_sigma, float* out, int R, int D, int MK,
+                 int n_iter, int cg_iter, int polish_iter, cudaStream_t stream) {
+  constexpr int kDocsPerBlock = kThreads / P;
+  constexpr size_t smem = block_smem_bytes<P>();
+  if (smem > 48 * 1024) {  // a block's dynamic shared memory above 48 KB needs this opt-in
+    const cudaError_t rc = cudaFuncSetAttribute(
+        lambda_newton_block_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  const dim3 grid((D + kDocsPerBlock - 1) / kDocsPerBlock, R);
+  lambda_newton_block_kernel<P><<<grid, kThreads, smem, stream>>>(
+      lam0, nu, ndz, st, mu, inv_sigma, out, D, MK, n_iter, cg_iter, polish_iter);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // C interface, bound with ctypes (ops/lambda_kernel.py). All arrays are
 // contiguous float32 on the current device: lam0/nu/ndz/st/out (R, D, MK),
-// mu (R, MK), inv_sigma (R, MK, MK). Launches on `stream` without
-// synchronising and returns cudaGetLastError() (0 = launched).
+// mu (R, MK), inv_sigma (R, MK, MK), 1 ≤ MK ≤ 128. Launches on `stream`
+// without synchronising and returns the CUDA error code (0 = launched).
 extern "C" int lambda_newton_launch(const float* lam0, const float* nu, const float* ndz,
                                     const float* st, const float* mu,
                                     const float* inv_sigma, float* out, int R, int D,
                                     int MK, int n_iter, int cg_iter, int polish_iter,
                                     void* stream) {
   if (R <= 0 || D <= 0) return static_cast<int>(cudaSuccess);
-  if (MK < 1 || MK > 32 || R > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (MK < 1 || MK > kMaxMK || R > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (MK <= 16)
-    launch<16>(lam0, nu, ndz, st, mu, inv_sigma, out, R, D, MK, n_iter, cg_iter,
-               polish_iter, s);
-  else
-    launch<32>(lam0, nu, ndz, st, mu, inv_sigma, out, R, D, MK, n_iter, cg_iter,
-               polish_iter, s);
-  return static_cast<int>(cudaGetLastError());
+    return launch_warp<16>(lam0, nu, ndz, st, mu, inv_sigma, out, R, D, MK, n_iter, cg_iter,
+                           polish_iter, s);
+  if (MK <= 32)
+    return launch_warp<32>(lam0, nu, ndz, st, mu, inv_sigma, out, R, D, MK, n_iter, cg_iter,
+                           polish_iter, s);
+  if (MK <= 64)
+    return launch_block<64>(lam0, nu, ndz, st, mu, inv_sigma, out, R, D, MK, n_iter, cg_iter,
+                            polish_iter, s);
+  return launch_block<128>(lam0, nu, ndz, st, mu, inv_sigma, out, R, D, MK, n_iter, cg_iter,
+                           polish_iter, s);
 }

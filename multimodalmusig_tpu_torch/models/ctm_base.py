@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..ops import lambda_kernel
+from ..ops import lambda_kernel, theta_kernel
 from ..ops.convergence import MIN_ITERS_BEFORE_CONVERGENCE, relative_change
 from ..ops.solvers import (
     CG_F32_CAVI,
@@ -129,19 +129,44 @@ def calculate_Ndivzeta(N: torch.Tensor, zeta: torch.Tensor, config) -> torch.Ten
     )
 
 
+def _theta_route(device_type: str, dtype: torch.dtype, V: int, K: int) -> str:
+    """How `theta_moments` computes one modality: "kernel" (the fused CUDA
+    kernel, ops/theta_kernel.py) for CUDA float32 with V ≤ 128 and K ≤ 128,
+    the TPU kernel's limits; "factorized" (the JAX package's production
+    schedule) for everything else."""
+    if (device_type == "cuda" and dtype == torch.float32
+            and V <= theta_kernel.THETA_MAX_V and K <= theta_kernel.THETA_MAX_K):
+        return "kernel"
+    return "factorized"
+
+
 def theta_moments(lam, logw, X, config):
     """Both count-weighted θ moments without materializing θ: (sumθ
     (R, D, MK), scatters tuple of (R, K_m, V_m)).
 
-    θ[d,v,k] = softmax_k(λ_dk + w_vk) factors exactly: with A = exp(λ_block
-    − max_k λ_block) and B = exp(w − max_k w), Z = A Bᵀ (D, V), R = X / Z,
-    sumθ = A ⊙ (R B) and scatter = (B ⊙ (Rᵀ A))ᵀ — three batched matmuls per
-    modality (ctm_base.py:132-202 of the JAX package documents the math and
-    its f32 underflow gap, which fails safe: the lane's ll goes non-finite
-    and the lane stops)."""
+    Per modality, `_theta_route` picks the schedule:
+      * "kernel": the fused CUDA kernel, which forms each cell's softmax in
+        registers with the joint max of its (d, v) logits, as the TPU kernel
+        does (tools/pallas_experiments/theta_kernel.py). That closes the
+        factorized schedule's f32 underflow gap (JAX ctm_base.py:152-165): a
+        cell whose every topic sits > ~88 nats below a_d + b_v keeps finite
+        moments instead of stopping its lane as NaN. No BRCA result changes;
+        spreads there are tens of nats.
+      * "factorized": θ[d,v,k] = softmax_k(λ_dk + w_vk) factors exactly: with
+        A = exp(λ_block − max_k λ_block) and B = exp(w − max_k w),
+        Z = A Bᵀ (D, V), R = X / Z, sumθ = A ⊙ (R B) and
+        scatter = (B ⊙ (Rᵀ A))ᵀ — three batched matmuls per modality
+        (ctm_base.py:132-202 of the JAX package documents the math and its
+        f32 underflow gap, which fails safe: the lane's ll goes non-finite
+        and the lane stops)."""
     sum_parts, scatters = [], []
     for m in range(config.M):
         lam_m = config.block(lam, m)
+        if _theta_route(lam.device.type, lam.dtype, X[m].shape[-1], lam_m.shape[-1]) == "kernel":
+            sumtheta_m, scatter_m = theta_kernel.theta_moments_fused(lam_m, logw[m], X[m])
+            sum_parts.append(sumtheta_m)
+            scatters.append(scatter_m)
+            continue
         A = torch.exp(lam_m - lam_m.amax(dim=-1, keepdim=True))            # (R, D, K)
         B = torch.exp(logw[m] - logw[m].amax(dim=-1, keepdim=True))        # (R, V, K)
         Rm = X[m] / (A @ B.mT)                                             # (R, D, V)
@@ -184,18 +209,26 @@ def resolved_budgets(config) -> dict:
     return out
 
 
+def _lambda_route(device_type: str, dtype: torch.dtype, MK: int) -> str:
+    """How `solve_lambda` solves: "kernel" (the fused CUDA kernel,
+    ops/lambda_kernel.py, f32 like the TPU kernel it replaces) for CUDA
+    float32 with MK ≤ 128, the JAX package's rule (JAX ctm_base.py:317);
+    "plain" (ops/solvers.maximize_lambda) for CPU tensors, CUDA float64 and
+    MK > 128."""
+    if device_type == "cuda" and dtype == torch.float32 and MK <= lambda_kernel.KERNEL_MAX_MK:
+        return "kernel"
+    return "plain"
+
+
 def solve_lambda(lam, nu, Ndivzeta, sumtheta, mu, invSigma,
                  n_iter=None, cg_iter=None, polish_iter=None):
     """Batched λ maximization (replaces NLopt at src/MMCTM.jl:127-143) over
-    (R, D, MK) with per-lane μ (R, MK) and Σ⁻¹ (R, MK, MK).
-
-    Dispatch is an explicit rule, not an error path: a CUDA float32 tensor
-    goes to the fused CUDA kernel (ops/lambda_kernel.py, f32 like the TPU
-    kernel it replaces); a CPU tensor, or a CUDA float64 one, goes to the
-    plain solver (ops/solvers.maximize_lambda)."""
+    (R, D, MK) with per-lane μ (R, MK) and Σ⁻¹ (R, MK, MK), routed by
+    `_lambda_route`. The route is a shape rule, not an error path: a kernel
+    that fails to build or launch raises."""
     kw = {"n_iter": n_iter, "cg_iter": cg_iter, "polish_iter": polish_iter}
     kw = {k: int(v) for k, v in kw.items() if v is not None}
-    if lam.is_cuda and lam.dtype == torch.float32:
+    if _lambda_route(lam.device.type, lam.dtype, lam.shape[-1]) == "kernel":
         return lambda_kernel.maximize_lambda_restarts(
             lam, nu, Ndivzeta, sumtheta, mu, invSigma, **kw
         )

@@ -1,0 +1,461 @@
+"""Independent-feature Multi-Modal CTM (IMMCTM) fit by CAVI, in PyTorch.
+
+Counterpart of multimodalmusig_tpu/models/immctm.py (itself a
+re-implementation of the reference's src/IMMCTM.jl): MMCTM's joint
+logistic-normal over all modalities' topics, with feature-factorized
+topic-word distributions p_m(v|k) = Π_i ϕ_m,k,i[features_m[v,i]] and a
+Dirichlet hyperparameter α[m][i] per modality and feature
+(src/IMMCTM.jl:13, 22). Each feature lookup is a one-hot matrix F_m,i
+(V_m, J_mi) (models/ilda.feature_onehots), so the reference's nested loops
+(src/IMMCTM.jl:152-172, 199-223) become matrix products. The document side
+is ctm_base's E-step, shared with MMCTM: the feature product is summed into
+a (V_m, K_m) log-weight table before the θ moments, so both families launch
+the same θ and λ kernels.
+
+Every state tensor carries a leading restart dimension R (a single model is
+R = 1): μ (R, MK), Σ/Σ⁻¹ (R, MK, MK), α a tuple of (R, I_m), γ/Elnϕ nested
+tuples [m][i] of (R, K_m, J_mi), λ/ν (R, D, MK), ζ (R, D, M). The counts X
+(a tuple of (D, V_m)) and the one-hots F ([m][i] of (V_m, J_mi)) are shared
+by every lane.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.special import dirichlet_expectation, logmvbeta, logmvbeta_symmetric, safe_xlogy, xlogx
+from ..utils.formatting import sparse_to_dense
+from .ctm_base import (
+    CTMBaseConfig,
+    carry_converged,
+    counts_per_doc,
+    elbo_eta_z_term_dict,
+    full_f32_matmuls,
+    props_from_lam,
+    run_cavi,
+    solve_eta,
+    theta_from,
+    theta_moments,
+    update_Sigma_mats,
+    update_mu_vec,
+    update_zeta,
+)
+from .ilda import feature_onehots
+from .mmctm import counts_tensors
+
+__all__ = [
+    "IMMCTMConfig",
+    "IMMCTMState",
+    "IMMCTMFitResult",
+    "IMMCTM",
+    "init",
+    "summed_Elnphi",
+    "smoothed_logw",
+    "reconstruct_theta",
+    "e_step_moments",
+    "update_gamma",
+    "phi_point",
+    "vocab_topic_probs",
+    "modality_loglikelihoods",
+    "calculate_elbo",
+    "fit_step_fn",
+    "finalize_fit",
+    "fit",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class IMMCTMConfig(CTMBaseConfig):
+    """CTMBaseConfig plus the feature structure: J[m][i] values of feature i
+    of modality m."""
+
+    J: Tuple[Tuple[int, ...], ...] = ()
+
+    @property
+    def I(self) -> Tuple[int, ...]:
+        return tuple(len(j) for j in self.J)
+
+
+class IMMCTMState(NamedTuple):
+    """Variational state, field for field the JAX package's IMMCTMState with
+    a leading restart dimension. γ/Elnϕ are (R, K_m, J_mi) per (m, i): the
+    reference's [m][k][i][j] nesting (src/IMMCTM.jl:19-20) as matrices."""
+
+    mu: torch.Tensor
+    Sigma: torch.Tensor
+    invSigma: torch.Tensor
+    alpha: Tuple[torch.Tensor, ...]                 # per modality (R, I_m)
+    gamma: Tuple[Tuple[torch.Tensor, ...], ...]     # [m][i] (R, K_m, J_mi)
+    Elnphi: Tuple[Tuple[torch.Tensor, ...], ...]    # [m][i] (R, K_m, J_mi)
+    lam: torch.Tensor
+    nu: torch.Tensor
+    zeta: torch.Tensor
+    lam_pre: torch.Tensor                           # λ used by the last θ update
+    logw_pre: Tuple[torch.Tensor, ...]              # (R, V_m, K_m) Σ_i Elnϕ then
+
+
+class IMMCTMFitResult(NamedTuple):
+    state: IMMCTMState
+    ll_history: torch.Tensor  # (R, maxiter, M)
+    n_iters: torch.Tensor     # (R,)
+    converged: torch.Tensor   # (R,)
+    elbo: torch.Tensor        # (R,)
+    ll: torch.Tensor          # (R, M) final per-modality log-likelihood
+
+
+# ---------------------------------------------------------------------------
+# Initialization (src/IMMCTM.jl:30-88)
+# ---------------------------------------------------------------------------
+
+
+def init(generator: torch.Generator, config: IMMCTMConfig, alpha, restarts: int = 1,
+         device="cpu") -> IMMCTMState:
+    """γ_m,i ~ Uniform{1..100}, μ=0, Σ=I, λ=0, ν=1 for `restarts` lanes
+    (src/IMMCTM.jl:47-83); `alpha[m]` holds modality m's I_m values. The
+    draws come from `generator` on its own device and are moved to
+    `device`, so a seed gives the same init on every device."""
+    dt, R, D, MK = config.dtype, restarts, config.D, config.MK
+    gdev = generator.device
+    gamma = tuple(
+        tuple(
+            torch.randint(1, 101, (R, config.K[m], config.J[m][i]), generator=generator,
+                          device=gdev).to(device=device, dtype=dt)
+            for i in range(config.I[m])
+        )
+        for m in range(config.M)
+    )
+    lam = torch.zeros((R, D, MK), dtype=dt, device=device)
+    nu = torch.ones((R, D, MK), dtype=dt, device=device)
+    eye = torch.eye(MK, dtype=dt, device=device).expand(R, MK, MK).clone()
+    return IMMCTMState(
+        mu=torch.zeros((R, MK), dtype=dt, device=device),
+        Sigma=eye,
+        invSigma=eye.clone(),
+        alpha=tuple(
+            torch.as_tensor([float(a) for a in am], dtype=dt, device=device)
+            .expand(R, config.I[m]).clone()
+            for m, am in enumerate(alpha)
+        ),
+        gamma=gamma,
+        Elnphi=tuple(tuple(dirichlet_expectation(g, axis=-1) for g in gm) for gm in gamma),
+        lam=lam,
+        nu=nu,
+        zeta=update_zeta(lam, nu, config),
+        # zero log-weights: the uniform 1/K init θ (src/IMMCTM.jl:52-58)
+        lam_pre=lam,
+        logw_pre=tuple(
+            torch.zeros((R, config.V[m], config.K[m]), dtype=dt, device=device)
+            for m in range(config.M)
+        ),
+    )
+
+
+# ---------------------------------------------------------------------------
+# E-step and M-step (src/IMMCTM.jl:90-244, 430-435)
+# ---------------------------------------------------------------------------
+
+
+def summed_Elnphi(Elnphi_m: Sequence[torch.Tensor], F_m: Sequence[torch.Tensor]) -> torch.Tensor:
+    """(R, V_m, K_m): Σ_i Elnϕ_m,i[k, features[v, i]] as one-hot products
+    (replaces the k×w×i loop at src/IMMCTM.jl:152-172)."""
+    total = F_m[0] @ Elnphi_m[0].mT
+    for i in range(1, len(F_m)):
+        total = total + F_m[i] @ Elnphi_m[i].mT
+    return total
+
+
+def smoothed_logw(state: IMMCTMState, F, config: IMMCTMConfig) -> Tuple[torch.Tensor, ...]:
+    """Training log-weights Σ_i E[ln ϕ] as (R, V_m, K_m) tables
+    (src/IMMCTM.jl:152-172)."""
+    return tuple(summed_Elnphi(state.Elnphi[m], F[m]) for m in range(config.M))
+
+
+def reconstruct_theta(state: IMMCTMState, config: IMMCTMConfig) -> Tuple[torch.Tensor, ...]:
+    """The θ of the last E-step, rebuilt from the (λ_pre, logw_pre) snapshot."""
+    return theta_from(state.lam_pre, state.logw_pre, config)
+
+
+def e_step_moments(state: IMMCTMState, X, N, F, config: IMMCTMConfig):
+    """Batched `fitdoc!` (src/IMMCTM.jl:430-435) computing only the θ moments
+    the CAVI iteration consumes, through the shared ctm_base.theta_moments
+    and solve_eta. Returns (state, scatters tuple of (R, K_m, V_m))."""
+    logw = smoothed_logw(state, F, config)
+    sumtheta, scatters = theta_moments(state.lam, logw, X, config)
+    zeta, nu, lam = solve_eta(
+        state.lam, state.nu, N, sumtheta, state.mu, state.invSigma, config
+    )
+    return (
+        state._replace(zeta=zeta, lam_pre=state.lam, logw_pre=logw, nu=nu, lam=lam),
+        scatters,
+    )
+
+
+def update_gamma(state: IMMCTMState, F, config: IMMCTMConfig, scatter) -> IMMCTMState:
+    """γ_m,i = α_m,i + scatter_m @ F_m,i from the E-step's (R, K_m, V_m)
+    count-weighted θ sums, then E[ln ϕ] (src/IMMCTM.jl:199-223)."""
+    gamma = tuple(
+        tuple(state.alpha[m][:, i, None, None] + scatter[m] @ F[m][i]
+              for i in range(config.I[m]))
+        for m in range(config.M)
+    )
+    return state._replace(
+        gamma=gamma,
+        Elnphi=tuple(tuple(dirichlet_expectation(g, axis=-1) for g in gm) for gm in gamma),
+    )
+
+
+def phi_point(gamma) -> Tuple[Tuple[torch.Tensor, ...], ...]:
+    """ϕ_m,i[k, :] = γ_m,i[k, :] normalized over values (src/IMMCTM.jl:440-449)."""
+    return tuple(tuple(g / g.sum(dim=-1, keepdim=True) for g in gm) for gm in gamma)
+
+
+def vocab_topic_probs(phi_m: Sequence[torch.Tensor], F_m: Sequence[torch.Tensor]) -> torch.Tensor:
+    """(R, K_m, V_m): p(v|k) = Π_i ϕ_m,k,i[features[v, i]] (src/IMMCTM.jl:362-386)."""
+    return torch.exp(summed_Elnphi(tuple(torch.log(p) for p in phi_m), F_m)).mT
+
+
+# ---------------------------------------------------------------------------
+# ELBO and log-likelihood (src/IMMCTM.jl:247-428)
+# ---------------------------------------------------------------------------
+
+
+def modality_loglikelihoods(X, lam, gamma, F, config: IMMCTMConfig) -> torch.Tensor:
+    """(R, M) per-modality per-word mixture log-likelihood with props =
+    softmax(λ block) and ϕ normalized from γ (src/IMMCTM.jl:388-428)."""
+    props = props_from_lam(lam, config)
+    phi = phi_point(gamma)
+    return torch.stack(
+        [safe_xlogy(X[m], props[m] @ vocab_topic_probs(phi[m], F[m])).sum(dim=(-2, -1))
+         / X[m].sum()
+         for m in range(config.M)],
+        dim=-1,
+    )
+
+
+def calculate_elbo(state: IMMCTMState, X, N, F, config: IMMCTMConfig) -> torch.Tensor:
+    """The 7-term ELBO, MMCTM's with per-feature Dirichlet terms
+    (src/IMMCTM.jl:247-360), (R,). Uses the last E-step's θ (reconstructed
+    from the carried snapshot)."""
+    theta = reconstruct_theta(state, config)
+    sumtheta = torch.cat(
+        [torch.einsum("dv,rdvk->rdk", X[m], theta[m]) for m in range(config.M)], dim=-1
+    )
+    t = elbo_eta_z_term_dict(
+        state.lam, state.nu, state.zeta, state.mu, state.invSigma, sumtheta, N, config
+    )
+    ElnPphi = ElnPX = ElnQphi = ElnQZ = 0.0
+    for m in range(config.M):
+        for i in range(config.I[m]):
+            a = state.alpha[m][:, i]
+            ElnPphi = ElnPphi - config.K[m] * logmvbeta_symmetric(a, config.J[m][i])
+            ElnPphi = ElnPphi + (a - 1.0) * state.Elnphi[m][i].sum(dim=(-2, -1))
+            ElnQphi = ElnQphi - logmvbeta(state.gamma[m][i], axis=-1).sum(-1)
+            ElnQphi = ElnQphi + ((state.gamma[m][i] - 1.0) * state.Elnphi[m][i]).sum(dim=(-2, -1))
+        ElnPX = ElnPX + torch.einsum(
+            "dv,rdvk,rvk->r", X[m], theta[m], summed_Elnphi(state.Elnphi[m], F[m])
+        )
+        ElnQZ = ElnQZ + torch.einsum("dv,rdvk->r", X[m], xlogx(theta[m]))
+    eta_z = t["ElnPeta"] + t["ElnPZ"] - t["ElnQeta"]
+    return ElnPphi + eta_z + ElnPX - ElnQphi - ElnQZ
+
+
+# ---------------------------------------------------------------------------
+# Fit (src/IMMCTM.jl:437-466)
+# ---------------------------------------------------------------------------
+
+
+def fit_step_fn(X, N, F, config: IMMCTMConfig):
+    """One CAVI iteration as a closure (src/IMMCTM.jl:441-451): batched
+    E-step (ζ/θ/ν/λ ∀d) → μ → Σ → γ → per-modality log-likelihoods."""
+
+    def step(s):
+        s, scatters = e_step_moments(s, X, N, F, config)
+        s = s._replace(mu=update_mu_vec(s.lam))
+        Sigma, invSigma = update_Sigma_mats(s.lam, s.nu, s.mu, config.D)
+        s = update_gamma(s._replace(Sigma=Sigma, invSigma=invSigma), F, config, scatters)
+        return s, modality_loglikelihoods(X, s.lam, s.gamma, F, config)
+
+    return step
+
+
+def finalize_fit(carry, X, N, F, config: IMMCTMConfig) -> IMMCTMFitResult:
+    """A finished CAVI carry as an IMMCTMFitResult (final ELBO as at
+    src/IMMCTM.jl:463)."""
+    state, ll_buf, n_iters, done = carry
+    lanes = torch.arange(ll_buf.shape[0], device=ll_buf.device)
+    return IMMCTMFitResult(
+        state=state,
+        ll_history=ll_buf,
+        n_iters=n_iters,
+        converged=carry_converged(ll_buf, n_iters, done),
+        elbo=calculate_elbo(state, X, N, F, config),
+        ll=ll_buf[lanes, n_iters - 1],
+    )
+
+
+def fit(state: IMMCTMState, X, F, config: IMMCTMConfig, maxiter: int = 100,
+        tol: float = 1e-4) -> IMMCTMFitResult:
+    """Full IMMCTM CAVI over every lane of `state` (src/IMMCTM.jl:437-466),
+    with TF32 off for all float32 products. X (dense (D, V_m)) and F (one-hot
+    (V_m, J_mi)) are tensors on the state's device and dtype."""
+    X = tuple(X)
+    with full_f32_matmuls():
+        N = counts_per_doc(X)
+        carry = run_cavi(state, config, maxiter, tol, fit_step_fn(X, N, F, config))
+        return finalize_fit(carry, X, N, F, config)
+
+
+# ---------------------------------------------------------------------------
+# Stateful wrapper mirroring the Julia API (src/IMMCTM.jl:30-88)
+# ---------------------------------------------------------------------------
+
+
+class IMMCTM:
+    """Stateful single-model wrapper with the reference's constructor/field
+    surface: ``IMMCTM(k, α, features, X)`` where α[m] is a scalar (broadcast
+    over the modality's features, src/IMMCTM.jl:80-88) or one value per
+    feature, `features[m]` is a (V_m, I_m) table of 1-based feature values
+    and X[doc][modality] an (n, 2) 1-based (vocab_index, count) matrix. The
+    state is one lane (R = 1) on `device`; its γ comes from a CPU generator
+    seeded with `seed`."""
+
+    def __init__(self, k, alpha, features, X, *, seed: int = 0,
+                 dtype: torch.dtype = torch.float32, device="cpu"):
+        self.features = [np.asarray(f) for f in features]
+        M = len(self.features)
+        if len(k) != M or len(alpha) != M:
+            raise ValueError("k and alpha must have one entry per modality")
+        J = tuple(tuple(int(f[:, i].max()) for i in range(f.shape[1])) for f in self.features)
+        full_alpha = [
+            [float(v) for v in a] if np.ndim(a) > 0 else [float(a)] * len(J[m])
+            for m, a in enumerate(alpha)
+        ]
+        self.X = [[np.asarray(doc[m]) for m in range(M)] for doc in X]
+        self.config = IMMCTMConfig(
+            K=tuple(int(x) for x in k), V=tuple(int(f.shape[0]) for f in self.features),
+            D=len(X), dtype=dtype, J=J,
+        )
+        self.device = torch.device(device)
+        self.F = tuple(feature_onehots(self.features[m], J[m], dtype, self.device)
+                       for m in range(M))
+        self.Xdense = counts_tensors(
+            [sparse_to_dense([doc[m] for doc in self.X], self.config.V[m]) for m in range(M)],
+            self.config, self.device,
+        )
+        self.state = init(torch.Generator().manual_seed(seed), self.config, full_alpha,
+                          device=self.device)
+        self.converged = False
+        self.elbo = None
+        self.ll = None
+
+    @property
+    def K(self):
+        return list(self.config.K)
+
+    @property
+    def D(self):
+        return self.config.D
+
+    @property
+    def M(self):
+        return self.config.M
+
+    @property
+    def I(self):
+        return list(self.config.I)
+
+    @property
+    def J(self):
+        return [list(j) for j in self.config.J]
+
+    @property
+    def V(self):
+        return list(self.config.V)
+
+    @property
+    def N(self):
+        return [[int(doc[m][:, 1].sum()) if len(doc[m]) else 0 for m in range(self.M)]
+                for doc in self.X]
+
+    @property
+    def mu(self):
+        return self.state.mu[0].cpu().numpy()
+
+    @property
+    def Sigma(self):
+        return self.state.Sigma[0].cpu().numpy()
+
+    @property
+    def invSigma(self):
+        return self.state.invSigma[0].cpu().numpy()
+
+    @property
+    def alpha(self):
+        return [[float(v) for v in a[0].cpu()] for a in self.state.alpha]
+
+    def _per_topic(self, nested):
+        """[m][i] (1, K_m, J_mi) tensors in the reference's [m][k][i] layout."""
+        arrays = [[g[0].cpu().numpy() for g in gm] for gm in nested]
+        return [[[arrays[m][i][k] for i in range(self.config.I[m])]
+                 for k in range(self.config.K[m])]
+                for m in range(self.M)]
+
+    @property
+    def gamma(self):
+        """γ[m][k][i]: vectors of length J_mi (the reference's nesting)."""
+        return self._per_topic(self.state.gamma)
+
+    @property
+    def Elnphi(self):
+        return self._per_topic(self.state.Elnphi)
+
+    @property
+    def phi(self):
+        return self._per_topic(phi_point(self.state.gamma))
+
+    @property
+    def props(self):
+        """props[d][m]: one document's per-topic proportions (reference layout)."""
+        p = [x[0].cpu().numpy() for x in props_from_lam(self.state.lam, self.config)]
+        return [[p[m][d] for m in range(self.M)] for d in range(self.D)]
+
+    @property
+    def lam(self):
+        return list(self.state.lam[0].cpu().numpy())
+
+    @property
+    def nu(self):
+        return list(self.state.nu[0].cpu().numpy())
+
+    @property
+    def zeta(self):
+        return list(self.state.zeta[0].cpu().numpy())
+
+    @property
+    def theta(self):
+        """θ[d][m]: (K_m, n_dm) responsibilities over the document's observed
+        terms, from the last E-step."""
+        dense = [t[0].cpu().numpy() for t in reconstruct_theta(self.state, self.config)]
+        return [[dense[m][d, doc[m][:, 0].astype(np.int64) - 1, :].T for m in range(self.M)]
+                for d, doc in enumerate(self.X)]
+
+    def fit(self, maxiter: int = 100, tol: float = 1e-4):
+        """`fit!` (src/IMMCTM.jl:437-466), resuming from the current state.
+        Returns the per-iteration list of per-modality log-likelihoods."""
+        result = fit(self.state, self.Xdense, self.F, self.config, maxiter=maxiter, tol=tol)
+        self.state = result.state
+        n = int(result.n_iters[0])
+        self.converged = bool(result.converged[0])
+        self.elbo = float(result.elbo[0])
+        self.ll = [float(v) for v in result.ll[0].cpu()]
+        return [[float(v) for v in row] for row in result.ll_history[0, :n].cpu()]
+
+    def __repr__(self):
+        status = (
+            f"fitted, ll={[round(v, 5) for v in self.ll]}" if self.ll is not None else "unfitted"
+        )
+        return f"IMMCTM(K={self.K}, D={self.D}, V={self.V}, {status})"

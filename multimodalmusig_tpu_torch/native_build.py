@@ -12,14 +12,24 @@ in several processes never load a half-written file. The compiler's output
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 from typing import Sequence
 
-__all__ = ["BUILD_DIR", "build_shared_library"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_shared_library", "cuda_function", "nvcc"]
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+
+# Hopper only (sm_90a), full-precision float32 (no --use_fast_math), a plain
+# C interface, and ptxas's register and shared-memory report in build.log.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
 
 
 def build_shared_library(
@@ -53,3 +63,31 @@ def build_shared_library(
         )
     os.replace(tmp_path, lib_path)
     return lib_path
+
+
+def nvcc() -> str:
+    """The CUDA compiler: $CUDA_HOME/bin/nvcc, else $CUDA_PATH's, else
+    /usr/local/cuda's."""
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    return os.path.join(cuda_home, "bin", "nvcc")
+
+
+_cuda_lock = threading.Lock()
+_cuda_functions = {}
+
+
+def cuda_function(name: str, symbol: str, argtypes):
+    """Compile csrc/<name>.cu with nvcc and NVCC_FLAGS (build_shared_library)
+    once per process, load it, and return (library path, its C function
+    `symbol` with `argtypes` and an int return). Raises if nvcc is missing
+    or the compile fails."""
+    with _cuda_lock:
+        if name not in _cuda_functions:
+            path = build_shared_library(
+                name, [os.path.join(CSRC_DIR, f"{name}.cu")], [nvcc(), *NVCC_FLAGS]
+            )
+            fn = getattr(ctypes.CDLL(path), symbol)
+            fn.restype = ctypes.c_int
+            fn.argtypes = list(argtypes)
+            _cuda_functions[name] = (path, fn)
+        return _cuda_functions[name]

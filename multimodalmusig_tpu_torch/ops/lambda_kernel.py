@@ -16,12 +16,10 @@ the kernel.
 from __future__ import annotations
 
 import ctypes
-import os
-import threading
 
 import torch
 
-from ..native_build import build_shared_library
+from ..native_build import cuda_function
 from .solvers import CG_ITER_F32_CAP, LAMBDA_POLISH_ITERS, maximize_lambda
 
 __all__ = [
@@ -33,43 +31,22 @@ __all__ = [
     "LAUNCHES",
 ]
 
-# One lane per coordinate in a group of at most one warp.
-KERNEL_MAX_MK = 32
+# The TPU kernel's PALLAS_MAX_MK: one lane per coordinate in a group of at
+# most four warps.
+KERNEL_MAX_MK = 128
 
 # Kernel launches since import (or since a caller last reset it to 0).
 LAUNCHES = 0
 
-_SRC = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc", "lambda_newton.cu"
-)
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
-_lock = threading.Lock()
-_lib = None
-_lib_path = None
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    return os.path.join(cuda_home, "bin", "nvcc")
+# lam0, nu, Ndivzeta, sumtheta, mu, invSigma, out; R, D, MK, n_iter,
+# cg_iter, polish_iter; stream
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def build() -> str:
     """Compile the kernel (once per source/flag hash) and load it; return
     the library's path. Raises if nvcc is missing or the compile fails."""
-    global _lib, _lib_path
-    with _lock:
-        if _lib is None:
-            path = build_shared_library("lambda_newton", [_SRC], [_nvcc(), *_NVCC_FLAGS])
-            lib = ctypes.CDLL(path)
-            lib.lambda_newton_launch.restype = ctypes.c_int
-            lib.lambda_newton_launch.argtypes = (
-                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-            )
-            _lib, _lib_path = lib, path
-        return _lib_path
+    return cuda_function("lambda_newton", "lambda_newton_launch", _ARGTYPES)[0]
 
 
 def maximize_lambda_restarts_plain(lam0, nu, Ndivzeta, sumtheta, mu, invSigma,
@@ -97,8 +74,7 @@ def maximize_lambda_restarts(lam0, nu, Ndivzeta, sumtheta, mu, invSigma,
     R, D, MK = lam0.shape
     if MK > KERNEL_MAX_MK:
         raise ValueError(
-            f"MK={MK} exceeds the λ kernel's limit of {KERNEL_MAX_MK} topics "
-            "(one warp lane per coordinate)"
+            f"MK={MK} exceeds the λ kernel's limit of {KERNEL_MAX_MK} topics"
         )
     if lam0.device.type == "cpu":
         return maximize_lambda_restarts_plain(
@@ -120,12 +96,12 @@ def maximize_lambda_restarts(lam0, nu, Ndivzeta, sumtheta, mu, invSigma,
         cg_iter = min(MK, CG_ITER_F32_CAP)
     if polish_iter is None:
         polish_iter = LAMBDA_POLISH_ITERS
-    build()
+    _, launch = cuda_function("lambda_newton", "lambda_newton_launch", _ARGTYPES)
     args = [t.contiguous() for t in args]
     out = torch.empty_like(args[0])
     with torch.cuda.device(lam0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib.lambda_newton_launch(
+        rc = launch(
             *(t.data_ptr() for t in args), out.data_ptr(),
             R, D, MK, int(n_iter), int(cg_iter), int(polish_iter), stream,
         )

@@ -1,6 +1,7 @@
 """Best-of-N restart fitting, with restarts as a leading tensor dimension.
 
-Counterpart of the unchunked path of multimodalmusig_tpu/parallel/restarts.py,
+Counterpart of the unchunked paths of multimodalmusig_tpu/parallel/restarts.py
+(MMCTM and IMMCTM),
 which replaced the reference's `Distributed.pmap` restart fan-out
 (scripts/run_mmctm.jl:99-161) by a `vmap` axis. Here every state tensor
 carries the R lanes as its first dimension and one host loop drives them
@@ -14,8 +15,11 @@ from typing import Union
 
 import torch
 
+from ..models import immctm as immctm_mod
 from ..models import mmctm as mmctm_mod
+from ..models.immctm import IMMCTM, IMMCTMConfig, IMMCTMFitResult, IMMCTMState
 from ..models.mmctm import MMCTMConfig, MMCTMFitResult, MMCTMState
+from .rescore import rescore_immctm_f64
 
 __all__ = [
     "dense_rank",
@@ -24,6 +28,8 @@ __all__ = [
     "lane",
     "fit_restarts_from_states",
     "fit_restarts",
+    "fit_immctm_restarts_from_states",
+    "fit_immctm_restarts",
 ]
 
 
@@ -87,3 +93,45 @@ def fit_restarts(seed_or_generator: Union[int, torch.Generator], X, config: MMCT
         generator, config, X, alpha, restarts=restarts, init_method=init_method, device=device
     )
     return fit_restarts_from_states(state, X, config, maxiter=maxiter, tol=tol)
+
+
+def fit_immctm_restarts_from_states(state: IMMCTMState, X, F, config: IMMCTMConfig,
+                                    maxiter: int = 1000, tol: float = 1e-4) -> IMMCTMFitResult:
+    """Fit every lane of a batched initial IMMCTM `state` (from
+    `immctm.init`, or injected by `interop.immctm_state_from_numpy`). X (dense
+    (D, V_m) counts) and F (one-hot (V_m, J_mi) features) are moved to the
+    state's device and dtype."""
+    device = state.lam.device
+    X = mmctm_mod.counts_tensors(X, config, device)
+    F = tuple(tuple(torch.as_tensor(f).to(device=device, dtype=config.dtype) for f in Fm)
+              for Fm in F)
+    return immctm_mod.fit(state, X, F, config, maxiter=maxiter, tol=tol)
+
+
+def fit_immctm_restarts(k, alpha, features, X, restarts: int = 100, maxiter: int = 1000,
+                        tol: float = 1e-4, seed: int = 147959412,
+                        dtype: torch.dtype = torch.float32, device="cpu",
+                        rescore_f64: bool = True) -> IMMCTM:
+    """Best-of-N IMMCTM fitting (the unchunked branch of the JAX package's
+    fit_immctm_restarts, restarts.py:1685-1762): `restarts` lanes initialized
+    from a CPU generator seeded with `seed`, fit as one batch on `device`,
+    then one lane selected by the minimum mean dense rank of |ll| across
+    modalities (run_mmctm.jl:136-147), over exact float64 re-scores of every
+    lane's final state by default (parallel/rescore.py). The arguments are
+    the `IMMCTM` wrapper's. Returns that wrapper holding the selected lane;
+    its `restart_result` is the batched IMMCTMFitResult of all lanes."""
+    model = IMMCTM(k, alpha, features, X, dtype=dtype, device=device)
+    cfg = model.config
+    state = immctm_mod.init(torch.Generator().manual_seed(int(seed)), cfg, model.alpha,
+                            restarts=restarts, device=model.device)
+    result = fit_immctm_restarts_from_states(state, model.Xdense, model.F, cfg,
+                                             maxiter=maxiter, tol=tol)
+    score = (rescore_immctm_f64(result.state.lam, result.state.gamma, model.Xdense, model.F, cfg)
+             if rescore_f64 else result.ll)
+    sel = lane(result, int(pick_optimal_restart(score)))
+    model.state = sel.state
+    model.converged = bool(sel.converged[0])
+    model.elbo = float(sel.elbo[0])
+    model.ll = [float(v) for v in sel.ll[0].cpu()]
+    model.restart_result = result
+    return model

@@ -11,8 +11,13 @@ bundled BRCA-EU counts) for `--restarts` lanes on the card and prints:
     M-step, γ, log-likelihoods, and the rest: N/ζ, μ, lane freezing), each
     synchronized, so a phase's time includes the launches it issues;
   * the kernels by device time;
-  * the iteration time with the plain PyTorch λ solver in place of the CUDA
-    kernel, in turns kernel, plain, plain, kernel.
+  * the iteration time with the plain PyTorch λ solver in place of the λ
+    kernel, and with the factorized θ schedule in place of the θ kernel, in
+    turns kernels, plain λ, factorized θ, factorized θ, plain λ, kernels,
+    twice;
+  * the host time of one θ-moments call (both modalities) by each route,
+    over 200 back-to-back calls with no synchronization inside, which is
+    what a launch-bound iteration pays.
 Needs a CUDA card; exits with an error without one.
 """
 
@@ -25,7 +30,7 @@ import time
 import torch
 
 from .models import ctm_base, mmctm
-from .ops import lambda_kernel
+from .ops import lambda_kernel, theta_kernel
 from .utils.data import BRCA_FILES, brca_counts_path
 from .utils.fast_tsv import read_counts_tsv
 
@@ -39,6 +44,11 @@ _PHASES = (
     ("gamma, E[ln phi]", mmctm, "update_gamma"),
     ("log-likelihoods", mmctm, "modality_loglikelihoods"),
 )
+
+
+# The iteration's variants, in turns: both kernels; the plain λ solver; the
+# factorized θ schedule.
+_ARMS = ("kernels", "plain λ", "factorized θ", "factorized θ", "plain λ", "kernels")
 
 
 def _setup(restarts: int):
@@ -57,7 +67,7 @@ def _setup(restarts: int):
     for _ in range(10):  # leave the cold start behind
         state, _ = iteration(state)
     torch.cuda.synchronize()
-    return state, iteration
+    return state, iteration, Xt, config
 
 
 def _wall_ms(iteration, state, steps):
@@ -77,21 +87,43 @@ def main(argv=None):
     if not torch.cuda.is_available():
         sys.exit("profile_step: needs a CUDA card")
     lambda_kernel.build()
+    theta_kernel.build()
     with ctm_base.full_f32_matmuls():
-        state, iteration = _setup(args.restarts)
+        state, iteration, X, config = _setup(args.restarts)
         steps = args.steps
 
         kernel_solve = lambda_kernel.maximize_lambda_restarts
-        plain = lambda_kernel.maximize_lambda_restarts_plain
+        plain_solve = lambda_kernel.maximize_lambda_restarts_plain
+        theta_route = ctm_base._theta_route
         arms = []
-        for use_plain in (False, True, True, False):
-            lambda_kernel.maximize_lambda_restarts = plain if use_plain else kernel_solve
+        for arm in _ARMS * 2:
+            if arm == "plain λ":
+                lambda_kernel.maximize_lambda_restarts = plain_solve
+            if arm == "factorized θ":
+                ctm_base._theta_route = lambda *a: "factorized"
             try:
-                arms.append(("plain" if use_plain else "kernel", _wall_ms(iteration, state, steps)))
+                arms.append((arm, _wall_ms(iteration, state, steps)))
             finally:
                 lambda_kernel.maximize_lambda_restarts = kernel_solve
+                ctm_base._theta_route = theta_route
         print(f"ms per CAVI iteration at R={args.restarts} (host clock, synchronized, "
               f"{steps} iterations each): " + ", ".join(f"{n} {ms:.4f}" for n, ms in arms))
+
+        logw = mmctm.smoothed_logw(state)
+        for route in ("kernel", "factorized", "factorized", "kernel"):
+            ctm_base._theta_route = lambda *a, route=route: route
+            try:
+                ctm_base.theta_moments(state.lam, logw, X, config)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    ctm_base.theta_moments(state.lam, logw, X, config)
+                torch.cuda.synchronize()
+                us = 1e6 * (time.perf_counter() - t0) / 200
+            finally:
+                ctm_base._theta_route = theta_route
+            print(f"theta moments by the {route} route: {us:.1f} us per call "
+                  "(host clock, 200 calls, one synchronize)")
 
         from torch.profiler import ProfilerActivity, profile
 

@@ -1,6 +1,6 @@
-"""The PyTorch port on a CUDA card: the λ kernel against its plain version,
-the dispatch rule, and a short fit on the card against the same fit in
-float64 on the CPU.
+"""The PyTorch port on a CUDA card: the λ and θ kernels against their plain
+versions, the dispatch rules, and short MMCTM and IMMCTM fits on the card
+against the same fits in float64 on the CPU.
 
 Every test is marked `cuda` and skips without a card. The file imports
 neither JAX nor the shared conftest fixtures, so it runs on a machine with
@@ -16,6 +16,7 @@ import torch
 import multimodalmusig_tpu_torch as mt
 from multimodalmusig_tpu_torch.models import ctm_base
 from multimodalmusig_tpu_torch.ops import lambda_kernel as lk
+from multimodalmusig_tpu_torch.ops import theta_kernel as tk
 from multimodalmusig_tpu_torch.ops.solvers import lambda_grad
 
 torch.set_num_threads(2)
@@ -30,7 +31,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the λ kernel is CUDA C++ with no CPU mode")
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ with no CPU mode")
     return torch.device("cuda")
 
 
@@ -52,6 +53,10 @@ def _problem(seed, R, D, MK, device):
     (3, 33, 19, {}),
     (2, 7, 32, {}),
     (1, 5, 1, {}),
+    (100, 560, 40, dict(n_iter=3, cg_iter=4, polish_iter=1)),
+    (3, 37, 40, {}),
+    (2, 19, 64, {}),
+    (3, 29, 128, {}),
 ])
 def test_kernel_matches_plain(cuda, R, D, MK, budgets):
     args = _problem(R * D + MK, R, D, MK, cuda)
@@ -84,12 +89,98 @@ def test_dispatch_sends_float32_to_the_kernel_and_float64_to_the_plain_solver(cu
     assert float((got32.double() - got64).abs().max()) <= ATOL
 
 
+def test_dispatch_above_the_kernel_limit_takes_the_plain_solver(cuda):
+    args = _problem(4, 1, 6, 129, cuda)
+    before = lk.LAUNCHES
+    got = ctm_base.solve_lambda(*args, n_iter=2, cg_iter=4, polish_iter=1)
+    assert lk.LAUNCHES == before and torch.isfinite(got).all()
+
+
 def test_wrong_dtype_or_mixed_devices_raise(cuda):
     args = _problem(3, 1, 8, 5, cuda)
     with pytest.raises(TypeError, match="float32"):
         lk.maximize_lambda_restarts(*(a.double() for a in args))
     with pytest.raises(ValueError, match="is on"):
         lk.maximize_lambda_restarts(*args[:5], args[5].cpu())
+
+
+def _theta_inputs(seed, R, D, V, K, device):
+    rng = np.random.default_rng(seed)
+    arrays = (rng.standard_normal((R, D, K)) * 2.0, rng.standard_normal((R, V, K)) - 4.0,
+              rng.integers(0, 30, (D, V)))
+    return [torch.as_tensor(a, dtype=torch.float32, device=device) for a in arrays]
+
+
+@pytest.mark.parametrize("R, D, V, K", [
+    (100, 560, 96, 7), (100, 560, 48, 7), (3, 33, 128, 11), (2, 8, 5, 2), (2, 40, 24, 128),
+])
+def test_theta_kernel_matches_plain_and_repeats_bit_identically(cuda, R, D, V, K):
+    args = _theta_inputs(R * D + V + K, R, D, V, K, cuda)
+    before = tk.LAUNCHES
+    got = tk.theta_moments_fused(*args)
+    again = tk.theta_moments_fused(*args)
+    want = tk.theta_moments_fused_plain(*args)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == before + 2
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=1e-4)
+
+
+def test_theta_kernel_reads_strided_views(cuda):
+    """λ's block of a wider (R, D, MK) tensor, and logw as E[ln ϕ]ᵀ, the
+    transpose of a (R, K, V) tensor."""
+    lam, logw, X = _theta_inputs(5, 3, 50, 20, 11, cuda)
+    full = torch.cat([torch.randn(3, 50, 4, device=cuda), lam], dim=-1)
+    got = tk.theta_moments_fused(full[..., 4:], logw.mT.contiguous().mT, X)
+    want = tk.theta_moments_fused(lam, logw, X)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_theta_moments_dispatch_on_the_card(cuda):
+    """CUDA float32 modalities launch the kernel; float64 keeps the
+    factorized schedule, which agrees."""
+    config = mt.MMCTMConfig(K=(7, 3), V=(96, 48), D=40, dtype=torch.float32)
+    lam, logw0, X0 = _theta_inputs(7, 2, 40, 96, 7, cuda)
+    _, logw1, X1 = _theta_inputs(8, 2, 40, 48, 3, cuda)
+    lam = torch.cat([lam, torch.randn(2, 40, 3, device=cuda)], dim=-1)
+    before = tk.LAUNCHES
+    st32, sc32 = ctm_base.theta_moments(lam, (logw0, logw1), (X0, X1), config)
+    assert tk.LAUNCHES == before + 2
+    st64, sc64 = ctm_base.theta_moments(lam.double(), (logw0.double(), logw1.double()),
+                                        (X0.double(), X1.double()), config)
+    assert tk.LAUNCHES == before + 2
+    torch.testing.assert_close(st32.double(), st64, rtol=2e-5, atol=1e-4)
+    for a, b in zip(sc32, sc64):
+        torch.testing.assert_close(a.double(), b, rtol=2e-5, atol=1e-4)
+
+
+def test_immctm_fit_on_the_card_matches_the_cpu_in_float64(cuda):
+    """3 lanes x 10 iterations of a small IMMCTM: float32 on the card (both
+    kernels) against float64 on the CPU (plain path), from the same seed and
+    with the same solver budgets, so only the precision differs."""
+    from multimodalmusig_tpu_torch.models import ilda, immctm
+
+    rng = np.random.default_rng(3)
+    features = [np.array([[a, b] for a in (1, 2, 3) for b in (1, 2, 3, 4)]),
+                np.array([[a, b] for a in (1, 2) for b in (1, 2, 3)])]
+    J = ((3, 4), (2, 3))
+    X = [rng.integers(0, 6, (30, len(f))).astype(np.float64) for f in features]
+    out = []
+    for dtype, device in ((torch.float32, cuda), (torch.float64, "cpu")):
+        config = immctm.IMMCTMConfig(K=(3, 2), V=(12, 6), D=30, dtype=dtype, J=J,
+                                     lambda_n_iter=3, lambda_cg_iter=4, lambda_polish_iter=1,
+                                     nu_n_iter=4)
+        F = tuple(ilda.feature_onehots(f, j, dtype, device) for f, j in zip(features, J))
+        state = immctm.init(torch.Generator().manual_seed(1), config, [[0.1, 0.1]] * 2,
+                            restarts=3, device=device)
+        lam_before, theta_before = lk.LAUNCHES, tk.LAUNCHES
+        res = mt.fit_immctm_restarts_from_states(state, X, F, config, maxiter=10, tol=0.0)
+        if device == cuda:
+            assert lk.LAUNCHES - lam_before == 10
+            assert tk.LAUNCHES - theta_before == 20
+        out.append(res.ll_history.cpu().double().numpy())
+    np.testing.assert_allclose(out[0], out[1], rtol=1e-4)
 
 
 def test_fit_on_the_card_matches_the_cpu_in_float64(cuda):

@@ -81,6 +81,17 @@ def test_plain_result_is_stationary(rng):
     assert float(g.abs().max()) < 1e-2
 
 
+@pytest.mark.parametrize("R, D, MK", [(2, 21, 40), (1, 9, 128)])
+def test_wrapper_above_one_warp_matches_jax_restart_kernel(rng, R, D, MK):
+    """MK > 32: the wrapper took MK ≤ 32 only and raised here. It now takes
+    MK ≤ 128, the TPU kernel's limit, and a CPU tensor gets the plain
+    version, which matches the JAX kernel."""
+    args = _problem(rng, R, D, MK)
+    got = lk.maximize_lambda_restarts(*_torch(args)).numpy()
+    want = np.asarray(jax_fused_restarts(*map(jnp.asarray, args), tile_b=128, interpret=True))
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
 def test_mk_over_the_kernel_limit_raises():
     big = torch.zeros((1, 4, lk.KERNEL_MAX_MK + 1))
     with pytest.raises(ValueError, match="exceeds the λ kernel's limit"):
