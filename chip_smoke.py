@@ -5,35 +5,54 @@
 
 Phases, each of which fails the run (non-zero exit) on any error:
   1. device: a CUDA card must be present; prints its name and power limit;
-  2. build: compiles both kernels with nvcc for sm_90a, one nvcc process
-     each, started together: the λ Newton/PCG solve (csrc/lambda_newton.cu)
-     and the θ moments (csrc/theta_moments.cu); prints the build times and
-     ptxas reports;
+  2. build: compiles the three kernels with nvcc for sm_90a, one nvcc
+     process each, started together: the fused η side (csrc/estep_eta.cu),
+     the λ Newton/PCG solve (csrc/lambda_newton.cu; both include
+     csrc/lambda_solve.cuh) and the θ moments (csrc/theta_moments.cu);
+     prints the build times and ptxas reports;
   3. λ kernel against its plain PyTorch version, both on the card, on seeded
      SPD problems: the main path's shape (100, 560, 14) with the f32 CAVI
      budgets (warm start) and the cold defaults, MK = 40 and 128 at
-     (100, 560) with the CAVI budgets, and ragged D at MK = 19, 40 and 128
-     with the cold defaults; prints both times (median of 20 CUDA-event
-     timings) at each (100, 560) shape;
-  4. θ kernel against its plain PyTorch version at the BRCA shapes
+     (100, 560) with the CAVI budgets, ragged D at MK = 19, 40 and 128
+     with the cold defaults, and the R = 1 entry `maximize_lambda_fused`;
+     prints both times (median of 20 CUDA-event timings) at each (100, 560)
+     shape;
+  4. η kernel against its plain PyTorch version: (100, 560, K=(7, 7)) at the
+     f32 CAVI budgets and the cold defaults, K=(20, 20) and (64, 64) at
+     (100, 560), a ragged M=3 case with odd D, a document with no counts in
+     one modality, and MK = 128 in three modalities; prints max |Δ| of ζ, ν
+     and λ and both times at each (100, 560) shape;
+  5. θ kernel against its plain PyTorch version at the BRCA shapes
      (100, 560, 96, 7) and (100, 560, 48, 7) and at the ragged
      (3, 33, 128, 11) and (2, 8, 5, 2), with bit-identical repeat launches;
      prints both times at the BRCA shapes;
-  5. main path: the best-of-100 MMCTM K=(7, 7), α=0.1 restart fit on the
+  6. main path: the best-of-100 MMCTM K=(7, 7), α=0.1 restart fit on the
      bundled BRCA-EU SNV+SV counts (D=560), float32, tol 1e-5, maxiter 1000,
-     through `fit_restarts(..., device="cuda")`, once warm and once timed;
-     checks that it went through both kernels, that at least 99 lanes are
-     finite and that the best ll per modality is within 5e-3 of the JAX
-     package's value; a short fit on the card is also held against the same
-     fit in float64 on the CPU;
-  6. single model: `MMCTM([7, 7], [0.1, 0.1], X, device="cuda").fit(maxiter=30)`,
-     the λ kernel's R = 1 entry;
-  7. IMMCTM path: `fit_immctm_restarts([7, 7], [0.1, 0.1], features, X,
-     restarts=100, maxiter=1000, tol=1e-5, device="cuda")` on the same
-     counts, with the SNV terms factored into substitution × context and the
-     SV terms into type × size/region (tools/families_bench.py:66-77), once
-     warm and once timed, with the gates of phase 5 against the JAX
-     package's IMMCTM value, and its own short card-vs-CPU check.
+     through `fit_restarts(...)` on the card, warm, then timed in turns on
+     the fused η route and on the "split" route (`ctm_base._eta_route`
+     forced): fused, split, split, fused. Checks that the fused runs launch
+     the η kernel and the split runs the λ kernel once per CAVI iteration,
+     the θ kernel twice, that at least 99 lanes are finite and that the best
+     ll per modality is within 5e-3 of the JAX package's value; a short fit
+     on the card is also held against the same fit in float64 on the CPU;
+  7. single model: `MMCTM([7, 7], [0.1, 0.1], X).fit(maxiter=30)` on the
+     card, the η kernel at R = 1;
+  8. IMMCTM path: `fit_immctm_restarts([7, 7], [0.1, 0.1], features, X,
+     restarts=100, maxiter=1000, tol=1e-5)` on the same counts, with the
+     SNV terms factored into substitution × context and the SV terms into
+     type × size/region (tools/families_bench.py:66-77), once warm and once
+     timed, with the gates of phase 6 against the JAX package's IMMCTM
+     value, and its own short card-vs-CPU check;
+  9. compaction: `fit_restarts(..., compact_schedule=...)` at tol 1e-5,
+     warm and then timed, arms in turns: R=100 with (178,), R=1000 with
+     (139, 57, 39) and R=1000 unchunked (the pins of bench.py:68-70);
+     prints each arm's wall, lane-iterations, boundaries and finite lanes;
+     gates: at least 99% finite lanes and the ll gate of phase 6;
+ 10. two-stage: `fit_mmctm_restarts([7, 7], [0.1, 0.1], docs, restarts=100)`
+     on the card, warm and then timed; prints the stage-1 winners, their
+     f64 scores and the selected ll; the selected lane must be finite and
+     converged, no more than 5e-3 below the JAX package's two-stage fit
+     per modality, and the η kernel must run once per CAVI iteration.
 The last two lines of standard output are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
 """
@@ -67,6 +86,19 @@ JAX_CPU_BEST_LL = (-3.93717622756958, -3.035710334777832)
 #       model.Xdense, model.F, model.state.alpha, config=model.config,
 #       maxiter=1000, tol=1e-5)   # the runner of fit_immctm_restarts
 JAX_CPU_BEST_IMMCTM_LL = (-3.955171585083008, -3.0439767837524414)
+# The selected model's ll of the JAX package's two-stage fit of the same
+# workload on the CPU, float32 (stage 1 at tol 1e-4, stage 2 at 1e-5):
+#   fit_mmctm_restarts([7, 7], [0.1, 0.1], docs, restarts=16,
+#                      dtype=jnp.float32)   # multimodalmusig_tpu.parallel.restarts
+JAX_CPU_TWO_STAGE_LL = (-3.9388527870178223, -3.034494638442993)
+ETA_RTOL, ETA_ATOL = 2e-5, 2e-6
+# (restarts, compaction schedule) of the compaction phase, in turns: the
+# JAX package's pins (bench.py:68-70), and R=1000 unchunked
+COMPACTION_ARMS = ((100, (178,)), (1000, (139, 57, 39)), (1000, None))
+# The card's published peaks (H100 SXM, 700 W): memory rate and float32
+# rate outside the tensor cores, for the kernels' bounds.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 
 
 def fail(msg):
@@ -168,7 +200,128 @@ def lambda_phase(lk):
             timings[MK] = (ms, plain_ms)
             print(f"λ time at ({R}, {D}, {MK}), f32 CAVI budgets: kernel {ms:.4f} ms, "
                   f"plain PyTorch {plain_ms:.4f} ms (median of 20 CUDA-event timings)")
+
+    # the R = 1 entry (the TPU kernel's maximize_lambda_fused, one shared μ/Σ⁻¹)
+    lam0, nu, ndz, st, mu, invS = (t[0] for t in spd_problem(gen, 1, 560, 14, "cuda"))
+    got = lk.maximize_lambda_fused(lam0, nu, ndz, st, mu, invS)
+    want = lk.maximize_lambda_restarts_plain(*(t[None] for t in (lam0, nu, ndz, st, mu, invS)))[0]
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    print(f"λ kernel R = 1 entry maximize_lambda_fused (560, 14), cold defaults: "
+          f"max|kernel - plain| = {err:.3e}")
+    if not torch.isfinite(got).all() or err > KERNEL_ATOL:
+        fail(f"the R = 1 λ entry disagrees with its plain version by {err:.3e}")
+    max_err = max(max_err, err)
     return max_err, timings[14]
+
+
+def solve_flops(MK, n_iter, cg_iter, polish_iter):
+    """Float operations of one (restart, document) λ solve
+    (csrc/lambda_solve.cuh), each add, multiply, divide, exp and sqrt
+    counted once: a matvec 2·MK², a PCG iteration a matvec and 12·MK plus
+    4·MK to start; a Newton step 2 matvecs, a PCG, 6 dot products and 16
+    line-search candidates of 4·MK; a polish step a matvec, a PCG, 3 dot
+    products or maxima and 6·MK."""
+    mv = 2 * MK * MK
+    pcg = cg_iter * (mv + 12 * MK) + 4 * MK
+    newton = 2 * mv + pcg + 6 * 2 * MK + 16 * 4 * MK
+    polish = mv + pcg + 3 * 2 * MK + 6 * MK
+    return n_iter * newton + polish_iter * polish
+
+
+def bound(n_bytes, flops):
+    """(ms, "bytes" or "operations"): the least time of the card for this
+    work, at its published memory rate and float32 rate."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def lambda_bound(R, D, MK, n_iter, cg_iter, polish_iter):
+    """The λ kernel: reads λ, ν, Ndivζ, sumθ (R, D, MK), μ (R, MK) and
+    Σ⁻¹ (R, MK, MK) once and writes λ (R, D, MK)."""
+    n_bytes = 4 * (5 * R * D * MK + R * MK + R * MK * MK)
+    return bound(n_bytes, R * D * solve_flops(MK, n_iter, cg_iter, polish_iter))
+
+
+def eta_bound(R, D, K, n_iter, cg_iter, polish_iter, nu_n_iter):
+    """The η kernel: reads λ, ν, sumθ (R, D, MK), N (D, M), μ and Σ⁻¹ once
+    and writes ζ (R, D, M), ν and λ (R, D, MK); per problem, besides the λ
+    solve, ζ and N/ζ take 4·MK operations, the ν setup 3·MK, each
+    fixed-point sweep 7·MK and each of the 4 Newton steps 16·MK."""
+    MK, M = sum(K), len(K)
+    n_bytes = 4 * (5 * R * D * MK + D * M + R * MK + R * MK * MK + R * D * M)
+    nu = (4 + 3 + 7 * nu_n_iter + 4 * 16) * MK
+    return bound(n_bytes, R * D * (solve_flops(MK, n_iter, cg_iter, polish_iter) + nu))
+
+
+def theta_bound(R, D, V, K):
+    """The θ kernel, per modality: reads λ's block (R, D, K), logw (R, V, K)
+    and X (D, V) once and writes sumθ (R, D, K) and the scatter (R, K, V).
+    The least work is the factorized schedule's (ctm_base.theta_moments):
+    per (r, d, v) cell three K-wide contractions of 2·K operations and one
+    division, and per λ and logw entry a subtraction of the max and an
+    exp."""
+    n_bytes = 4 * (2 * R * D * K + 2 * R * V * K + D * V)
+    return bound(n_bytes, R * (6 * D * V * K + D * V + 2 * (D * K + V * K)))
+
+
+def eta_problem(gen, R, D, K, zero_count=False):
+    """The λ problems of `spd_problem` with a starting λ near 0, document
+    counts N (D, M) and, optionally, a document with no counts in its second
+    modality (its sumθ there 0 too)."""
+    import torch
+
+    MK = sum(K)
+    _, nu, _, st, mu, invS = spd_problem(gen, R, D, MK, "cpu")
+    lam = 0.5 * torch.randn(R, D, MK, generator=gen)
+    N = torch.randint(0, 200, (D, len(K)), generator=gen).float()
+    if zero_count:
+        N[0, 1] = 0.0
+        st[:, 0, K[0]:K[0] + K[1]] = 0.0
+    return [t.to("cuda") for t in (lam, nu, N, st, mu, invS)]
+
+
+def eta_phase(ek):
+    import torch
+
+    cavi = dict(n_iter=3, cg_iter=4, polish_iter=1, nu_n_iter=4)
+    gen = torch.Generator().manual_seed(2)
+    max_err = 0.0
+    timings = {}
+    for label, (R, D, K), budgets, zero in (
+        ("main-path shape, f32 CAVI budgets", (RESTARTS, 560, (7, 7)), cavi, False),
+        ("main-path shape, cold defaults", (RESTARTS, 560, (7, 7)), {}, False),
+        ("K=(20, 20), f32 CAVI budgets", (RESTARTS, 560, (20, 20)), cavi, False),
+        ("K=(64, 64), f32 CAVI budgets", (RESTARTS, 560, (64, 64)), cavi, False),
+        ("ragged M=3, odd D=37, cold defaults", (3, 37, (3, 4, 5)), {}, False),
+        ("zero counts in one modality, cold defaults", (2, 9, (3, 2)), {}, True),
+        ("MK=128 in three modalities, cold defaults", (3, 29, (40, 50, 38)), {}, False),
+    ):
+        args = eta_problem(gen, R, D, K, zero)
+        got = ek.estep_eta_fused(*args, K, **budgets)
+        want = ek.estep_eta_fused_plain(*args, K, **budgets)
+        torch.cuda.synchronize()
+        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        print(f"η kernel vs plain [{label}] (R, D, K)=({R}, {D}, {K}): max|Δζ| = {errs[0]:.3e}, "
+              f"max|Δν| = {errs[1]:.3e}, max|Δλ| = {errs[2]:.3e}")
+        if not all(torch.isfinite(g).all() for g in got):
+            fail(f"η kernel result not finite [{label}]")
+        for name, g, w in zip(("ζ", "ν"), got, want):
+            if not bool(((g - w).abs() <= ETA_ATOL + ETA_RTOL * w.abs()).all()):
+                fail(f"η kernel {name} disagrees with its plain version beyond rtol "
+                     f"{ETA_RTOL}, atol {ETA_ATOL} [{label}]")
+        if errs[2] > KERNEL_ATOL:
+            fail(f"η kernel λ disagrees with its plain version by {errs[2]:.3e} > "
+                 f"{KERNEL_ATOL} [{label}]")
+        max_err = max(max_err, *errs)
+        if R == RESTARTS:
+            ms = cuda_ms(lambda: ek.estep_eta_fused(*args, K, **budgets))
+            plain_ms = cuda_ms(lambda: ek.estep_eta_fused_plain(*args, K, **budgets))
+            timings[(K, bool(budgets))] = (ms, plain_ms)
+            print(f"η time at ({R}, {D}, {K}), {'f32 CAVI budgets' if budgets else 'cold defaults'}: "
+                  f"kernel {ms:.4f} ms, plain PyTorch {plain_ms:.4f} ms "
+                  "(median of 20 CUDA-event timings)")
+    return max_err, timings[((7, 7), True)]
 
 
 def theta_phase(tk):
@@ -243,16 +396,16 @@ def reset_counts(kernels):
 
 
 def ll_gates(label, ll, reference):
-    """Prints and checks the quality gates of an (R, M) ll: at least 99
-    finite lanes, and the best ll per modality no more than LL_SLACK below
-    the JAX package's CPU value."""
+    """Prints and checks the quality gates of an (R, M) ll: at least 99% of
+    the lanes finite, and the best ll per modality no more than LL_SLACK
+    below the JAX package's CPU value."""
     import numpy as np
 
     finite = np.isfinite(ll).all(axis=1)
     best = np.max(np.where(np.isfinite(ll), ll, -np.inf), axis=0)
     print(f"{label}: finite lanes {int(finite.sum())}/{len(ll)}, best ll per modality "
           f"{best.tolist()} (JAX CPU best-of-16 {list(reference)})")
-    if finite.sum() < 99:
+    if finite.sum() < 0.99 * len(ll):
         fail(f"{label}: only {int(finite.sum())}/{len(ll)} lanes finite")
     for m, (b, ref) in enumerate(zip(best, reference)):
         if not b >= ref - LL_SLACK:
@@ -330,102 +483,256 @@ def sync_probe(mt, X):
     print(f"device->host syncs inside one CAVI step: {len(syncs)} {syncs[:3]}")
 
 
-def main_path_phase(mt, lk, tk, X):
+def loop_iterations(max_n_iters, maxiter=MAXITER):
+    """Iterations the CAVI host loop runs for a batch whose slowest lane ends
+    after `max_n_iters`: it reads `done.all()` every DONE_CHECK_EVERY
+    iterations, so it stops at the next multiple, or at maxiter."""
+    from multimodalmusig_tpu_torch.models import ctm_base
+
+    every = ctm_base.DONE_CHECK_EVERY
+    return min(maxiter, -(-int(max_n_iters) // every) * every)
+
+
+def with_eta_route(route, fn):
+    """fn() with `ctm_base._eta_route` forced to `route` (None: as it is)."""
+    from multimodalmusig_tpu_torch.models import ctm_base
+
+    saved = ctm_base._eta_route
+    if route is not None:
+        ctm_base._eta_route = lambda *a: route
+    try:
+        return fn()
+    finally:
+        ctm_base._eta_route = saved
+
+
+def main_path_phase(mt, kernels, X):
+    """The R=100 fit, warm on both η routes, then timed in turns fused,
+    split, split, fused. Returns the launches of the timed runs."""
     import numpy as np
     import torch
 
+    ek, lk, tk = kernels
     config = mt.MMCTMConfig(K=(7, 7), V=(96, 48), D=560, dtype=torch.float32)
-    kw = dict(restarts=RESTARTS, maxiter=MAXITER, tol=TOL, device="cuda")
-    t0 = time.perf_counter()
-    mt.fit_restarts(SEED, X, config, [0.1, 0.1], **kw).ll.cpu()
-    print(f"main path warm-up run: {time.perf_counter() - t0:.3f} s")
+    kw = dict(restarts=RESTARTS, maxiter=MAXITER, tol=TOL)
+    for route in ("fused", "split"):
+        t0 = time.perf_counter()
+        with_eta_route(route, lambda: mt.fit_restarts(SEED, X, config, [0.1, 0.1], **kw).ll.cpu())
+        print(f"main path warm-up run, {route} η route: {time.perf_counter() - t0:.3f} s")
 
+    total = {"estep_eta": 0, "lambda_newton": 0, "theta_moments": 0}
+    walls = {"fused": [], "split": []}
+    for route in ("fused", "split", "split", "fused"):
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        res = with_eta_route(route, lambda: mt.fit_restarts(SEED, X, config, [0.1, 0.1], **kw))
+        ll = res.ll.cpu().double().numpy()
+        wall = time.perf_counter() - t0
+        launches = {"estep_eta": ek.LAUNCHES, "lambda_newton": lk.LAUNCHES,
+                    "theta_moments": tk.LAUNCHES}
+        walls[route].append(wall)
+        iters = res.n_iters.cpu().numpy()
+        n = loop_iterations(iters.max())
+        print(f"main path, {route} η route: R={RESTARTS} BRCA-EU MMCTM K=(7, 7) f32 tol={TOL}: "
+              f"wall {wall:.4f} s, {n} CAVI iterations, {1000 * wall / n:.4f} ms per CAVI "
+              f"iteration; kernel launches {launches}")
+        print(f"main path, {route} η route: iterations median {float(np.median(iters)):.1f} "
+              f"max {int(iters.max())}, converged {int(res.converged.sum())}/{RESTARTS}, "
+              f"pick_optimal_restart={int(mt.pick_optimal_restart(res.ll))}")
+        if tuple(res.ll.shape) != (RESTARTS, 2) or tuple(res.ll_history.shape) != (RESTARTS, MAXITER, 2):
+            fail(f"unexpected result shapes {tuple(res.ll.shape)}, {tuple(res.ll_history.shape)}")
+        want = ({"estep_eta": n, "lambda_newton": 0} if route == "fused"
+                else {"estep_eta": 0, "lambda_newton": n})
+        want["theta_moments"] = 2 * n
+        if launches != want:
+            fail(f"the {route} route's launches {launches} are not one η (fused) or λ (split) "
+                 f"launch and two θ launches per CAVI iteration: {want}")
+        ll_gates(f"main path, {route} η route", ll, JAX_CPU_BEST_LL)
+        total = {k: total[k] + launches[k] for k in total}
+    print(f"main path walls in turns: fused {walls['fused']} s, split {walls['split']} s")
+    return total
+
+
+def single_model_phase(mt, ek, X):
+    import numpy as np
+    import torch
+
+    docs = [[mt.make_count_matrix(X[m][d]) for m in range(2)] for d in range(X[0].shape[0])]
+    ek.LAUNCHES = 0
+    model = mt.MMCTM([7, 7], [0.1, 0.1], docs)
+    history = model.fit(maxiter=30)  # tol 1e-4
     torch.cuda.synchronize()
-    reset_counts((lk, tk))
-    t0 = time.perf_counter()
-    res = mt.fit_restarts(SEED, X, config, [0.1, 0.1], **kw)
-    ll = res.ll.cpu().double().numpy()
-    wall = time.perf_counter() - t0
-    launches = {"lambda_newton": lk.LAUNCHES, "theta_moments": tk.LAUNCHES}
-
-    iters = res.n_iters.cpu().numpy()
-    n = launches["lambda_newton"]
-    print(f"main path: R={RESTARTS} BRCA-EU MMCTM K=(7, 7) f32 tol={TOL}: wall {wall:.4f} s, "
-          f"{n} CAVI iterations (one λ-kernel launch each), "
-          f"{1000 * wall / max(n, 1):.4f} ms per CAVI iteration; kernel launches {launches}")
-    print(f"main path: iterations median {float(np.median(iters)):.1f} max {int(iters.max())}, "
-          f"converged {int(res.converged.sum())}/{RESTARTS}, "
-          f"pick_optimal_restart={int(mt.pick_optimal_restart(res.ll))}")
-    if tuple(res.ll.shape) != (RESTARTS, 2) or tuple(res.ll_history.shape) != (RESTARTS, MAXITER, 2):
-        fail(f"unexpected result shapes {tuple(res.ll.shape)}, {tuple(res.ll_history.shape)}")
-    if min(launches.values()) <= 0:
-        fail(f"the main path did not launch both kernels: {launches}")
-    ll_gates("main path", ll, JAX_CPU_BEST_LL)
+    launches = ek.LAUNCHES
+    print(f"single model on {model.device}: {len(history)} iterations, final ll {model.ll}, "
+          f"elbo {model.elbo}, {launches} η-kernel launches at R = 1")
+    if model.device.type != "cuda":
+        fail("the MMCTM wrapper did not default to the card")
+    if not (np.isfinite(model.ll).all() and np.isfinite(model.elbo)):
+        fail("single-model fit is not finite")
+    if launches != loop_iterations(len(history), maxiter=30):
+        fail("single-model fit did not launch the η kernel once per iteration")
     return launches
 
 
-def single_model_phase(mt, lk, X):
+def immctm_phase(mt, kernels, X, features):
     import numpy as np
     import torch
 
+    ek, lk, tk = kernels
     docs = [[mt.make_count_matrix(X[m][d]) for m in range(2)] for d in range(X[0].shape[0])]
-    before = lk.LAUNCHES
-    model = mt.MMCTM([7, 7], [0.1, 0.1], docs, device="cuda")
-    history = model.fit(maxiter=30)
-    torch.cuda.synchronize()
-    print(f"single model: {len(history)} iterations, final ll {model.ll}, "
-          f"elbo {model.elbo}, {lk.LAUNCHES - before} λ-kernel launches at R = 1")
-    if not (np.isfinite(model.ll).all() and np.isfinite(model.elbo)):
-        fail("single-model fit is not finite")
-    if lk.LAUNCHES - before != len(history):
-        fail("single-model fit did not launch the λ kernel once per iteration")
-
-
-def immctm_phase(mt, lk, tk, X, features):
-    import numpy as np
-    import torch
-
-    docs = [[mt.make_count_matrix(X[m][d]) for m in range(2)] for d in range(X[0].shape[0])]
-    kw = dict(restarts=RESTARTS, maxiter=MAXITER, tol=TOL, device="cuda")
+    kw = dict(restarts=RESTARTS, maxiter=MAXITER, tol=TOL)
     t0 = time.perf_counter()
     mt.fit_immctm_restarts([7, 7], [0.1, 0.1], features, docs, **kw)
     print(f"IMMCTM path warm-up run: {time.perf_counter() - t0:.3f} s")
 
     torch.cuda.synchronize()
-    reset_counts((lk, tk))
+    reset_counts(kernels)
     t0 = time.perf_counter()
     model = mt.fit_immctm_restarts([7, 7], [0.1, 0.1], features, docs, **kw)
     res = model.restart_result
     ll = res.ll.cpu().double().numpy()
     wall = time.perf_counter() - t0
-    launches = {"lambda_newton": lk.LAUNCHES, "theta_moments": tk.LAUNCHES}
+    launches = {"estep_eta": ek.LAUNCHES, "lambda_newton": lk.LAUNCHES,
+                "theta_moments": tk.LAUNCHES}
 
     iters = res.n_iters.cpu().numpy()
-    n = launches["lambda_newton"]
+    n = loop_iterations(iters.max())
     print(f"IMMCTM path: R={RESTARTS} BRCA-EU IMMCTM K=(7, 7) J={model.J} f32 tol={TOL}: "
           f"wall {wall:.4f} s (fit, f64 re-score and selection), {n} CAVI iterations, "
-          f"{1000 * wall / max(n, 1):.4f} ms per CAVI iteration; kernel launches {launches}")
+          f"{1000 * wall / n:.4f} ms per CAVI iteration; kernel launches {launches}")
     print(f"IMMCTM path: iterations median {float(np.median(iters)):.1f} max {int(iters.max())}, "
           f"converged {int(res.converged.sum())}/{RESTARTS}, selected lane ll {model.ll}")
     if tuple(res.ll.shape) != (RESTARTS, 2) or len(model.ll) != 2:
         fail(f"unexpected IMMCTM result shapes {tuple(res.ll.shape)}, {model.ll}")
-    if min(launches.values()) <= 0:
-        fail(f"the IMMCTM path did not launch both kernels: {launches}")
+    if launches != {"estep_eta": n, "lambda_newton": 0, "theta_moments": 2 * n}:
+        fail(f"the IMMCTM path did not launch the η kernel once and the θ kernel twice per "
+             f"CAVI iteration: {launches}")
     ll_gates("IMMCTM path", ll, JAX_CPU_BEST_IMMCTM_LL)
     if not np.isfinite(model.ll).all():
         fail(f"the selected IMMCTM lane is not finite: {model.ll}")
     return launches
 
 
+def compaction_phase(mt, kernels, X):
+    """The compaction arms, warm and then timed, in turns. Lane-iterations
+    (the batch size summed over the CAVI steps run) and boundaries come from
+    wrapping `mmctm.fit_step_fn` and `ctm_base.run_cavi_from`."""
+    import numpy as np
+    import torch
+    from multimodalmusig_tpu_torch.models import ctm_base
+    from multimodalmusig_tpu_torch.models import mmctm as mm
+
+    ek, lk, tk = kernels
+    config = mt.MMCTMConfig(K=(7, 7), V=(96, 48), D=560, dtype=torch.float32)
+    count = {"lane_iters": 0, "calls": 0}
+    step_fn, run_from = mm.fit_step_fn, ctm_base.run_cavi_from
+
+    def counting_step_fn(*a, **k):
+        step = step_fn(*a, **k)
+
+        def counted(state):
+            count["lane_iters"] += state.lam.shape[0]
+            return step(state)
+        return counted
+
+    def counting_run_from(*a, **k):
+        count["calls"] += 1
+        return run_from(*a, **k)
+
+    def run(R, schedule):
+        count.update(lane_iters=0, calls=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = mt.fit_restarts(SEED, X, config, [0.1, 0.1], restarts=R, maxiter=MAXITER, tol=TOL,
+                              compact_schedule=schedule)
+        ll = res.ll.cpu().double().numpy()
+        return time.perf_counter() - t0, res, ll
+
+    mm.fit_step_fn, ctm_base.run_cavi_from = counting_step_fn, counting_run_from
+    total = {"estep_eta": 0, "lambda_newton": 0, "theta_moments": 0}
+    try:
+        for R, schedule in COMPACTION_ARMS:
+            wall, _, _ = run(R, schedule)
+            print(f"compaction warm-up, R={R} schedule {schedule}: {wall:.3f} s")
+        for R, schedule in COMPACTION_ARMS:
+            reset_counts(kernels)
+            wall, res, ll = run(R, schedule)
+            launches = {"estep_eta": ek.LAUNCHES, "lambda_newton": lk.LAUNCHES,
+                        "theta_moments": tk.LAUNCHES}
+            iters = res.n_iters.cpu().numpy()
+            finite = int(np.isfinite(ll).all(axis=1).sum())
+            label = f"compaction R={R} schedule {schedule}"
+            print(f"{label}: wall {wall:.4f} s, lane-iterations {count['lane_iters']}, "
+                  f"boundaries {count['calls'] - 1}, CAVI iterations {launches['estep_eta']}, "
+                  f"finite lanes {finite}/{R}, lane iterations needed {int(iters.sum())} "
+                  f"(median {float(np.median(iters)):.1f}, max {int(iters.max())}), "
+                  f"converged {int(res.converged.sum())}/{R}; kernel launches {launches}")
+            if launches["estep_eta"] <= 0 or launches["theta_moments"] != 2 * launches["estep_eta"]:
+                fail(f"{label} did not run through the η and θ kernels: {launches}")
+            ll_gates(label, ll, JAX_CPU_BEST_LL)
+            total = {k: total[k] + launches[k] for k in total}
+    finally:
+        mm.fit_step_fn, ctm_base.run_cavi_from = step_fn, run_from
+    return total
+
+
+def two_stage_phase(mt, kernels, X):
+    import numpy as np
+    import torch
+    from multimodalmusig_tpu_torch.parallel.restarts import select_modality_winners_f64
+
+    ek, lk, tk = kernels
+    docs = [[mt.make_count_matrix(X[m][d]) for m in range(2)] for d in range(X[0].shape[0])]
+    t0 = time.perf_counter()
+    mt.fit_mmctm_restarts([7, 7], [0.1, 0.1], docs, restarts=RESTARTS, maxiter=MAXITER)
+    print(f"two-stage warm-up run: {time.perf_counter() - t0:.3f} s")
+
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    model = mt.fit_mmctm_restarts([7, 7], [0.1, 0.1], docs, restarts=RESTARTS, maxiter=MAXITER)
+    wall = time.perf_counter() - t0
+    launches = {"estep_eta": ek.LAUNCHES, "lambda_newton": lk.LAUNCHES,
+                "theta_moments": tk.LAUNCHES}
+    stage1 = model.restart_result
+    n1, n2 = loop_iterations(stage1.n_iters.max()), loop_iterations(len(model.ll_history))
+    print(f"two-stage: fit_mmctm_restarts R={RESTARTS} BRCA-EU K=(7, 7) f32 (stage 1 tol 1e-4, "
+          f"stage 2 tol 1e-5) on {model.device}: wall {wall:.4f} s (both stages, f64 re-scores, "
+          f"selection); CAVI iterations stage 1 {n1}, stage 2 {n2}; kernel launches {launches}")
+    best_m, info = select_modality_winners_f64(stage1, model.Xdense, model.config)
+    cand = list(info["rescored_lanes"])
+    scores = [float(info["ll_f64"][cand.index(best_m[m]), m]) for m in range(2)]
+    print(f"two-stage: stage-1 winners per modality {best_m.tolist()} of {len(cand)} re-scored "
+          f"lanes, their f64 ll {scores}; stage 1 converged {int(stage1.converged.sum())}/"
+          f"{RESTARTS}, iterations max {int(stage1.n_iters.max())}")
+    print(f"two-stage: selected model ll {model.ll}, converged {model.converged}, "
+          f"{len(model.ll_history)} stage-2 iterations, elbo {model.elbo} "
+          f"(JAX CPU two-stage best-of-16 {list(JAX_CPU_TWO_STAGE_LL)})")
+    if launches != {"estep_eta": n1 + n2, "lambda_newton": 0, "theta_moments": 2 * (n1 + n2)}:
+        fail(f"the two-stage path did not launch the η kernel once and the θ kernel twice per "
+             f"CAVI iteration: {launches}")
+    if not (np.isfinite(model.ll).all() and model.converged):
+        fail(f"the selected two-stage model is not finite and converged: {model.ll}")
+    for m, (b, ref) in enumerate(zip(model.ll, JAX_CPU_TWO_STAGE_LL)):
+        if not b >= ref - LL_SLACK:
+            fail(f"two-stage: modality {m}: selected ll {b} worse than the JAX value {ref} "
+                 f"by more than {LL_SLACK}")
+    return launches
+
+
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
     import multimodalmusig_tpu_torch as mt
+    from multimodalmusig_tpu_torch.ops import estep_kernel as ek
     from multimodalmusig_tpu_torch.ops import lambda_kernel as lk
     from multimodalmusig_tpu_torch.ops import theta_kernel as tk
 
+    kernels = (ek, lk, tk)
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     print(f"device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}); nvidia-smi: {smi}")
@@ -434,28 +741,55 @@ def main():
         t0 = time.perf_counter()
         return kernel.build(), time.perf_counter() - t0
 
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        builds = list(pool.map(timed_build, (lk, tk)))
+    with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source, started together
+        builds = list(pool.map(timed_build, kernels))
     for lib, sec in builds:
         print(f"build: {sec:.2f} s ({lib})")
         with open(lib.rsplit("/", 1)[0] + "/build.log") as f:
             print("build log:\n" + f.read().strip())
 
     lam_err, (lam_ms, lam_plain_ms) = lambda_phase(lk)
+    eta_err, (eta_ms, eta_plain_ms) = eta_phase(ek)
     theta_err, (theta_ms, theta_plain_ms) = theta_phase(tk)
     X, terms = load_brca()
     features = brca_features(*terms)
     reference_phase("MMCTM", mmctm_short_fit(mt, X))
     reference_phase("IMMCTM", immctm_short_fit(mt, X, features))
     sync_probe(mt, X)
-    mmctm_launches = main_path_phase(mt, lk, tk, X)
-    single_model_phase(mt, lk, X)
-    immctm_launches = immctm_phase(mt, lk, tk, X, features)
-    launches = {k: mmctm_launches[k] + immctm_launches[k] for k in mmctm_launches}
-    print(f"kernel launches on the driven paths: MMCTM {mmctm_launches}, IMMCTM {immctm_launches}")
+    paths = {
+        "main path (fused and split)": main_path_phase(mt, kernels, X),
+        "single model": {"estep_eta": single_model_phase(mt, ek, X), "lambda_newton": 0,
+                         "theta_moments": 0},
+        "IMMCTM": immctm_phase(mt, kernels, X, features),
+        "compaction": compaction_phase(mt, kernels, X),
+        "two-stage": two_stage_phase(mt, kernels, X),
+    }
+    launches = {k: sum(p[k] for p in paths.values()) for k in ("estep_eta", "lambda_newton",
+                                                                "theta_moments")}
+    print(f"kernel launches on the driven paths: {paths}")
+    if min(launches.values()) <= 0:
+        fail(f"a kernel was launched no time on the driven paths: {launches}")
 
+    eta_bound_ms, eta_by = eta_bound(RESTARTS, 560, (7, 7), 3, 4, 1, 4)
+    lam_bound_ms, lam_by = lambda_bound(RESTARTS, 560, 14, 3, 4, 1)
+    theta_bound_ms, theta_by = theta_bound(RESTARTS, 560, 96, 7)
+    print(f"bounds at the main-path shapes: η {eta_bound_ms:.5f} ms ({eta_by}), "
+          f"λ {lam_bound_ms:.5f} ms ({lam_by}), θ {theta_bound_ms:.5f} ms ({theta_by}); "
+          f"script time {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [{
+        "name": "estep_eta",
+        "route": "cuda",
+        "source": "multimodalmusig_tpu_torch/csrc/estep_eta.cu",
+        "replaces": "tools/pallas_experiments/estep_kernel.py:117",
+        "launches": launches["estep_eta"],
+        "max_abs_err": eta_err,
+        "ms": eta_ms,
+        "plain_ms": eta_plain_ms,
+        "bound_ms": eta_bound_ms,
+        "bound_by": eta_by,
+        "library_ms": None,
+    }, {
         "name": "lambda_newton",
         "route": "cuda",
         "source": "multimodalmusig_tpu_torch/csrc/lambda_newton.cu",
@@ -464,6 +798,9 @@ def main():
         "max_abs_err": lam_err,
         "ms": lam_ms,
         "plain_ms": lam_plain_ms,
+        "bound_ms": lam_bound_ms,
+        "bound_by": lam_by,
+        "library_ms": None,
     }, {
         "name": "theta_moments",
         "route": "cuda",
@@ -473,6 +810,9 @@ def main():
         "max_abs_err": theta_err,
         "ms": theta_ms,
         "plain_ms": theta_plain_ms,
+        "bound_ms": theta_bound_ms,
+        "bound_by": theta_by,
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -1,20 +1,26 @@
 """multimodalmusig_tpu_torch — the MMCTM and IMMCTM restart fits in PyTorch,
-with the λ Newton/PCG solve and the θ moments as hand-written CUDA kernels
-for Hopper (H100).
+with the fused η side of the E-step (ζ, ν and the λ Newton/PCG solve), the
+λ solve alone and the θ moments as hand-written CUDA kernels for Hopper
+(H100).
 
 The port of the JAX package `multimodalmusig_tpu`, which stays as the
 reference: the module names are the same, so each counterpart is easy to
 find. This package imports `torch` and never `jax` or the JAX package.
 
-Entry points:
-  * `fit_restarts(seed, X, config, alpha, restarts, ..., device="cuda")` —
-    best-of-N restarts as one batch (parallel/restarts.py);
-  * `MMCTM(k, alpha, X, device=...)` and `.fit()` — one model with the
-    reference's field surface (models/mmctm.py);
-  * `fit_immctm_restarts(k, alpha, features, X, restarts, ..., device="cuda")`
-    — best-of-N IMMCTM with f64 re-scored selection (parallel/restarts.py);
-  * `IMMCTM(k, alpha, features, X, device=...)` and `.fit()` — one
-    feature-factorized model (models/immctm.py).
+Entry points, each on the CUDA card unless the caller passes
+device="cpu" (without a card they raise):
+  * `fit_mmctm_restarts(k, alpha, X, restarts=100, ...)` — the reference
+    CLI's two-stage best-of-N MMCTM fit with f64 re-scored picks
+    (parallel/restarts.py; `two_stage_fit` is its engine);
+  * `fit_restarts(seed, X, config, alpha, restarts, ...,
+    compact_schedule=None)` — best-of-N restarts as one batch, optionally
+    with straggler compaction (parallel/restarts.py);
+  * `MMCTM(k, alpha, X)` and `.fit()` — one model with the reference's
+    field surface (models/mmctm.py);
+  * `fit_immctm_restarts(k, alpha, features, X, restarts, ...)` —
+    best-of-N IMMCTM with f64 re-scored selection (parallel/restarts.py);
+  * `IMMCTM(k, alpha, features, X)` and `.fit()` — one feature-factorized
+    model (models/immctm.py).
 """
 
 from .interop import immctm_state_from_numpy, state_from_numpy
@@ -27,16 +33,22 @@ from .models.mmctm import (
     fit,
     init_with_alpha,
 )
-from .ops import lambda_kernel, theta_kernel
-from .parallel.rescore import rescore_immctm_f64
+from .ops import estep_kernel, lambda_kernel, theta_kernel
+from .parallel.rescore import rescore_immctm_f64, rescore_mmctm_f64
 from .parallel.restarts import (
     fit_immctm_restarts,
     fit_immctm_restarts_from_states,
+    fit_mmctm_restarts,
     fit_restarts,
     fit_restarts_from_states,
     lane,
     pick_optimal_modality_restarts,
     pick_optimal_restart,
+    select_best_restart_f64,
+    select_modality_winners_f64,
+    suggest_compact_schedule,
+    two_stage_fit,
+    two_stage_fit_from_states,
 )
 from .utils.data import brca_counts_path, brca_data_dir
 from .utils.fast_tsv import read_counts_tsv
@@ -64,12 +76,20 @@ __all__ = [
     "fit_restarts_from_states",
     "fit_immctm_restarts",
     "fit_immctm_restarts_from_states",
+    "fit_mmctm_restarts",
+    "two_stage_fit",
+    "two_stage_fit_from_states",
+    "select_modality_winners_f64",
+    "select_best_restart_f64",
+    "suggest_compact_schedule",
+    "rescore_mmctm_f64",
     "rescore_immctm_f64",
     "lane",
     "pick_optimal_modality_restarts",
     "pick_optimal_restart",
     "state_from_numpy",
     "immctm_state_from_numpy",
+    "estep_kernel",
     "lambda_kernel",
     "theta_kernel",
     "brca_counts_path",

@@ -13,9 +13,10 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
-from ..ops import lambda_kernel, theta_kernel
+from ..ops import estep_kernel, lambda_kernel, theta_kernel
 from ..ops.convergence import MIN_ITERS_BEFORE_CONVERGENCE, relative_change
 from ..ops.solvers import (
     CG_F32_CAVI,
@@ -37,10 +38,14 @@ __all__ = [
     "resolved_budgets",
     "solve_lambda",
     "solve_eta",
+    "split_eta",
+    "check_device",
     "update_mu_vec",
     "update_Sigma_mats",
     "spd_inverse",
     "props_from_lam",
+    "make_cavi_carry",
+    "run_cavi_from",
     "run_cavi",
     "carry_converged",
     "elbo_eta_z_term_dict",
@@ -235,22 +240,68 @@ def solve_lambda(lam, nu, Ndivzeta, sumtheta, mu, invSigma,
     return maximize_lambda(lam, nu, Ndivzeta, sumtheta, mu, invSigma, **kw)
 
 
+def _eta_route(device_type: str, dtype: torch.dtype, MK: int) -> str:
+    """How `solve_eta` computes the η side: "fused" (the fused CUDA kernel,
+    ops/estep_kernel.py: ζ, N/ζ, ν and λ in one launch) for CUDA float32
+    with MK ≤ 128; "split" (ζ, N/ζ and the ν solve in PyTorch, then
+    `solve_lambda`, which `_lambda_route` sends to the λ kernel or the plain
+    solver) for CPU tensors, CUDA float64 and MK > 128."""
+    if device_type == "cuda" and dtype == torch.float32 and MK <= estep_kernel.KERNEL_MAX_MK:
+        return "fused"
+    return "split"
+
+
 def solve_eta(lam, nu, N, sumtheta, mu, invSigma, config):
     """The η side of one batched `fitdoc!` (src/MMCTM.jl:450-455, minus θ):
-    ζ (closed form) → N/ζ → ν solve → λ solve, for every lane and document.
-    Returns (ζ, ν', λ')."""
+    ζ (closed form) → N/ζ → ν solve → λ solve, for every lane and document,
+    routed by `_eta_route`. ζ and N/ζ come from the incoming λ and ν, the ν
+    solve reads the incoming λ, and the λ solve starts from the incoming λ
+    with the new ν. The route is a shape rule, not an error path: a kernel
+    that fails to build or launch raises. Returns (ζ, ν', λ')."""
     budgets = resolved_budgets(config)
-    zeta = update_zeta(lam, nu, config)
-    Ndivzeta = calculate_Ndivzeta(N, zeta, config)
-    diag = torch.diagonal(invSigma, dim1=-2, dim2=-1).unsqueeze(-2)
-    nu_kw = {} if budgets["nu_n_iter"] is None else {"n_iter": budgets["nu_n_iter"]}
-    nu2 = maximize_nu(nu, lam, Ndivzeta, diag, **nu_kw)
-    lam2 = solve_lambda(
-        lam, nu2, Ndivzeta, sumtheta, mu, invSigma,
+    if _eta_route(lam.device.type, lam.dtype, lam.shape[-1]) == "fused":
+        kw = {
+            kernel_name: budgets[field]
+            for kernel_name, field in (
+                ("n_iter", "lambda_n_iter"), ("cg_iter", "lambda_cg_iter"),
+                ("polish_iter", "lambda_polish_iter"), ("nu_n_iter", "nu_n_iter"),
+            )
+            if budgets[field] is not None
+        }
+        return estep_kernel.estep_eta_fused(lam, nu, N, sumtheta, mu, invSigma, config.K, **kw)
+    return split_eta(
+        lam, nu, N, sumtheta, mu, invSigma, config, solve_lambda, nu_n_iter=budgets["nu_n_iter"],
         n_iter=budgets["lambda_n_iter"], cg_iter=budgets["lambda_cg_iter"],
         polish_iter=budgets["lambda_polish_iter"],
     )
-    return zeta, nu2, lam2
+
+
+def split_eta(lam, nu, N, sumtheta, mu, invSigma, config, lambda_solver, nu_n_iter=None,
+              **lambda_kw):
+    """The η side as separate steps: ζ and N/ζ from the incoming λ and ν,
+    the ν solve from the incoming λ (`nu_n_iter` sweeps, None: the
+    solver's default), then `lambda_solver(lam, ν', N/ζ, sumθ, μ, Σ⁻¹,
+    **lambda_kw)` with the new ν. `solve_eta`'s "split" route passes
+    `solve_lambda`; the η kernel's plain version passes the plain
+    `maximize_lambda`. Returns (ζ, ν', λ')."""
+    zeta = update_zeta(lam, nu, config)
+    Ndivzeta = calculate_Ndivzeta(N, zeta, config)
+    diag = torch.diagonal(invSigma, dim1=-2, dim2=-1).unsqueeze(-2)
+    nu_kw = {} if nu_n_iter is None else {"n_iter": nu_n_iter}
+    nu2 = maximize_nu(nu, lam, Ndivzeta, diag, **nu_kw)
+    return zeta, nu2, lambda_solver(lam, nu2, Ndivzeta, sumtheta, mu, invSigma, **lambda_kw)
+
+
+def check_device(device) -> torch.device:
+    """`device` as a torch.device. A CUDA device needs a card: without one
+    this raises rather than fall back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card is available; the fits run on the card by default, "
+            'pass device="cpu" to run on the CPU'
+        )
+    return device
 
 
 def update_mu_vec(lam: torch.Tensor) -> torch.Tensor:
@@ -295,26 +346,46 @@ def _select_lanes(keep: torch.Tensor, new, old):
     return torch.where(keep.view(-1, *([1] * (new.dim() - 1))), new, old)
 
 
-def run_cavi(state, config, maxiter: int, tol: float, step_fn):
-    """The CAVI loop: a host loop with the reference's convergence rule
-    (relative Δ of the (M,) ll vector < tol after iteration 10;
-    src/common.jl:48-56), per restart lane.
+def make_cavi_carry(state, config, maxiter: int):
+    """A fresh CAVI carry for every lane of `state`: (state, ll_buf
+    (R, maxiter, M) of zeros, n_iters (R,) of zeros, done (R,) all False).
+    `done` is a termination flag: true on convergence or when the lane's ll
+    went non-finite; `carry_converged` tells the two apart."""
+    R = state.lam.shape[0]
+    device = state.lam.device
+    return (
+        state,
+        torch.zeros((R, maxiter, config.M), dtype=config.dtype, device=device),
+        torch.zeros(R, dtype=torch.int64, device=device),
+        torch.zeros(R, dtype=torch.bool, device=device),
+    )
+
+
+def run_cavi_from(carry, maxiter: int, tol: float, step_fn, max_new_iters=None):
+    """Resume the CAVI loop from `carry` for up to `max_new_iters` more
+    iterations (None: up to maxiter in all), with the reference's
+    convergence rule (relative Δ of the (M,) ll vector < tol after iteration
+    10; src/common.jl:48-56), per restart lane.
 
     Every lane steps every iteration; a finished lane is frozen with
     torch.where, exactly as the vmapped `lax.while_loop` of the JAX package
     freezes it, so results do not depend on when the loop notices that all
     lanes are done (it reads `done.all()` every DONE_CHECK_EVERY
-    iterations, and nowhere else waits on the device). A lane whose ll goes
+    iterations) nor on how a fit is cut into calls. A lane whose ll goes
     non-finite stops too (a dead lane can never recover); `carry_converged`
     reports it as not converged.
 
-    Returns (state, ll_buf (R, maxiter, M), n_iters (R,), done (R,))."""
-    R = state.lam.shape[0]
-    device = state.lam.device
-    ll_buf = torch.zeros((R, maxiter, config.M), dtype=config.dtype, device=device)
-    n_iters = torch.zeros(R, dtype=torch.int64, device=device)
-    done = torch.zeros(R, dtype=torch.bool, device=device)
-    for it in range(maxiter):
+    The lanes still running must share one iteration count, as they do in a
+    fresh carry and in the survivors of a compaction boundary (which all ran
+    the whole phase); reading it is this call's one device→host sync before
+    the loop. Returns the new carry."""
+    state, ll_buf, n_iters, done = carry
+    running = n_iters[~done].unique().tolist()
+    if len(running) > 1:
+        raise ValueError(f"the running lanes are at different iterations {running}")
+    it0 = running[0] if running else maxiter
+    it_end = maxiter if max_new_iters is None else min(maxiter, it0 + int(max_new_iters))
+    for it in range(it0, it_end):
         new_state, ll_i = step_fn(state)
         active = ~done
         state = _select_lanes(active, new_state, state)
@@ -328,6 +399,66 @@ def run_cavi(state, config, maxiter: int, tol: float, step_fn):
         if (it + 1) % DONE_CHECK_EVERY == 0 and bool(done.all()):
             break
     return state, ll_buf, n_iters, done
+
+
+def _index_lanes(tree, idx: torch.Tensor):
+    """Lanes `idx` of every tensor of a (nested) state or carry."""
+    if isinstance(tree, tuple):
+        parts = [_index_lanes(x, idx) for x in tree]
+        return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+    return tree.index_select(0, idx)
+
+
+def _cat_lanes(trees):
+    """Concatenate a list of (nested) states or carries along the lanes."""
+    first = trees[0]
+    if isinstance(first, tuple):
+        parts = [_cat_lanes([t[i] for t in trees]) for i in range(len(first))]
+        return type(first)(*parts) if hasattr(first, "_fields") else tuple(parts)
+    return torch.cat(trees, dim=0)
+
+
+def run_cavi(state, config, maxiter: int, tol: float, step_fn, compact_schedule=()):
+    """The whole CAVI loop over every lane of `state`, from a fresh carry.
+    Returns (state, ll_buf (R, maxiter, M), n_iters (R,), done (R,)).
+
+    `compact_schedule=(c1, c2, ...)` is straggler compaction (restarts.py:
+    67-204 and 1088-1187 of the JAX package): every lane runs c1
+    iterations, then the finished lanes (done, or at maxiter) leave the
+    batch and the survivors, gathered with index_select on every state
+    field, run c2 more, and so on; once the schedule is spent the survivors
+    run to their end. The finished groups come back in restart order.
+    Finished lanes are frozen either way, so each lane's result does not
+    depend on the schedule. The JAX package pads each survivor batch to a
+    power of two, because each batch size there is a compiled executable of
+    its own; eager PyTorch compiles nothing per shape, so nothing is padded.
+    Each boundary reads the (n_iters, done) vectors on the host (one sync);
+    an empty (or None) schedule is one uncut `run_cavi_from`."""
+    carry = make_cavi_carry(state, config, maxiter)
+    R, device = state.lam.shape[0], state.lam.device
+    budgets = iter(tuple(int(c) for c in compact_schedule or ()))
+    order = np.arange(R)
+    groups, group_orders = [], []
+    carry = run_cavi_from(carry, maxiter, tol, step_fn, next(budgets, None))
+    while True:
+        it, done = (t.cpu().numpy() for t in (carry[2], carry[3]))
+        done = done | (it >= maxiter)
+        done_pos, active_pos = np.nonzero(done)[0], np.nonzero(~done)[0]
+        if len(active_pos) == 0:
+            groups.append(carry)
+            group_orders.append(order)
+            break
+        budget = next(budgets, None)
+        if len(done_pos) > 0:
+            groups.append(_index_lanes(carry, torch.as_tensor(done_pos, device=device)))
+            group_orders.append(order[done_pos])
+            carry = _index_lanes(carry, torch.as_tensor(active_pos, device=device))
+            order = order[active_pos]
+        carry = run_cavi_from(carry, maxiter, tol, step_fn, budget)
+    if len(groups) == 1:  # no lane left the batch: restart order already
+        return groups[0]
+    inv = np.argsort(np.concatenate(group_orders))
+    return _index_lanes(_cat_lanes(groups), torch.as_tensor(inv, device=device))
 
 
 def carry_converged(ll_buf, n_iters, done):

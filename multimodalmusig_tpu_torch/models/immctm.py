@@ -32,6 +32,7 @@ from ..utils.formatting import sparse_to_dense
 from .ctm_base import (
     CTMBaseConfig,
     carry_converged,
+    check_device,
     counts_per_doc,
     elbo_eta_z_term_dict,
     full_f32_matmuls,
@@ -320,11 +321,12 @@ class IMMCTM:
     over the modality's features, src/IMMCTM.jl:80-88) or one value per
     feature, `features[m]` is a (V_m, I_m) table of 1-based feature values
     and X[doc][modality] an (n, 2) 1-based (vocab_index, count) matrix. The
-    state is one lane (R = 1) on `device`; its γ comes from a CPU generator
-    seeded with `seed`."""
+    state is one lane (R = 1) on `device`, the CUDA card unless the caller
+    asks for the CPU (without a card a CUDA device raises); its γ comes from
+    a CPU generator seeded with `seed`."""
 
     def __init__(self, k, alpha, features, X, *, seed: int = 0,
-                 dtype: torch.dtype = torch.float32, device="cpu"):
+                 dtype: torch.dtype = torch.float32, device="cuda"):
         self.features = [np.asarray(f) for f in features]
         M = len(self.features)
         if len(k) != M or len(alpha) != M:
@@ -339,7 +341,7 @@ class IMMCTM:
             K=tuple(int(x) for x in k), V=tuple(int(f.shape[0]) for f in self.features),
             D=len(X), dtype=dtype, J=J,
         )
-        self.device = torch.device(device)
+        self.device = check_device(device)
         self.F = tuple(feature_onehots(self.features[m], J[m], dtype, self.device)
                        for m in range(M))
         self.Xdense = counts_tensors(

@@ -23,6 +23,7 @@ from ..utils.formatting import infer_vocab_size, sparse_to_dense
 from .ctm_base import (
     CTMBaseConfig,
     carry_converged,
+    check_device,
     counts_per_doc,
     elbo_eta_z_term_dict,
     full_f32_matmuls,
@@ -305,14 +306,16 @@ def finalize_fit(carry, X, N, config: MMCTMConfig) -> MMCTMFitResult:
 
 
 def fit(state: MMCTMState, X, config: MMCTMConfig, maxiter: int = 100,
-        tol: float = 1e-4) -> MMCTMFitResult:
+        tol: float = 1e-4, compact_schedule=()) -> MMCTMFitResult:
     """Full MMCTM CAVI over every lane of `state` (src/MMCTM.jl:457-494),
     with TF32 off for all float32 products. X is a tuple of dense (D, V_m)
-    tensors on the state's device and dtype."""
+    tensors on the state's device and dtype. `compact_schedule` is
+    ctm_base.run_cavi's straggler compaction."""
     X = tuple(X)
     with full_f32_matmuls():
         N = counts_per_doc(X)
-        carry = run_cavi(state, config, maxiter, tol, fit_step_fn(X, N, config))
+        carry = run_cavi(state, config, maxiter, tol, fit_step_fn(X, N, config),
+                         compact_schedule)
         return finalize_fit(carry, X, N, config)
 
 
@@ -325,10 +328,12 @@ class MMCTM:
     """Stateful single-model wrapper with the reference's constructor/field
     surface: ``MMCTM(k, α, X)`` or ``MMCTM(k, α, V, X)`` where X[doc][modality]
     is an (n, 2) 1-based (vocab_index, count) matrix. The state is one lane
-    (R = 1) on `device`; its γ comes from a CPU generator seeded with `seed`."""
+    (R = 1) on `device`, the CUDA card unless the caller asks for the CPU
+    (without a card a CUDA device raises); its γ comes from a CPU generator
+    seeded with `seed`."""
 
     def __init__(self, k, alpha, *args, init: str = "random", seed: int = 0,
-                 dtype: torch.dtype = torch.float32, device="cpu"):
+                 dtype: torch.dtype = torch.float32, device="cuda"):
         if len(args) == 2:
             V, X = args
         elif len(args) == 1:
@@ -342,7 +347,7 @@ class MMCTM:
         self.config = MMCTMConfig(
             K=tuple(int(x) for x in k), V=tuple(int(v) for v in V), D=len(X), dtype=dtype
         )
-        self.device = torch.device(device)
+        self.device = check_device(device)
         self.Xdense = counts_tensors(
             [sparse_to_dense([doc[m] for doc in self.X], self.config.V[m])
              for m in range(self.config.M)],

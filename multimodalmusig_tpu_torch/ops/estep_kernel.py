@@ -1,0 +1,134 @@
+"""The fused η side of the E-step: CUDA kernel, its wrapper, its plain version.
+
+Counterpart of tools/pallas_experiments/estep_kernel.py, restart-batched as
+ops/lambda_kernel.py is. For every restart lane and document it computes
+ζ, then N/ζ, then the ν solve, then the λ solve, in one launch. The kernel
+(csrc/estep_eta.cu, which documents its design and bounds; its λ solve is
+csrc/lambda_solve.cuh, shared with the λ kernel) is compiled by nvcc for
+sm_90a on first use (native_build.py) and bound through its plain C
+interface with ctypes.
+
+Dispatch is by device only: a CPU tensor takes the plain PyTorch version
+(`estep_eta_fused_plain`, the port's update_zeta → calculate_Ndivzeta →
+maximize_nu → maximize_lambda at the kernel's defaults); a CUDA tensor
+launches the kernel, or raises when it cannot be built or launched — there
+is no fallback. `LAUNCHES` counts the kernel's launches, so a run can show
+that its path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..native_build import cuda_function
+from .solvers import CG_ITER_F32_CAP, LAMBDA_POLISH_ITERS, NU_FP_ITERS, maximize_lambda
+
+__all__ = [
+    "estep_eta_fused",
+    "estep_eta_fused_plain",
+    "build",
+    "KERNEL_MAX_MK",
+    "LAUNCHES",
+]
+
+# The TPU kernel's PALLAS_MAX_MK, as for the λ kernel.
+KERNEL_MAX_MK = 128
+
+# Kernel launches since import (or since a caller last reset it to 0).
+LAUNCHES = 0
+
+# lam0, nu, N, sumtheta, mu, invSigma, zeta, nu_out, lam_out, K; M, R, D,
+# MK, n_iter, cg_iter, polish_iter, nu_n_iter; stream
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
+def build() -> str:
+    """Compile the kernel (once per source/header/flag hash) and load it;
+    return the library's path. Raises if nvcc is missing or the compile
+    fails."""
+    return cuda_function("estep_eta", "estep_eta_launch", _ARGTYPES)[0]
+
+
+def _defaults(MK, cg_iter, polish_iter, nu_n_iter):
+    """The TPU kernel's defaults for the budgets left as None: cg_iter =
+    min(MK, CG_ITER_F32_CAP), polish LAMBDA_POLISH_ITERS, ν sweeps
+    NU_FP_ITERS."""
+    return (min(MK, CG_ITER_F32_CAP) if cg_iter is None else int(cg_iter),
+            LAMBDA_POLISH_ITERS if polish_iter is None else int(polish_iter),
+            NU_FP_ITERS if nu_n_iter is None else int(nu_n_iter))
+
+
+def _check_K(K, MK):
+    K = tuple(int(k) for k in K)
+    if not K or min(K) < 1 or sum(K) != MK:
+        raise ValueError(f"K={K} must be positive topic counts summing to MK={MK}")
+    return K
+
+
+def estep_eta_fused_plain(lam0, nu, N, sumtheta, mu, invSigma, K, n_iter: int = 7,
+                          cg_iter: int = None, polish_iter: int = None,
+                          nu_n_iter: int = None):
+    """The plain PyTorch version of the kernel: ζ and N/ζ from the incoming
+    λ and ν, the ν solve from the incoming λ, the λ solve with the new ν
+    (models/ctm_base.split_eta with ops/solvers.maximize_lambda), at the
+    same defaults."""
+    from ..models import ctm_base  # ctm_base routes to this module
+
+    MK = lam0.shape[-1]
+    K = _check_K(K, MK)
+    cg_iter, polish_iter, nu_n_iter = _defaults(MK, cg_iter, polish_iter, nu_n_iter)
+    config = ctm_base.CTMBaseConfig(K=K, V=(0,) * len(K), D=lam0.shape[-2])
+    return ctm_base.split_eta(lam0, nu, N, sumtheta, mu, invSigma, config, maximize_lambda,
+                              nu_n_iter=nu_n_iter, n_iter=n_iter, cg_iter=cg_iter,
+                              polish_iter=polish_iter)
+
+
+def estep_eta_fused(lam0, nu, N, sumtheta, mu, invSigma, K, n_iter: int = 7,
+                    cg_iter: int = None, polish_iter: int = None, nu_n_iter: int = None):
+    """Restart-batched fused η side: lam0/nu/sumtheta (R, D, MK), N (D, M)
+    shared by the lanes, mu (R, MK), invSigma (R, MK, MK), K the M topic
+    counts (sum(K) = MK ≤ KERNEL_MAX_MK) -> (ζ (R, D, M), ν' (R, D, MK),
+    λ' (R, D, MK)). CPU tensors take the plain version; CUDA tensors must be
+    float32 and launch the kernel."""
+    if lam0.dim() != 3:
+        raise ValueError(f"lam0 must be (R, D, MK), got shape {tuple(lam0.shape)}")
+    R, D, MK = lam0.shape
+    K = _check_K(K, MK)
+    M = len(K)
+    if MK > KERNEL_MAX_MK:
+        raise ValueError(f"MK={MK} exceeds the η kernel's limit of {KERNEL_MAX_MK} topics")
+    if lam0.device.type == "cpu":
+        return estep_eta_fused_plain(lam0, nu, N, sumtheta, mu, invSigma, K, n_iter, cg_iter,
+                                     polish_iter, nu_n_iter)
+    if lam0.device.type != "cuda":
+        raise ValueError(f"the η kernel runs on CUDA tensors, got {lam0.device}")
+    args = (lam0, nu, N, sumtheta, mu, invSigma)
+    shapes = ((R, D, MK), (R, D, MK), (D, M), (R, D, MK), (R, MK), (R, MK, MK))
+    for name, t, shape in zip(("lam0", "nu", "N", "sumtheta", "mu", "invSigma"), args, shapes):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the η kernel takes float32, got {name} as {t.dtype}")
+        if t.device != lam0.device:
+            raise ValueError(f"{name} is on {t.device}, lam0 on {lam0.device}")
+    cg_iter, polish_iter, nu_n_iter = _defaults(MK, cg_iter, polish_iter, nu_n_iter)
+    _, launch = cuda_function("estep_eta", "estep_eta_launch", _ARGTYPES)
+    args = [t.contiguous() for t in args]
+    zeta = torch.empty((R, D, M), dtype=torch.float32, device=lam0.device)
+    nu_out = torch.empty_like(args[0])
+    lam_out = torch.empty_like(args[0])
+    K_host = (ctypes.c_int * M)(*K)
+    with torch.cuda.device(lam0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = launch(
+            *(t.data_ptr() for t in args), zeta.data_ptr(), nu_out.data_ptr(),
+            lam_out.data_ptr(), ctypes.addressof(K_host), M, R, D, MK, int(n_iter),
+            cg_iter, polish_iter, nu_n_iter, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"η kernel launch failed with CUDA error {rc}")
+    global LAUNCHES
+    LAUNCHES += 1
+    return zeta, nu_out, lam_out

@@ -7,14 +7,17 @@ bundled BRCA-EU counts) for `--restarts` lanes on the card and prints:
   * the host-clock time per iteration (synchronized), the kernel launches
     per iteration and the device-busy share (summed kernel time over wall
     time) from torch.profiler;
-  * the time per phase of the iteration (θ moments, ζ, ν solve, λ solve,
-    M-step, γ, log-likelihoods, and the rest: N/ζ, μ, lane freezing), each
-    synchronized, so a phase's time includes the launches it issues;
-  * the kernels by device time;
-  * the iteration time with the plain PyTorch λ solver in place of the λ
-    kernel, and with the factorized θ schedule in place of the θ kernel, in
-    turns kernels, plain λ, factorized θ, factorized θ, plain λ, kernels,
-    twice;
+  * the time per phase of the iteration (θ moments, the η kernel, or on the
+    split route ζ, ν solve and λ solve; M-step, γ, log-likelihoods, and the
+    rest: N/ζ, μ, lane freezing), each synchronized, so a phase's time
+    includes the launches it issues, on the fused and on the split η route;
+  * the kernels by device time, and the device time per call of each of
+    the port's kernels (η, λ, θ), on both η routes;
+  * the iteration time in turns on the kernels (the fused η route), the
+    split η route (PyTorch ζ/ν and the λ kernel), the plain η side (PyTorch
+    ζ/ν and the plain λ solver) and the factorized θ schedule in place of
+    the θ kernel: kernels, split η, plain η, factorized θ, factorized θ,
+    plain η, split η, kernels, twice;
   * the host time of one θ-moments call (both modalities) by each route,
     over 200 back-to-back calls with no synchronization inside, which is
     what a launch-bound iteration pays.
@@ -30,13 +33,14 @@ import time
 import torch
 
 from .models import ctm_base, mmctm
-from .ops import lambda_kernel, theta_kernel
+from .ops import estep_kernel, lambda_kernel, theta_kernel
 from .utils.data import BRCA_FILES, brca_counts_path
 from .utils.fast_tsv import read_counts_tsv
 
 # (label, module, function name) of the phases wrapped for timing
 _PHASES = (
     ("theta moments", mmctm, "theta_moments"),
+    ("eta kernel (B3)", estep_kernel, "estep_eta_fused"),
     ("zeta", ctm_base, "update_zeta"),
     ("nu solve", ctm_base, "maximize_nu"),
     ("lambda solve", ctm_base, "solve_lambda"),
@@ -46,9 +50,12 @@ _PHASES = (
 )
 
 
-# The iteration's variants, in turns: both kernels; the plain λ solver; the
-# factorized θ schedule.
-_ARMS = ("kernels", "plain λ", "factorized θ", "factorized θ", "plain λ", "kernels")
+# The iteration's variants, in turns: the kernels (fused η route); the split
+# η route; the split route with the plain λ solver; the factorized θ schedule.
+_ARMS = ("kernels", "split η", "plain η", "factorized θ",
+         "factorized θ", "plain η", "split η", "kernels")
+# The port's kernels by the name of their device functions.
+_KERNELS = (("eta (B3)", "estep_eta"), ("lambda (B1)", "lambda_newton"), ("theta (B4)", "theta"))
 
 
 def _setup(restarts: int):
@@ -86,6 +93,7 @@ def main(argv=None):
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_step: needs a CUDA card")
+    estep_kernel.build()
     lambda_kernel.build()
     theta_kernel.build()
     with ctm_base.full_f32_matmuls():
@@ -94,10 +102,16 @@ def main(argv=None):
 
         kernel_solve = lambda_kernel.maximize_lambda_restarts
         plain_solve = lambda_kernel.maximize_lambda_restarts_plain
-        theta_route = ctm_base._theta_route
+        theta_route, eta_route = ctm_base._theta_route, ctm_base._eta_route
+
+        def split(*a):
+            return "split"
+
         arms = []
         for arm in _ARMS * 2:
-            if arm == "plain λ":
+            if arm in ("split η", "plain η"):
+                ctm_base._eta_route = split
+            if arm == "plain η":
                 lambda_kernel.maximize_lambda_restarts = plain_solve
             if arm == "factorized θ":
                 ctm_base._theta_route = lambda *a: "factorized"
@@ -106,6 +120,7 @@ def main(argv=None):
             finally:
                 lambda_kernel.maximize_lambda_restarts = kernel_solve
                 ctm_base._theta_route = theta_route
+                ctm_base._eta_route = eta_route
         print(f"ms per CAVI iteration at R={args.restarts} (host clock, synchronized, "
               f"{steps} iterations each): " + ", ".join(f"{n} {ms:.4f}" for n, ms in arms))
 
@@ -127,19 +142,34 @@ def main(argv=None):
 
         from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                state, _ = iteration(state)
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-        print(f"profiled: {wall_us / steps / 1000:.4f} ms per iteration (profiler on), "
-              f"{len(kernels) / steps:.1f} kernels per iteration, device busy "
-              f"{busy_us / steps / 1000:.4f} ms per iteration = {100 * busy_us / wall_us:.1f}% of wall")
-        print(prof.key_averages().table(sort_by="device_time_total", row_limit=25))
+        for route in ("fused", "split"):
+            ctm_base._eta_route = eta_route if route == "fused" else split
+            try:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(steps):
+                        state, _ = iteration(state)
+                    torch.cuda.synchronize()
+                    wall_us = 1e6 * (time.perf_counter() - t0)
+            finally:
+                ctm_base._eta_route = eta_route
+            kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+            print(f"profiled, {route} η route: {wall_us / steps / 1000:.4f} ms per iteration "
+                  f"(profiler on), {len(kernels) / steps:.1f} kernels per iteration, device busy "
+                  f"{busy_us / steps / 1000:.4f} ms per iteration = "
+                  f"{100 * busy_us / wall_us:.1f}% of wall")
+            print(f"device time per call of the port's kernels, {route} η route:")
+            for label, key in _KERNELS:
+                calls = [e for e in kernels if key in e.name]
+                if calls:
+                    total = sum(e.time_range.elapsed_us() for e in calls)
+                    print(f"  {label:12s} {len(calls) / steps:5.1f} calls per iteration, "
+                          f"{total / len(calls):9.2f} us per call")
+                else:
+                    print(f"  {label:12s}   0.0 calls per iteration")
+            print(prof.key_averages().table(sort_by="device_time_total", row_limit=25))
 
         timings = {label: 0.0 for label, _, _ in _PHASES}
         originals = {}
@@ -154,19 +184,25 @@ def main(argv=None):
                 return out
             return inner
 
-        for label, mod, name in _PHASES:
-            originals[(mod, name)] = getattr(mod, name)
-            setattr(mod, name, timed(label, originals[(mod, name)]))
-        try:
-            wall = _wall_ms(iteration, state, steps)
-        finally:
-            for (mod, name), fn in originals.items():
-                setattr(mod, name, fn)
-        print(f"per phase, each synchronized ({wall:.4f} ms per iteration with the syncs):")
-        for label, sec in timings.items():
-            print(f"  {label:32s} {1000 * sec / steps:8.4f} ms")
-        rest = wall - 1000 * sum(timings.values()) / steps
-        print(f"  {'rest (N/zeta, mu, lane freezing)':32s} {rest:8.4f} ms")
+        for route in ("fused", "split"):
+            for label in timings:
+                timings[label] = 0.0
+            ctm_base._eta_route = eta_route if route == "fused" else split
+            for label, mod, name in _PHASES:
+                originals[(mod, name)] = getattr(mod, name)
+                setattr(mod, name, timed(label, originals[(mod, name)]))
+            try:
+                wall = _wall_ms(iteration, state, steps)
+            finally:
+                for (mod, name), fn in originals.items():
+                    setattr(mod, name, fn)
+                ctm_base._eta_route = eta_route
+            print(f"per phase on the {route} η route, each synchronized ({wall:.4f} ms per "
+                  "iteration with the syncs):")
+            for label, sec in timings.items():
+                print(f"  {label:32s} {1000 * sec / steps:8.4f} ms")
+            rest = wall - 1000 * sum(timings.values()) / steps
+            print(f"  {'rest (N/zeta, mu, lane freezing)':32s} {rest:8.4f} ms")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
-"""The PyTorch port on a CUDA card: the λ and θ kernels against their plain
-versions, the dispatch rules, and short MMCTM and IMMCTM fits on the card
-against the same fits in float64 on the CPU.
+"""The PyTorch port on a CUDA card: the η, λ and θ kernels against their
+plain versions, the dispatch rules, and short MMCTM and IMMCTM fits, the
+compacted restart fit and the two-stage fit on the card against the same
+fits in float64 on the CPU.
 
 Every test is marked `cuda` and skips without a card. The file imports
 neither JAX nor the shared conftest fixtures, so it runs on a machine with
@@ -15,6 +16,7 @@ import torch
 
 import multimodalmusig_tpu_torch as mt
 from multimodalmusig_tpu_torch.models import ctm_base
+from multimodalmusig_tpu_torch.ops import estep_kernel as ek
 from multimodalmusig_tpu_torch.ops import lambda_kernel as lk
 from multimodalmusig_tpu_torch.ops import theta_kernel as tk
 from multimodalmusig_tpu_torch.ops.solvers import lambda_grad
@@ -77,6 +79,87 @@ def test_single_model_entry(cuda):
     got = lk.maximize_lambda_fused(lam0[0], nu[0], ndz[0], st[0], mu[0], invS[0])
     want = lk.maximize_lambda_restarts_plain(lam0, nu, ndz, st, mu, invS)[0]
     assert float((got - want).abs().max()) <= ATOL
+
+
+def _eta_problem(seed, R, D, K, device, zero_count=False):
+    """The λ problems of `_problem` with a starting λ near 0, per-document
+    counts N (D, M) and, optionally, a document with no counts in its second
+    modality."""
+    rng = np.random.default_rng(seed)
+    MK = sum(K)
+    lam0, nu, _, st, mu, invS = _problem(seed, R, D, MK, "cpu")
+    lam = torch.as_tensor(0.5 * rng.standard_normal((R, D, MK)), dtype=torch.float32)
+    N = torch.as_tensor(rng.integers(0, 200, (D, len(K))), dtype=torch.float32)
+    if zero_count:
+        N[0, 1] = 0.0
+        st[:, 0, K[0]:K[0] + K[1]] = 0.0
+    return [t.to(device) for t in (lam, nu, N, st, mu, invS)]
+
+
+CAVI = dict(n_iter=3, cg_iter=4, polish_iter=1, nu_n_iter=4)
+
+
+@pytest.mark.parametrize("R, D, K, budgets, zero_count", [
+    (100, 560, (7, 7), CAVI, False),
+    (100, 560, (7, 7), {}, False),
+    (100, 560, (20, 20), CAVI, False),
+    (100, 560, (64, 64), CAVI, False),
+    (3, 37, (3, 4, 5), {}, False),
+    (2, 9, (3, 2), {}, True),
+    (3, 29, (40, 50, 38), {}, False),
+])
+def test_eta_kernel_matches_plain(cuda, R, D, K, budgets, zero_count):
+    """ζ and ν within rtol 2e-5, atol 2e-6 (the JAX suite's bound for its
+    η kernel), λ within the λ kernel's 5e-5."""
+    args = _eta_problem(R * D + sum(K), R, D, K, cuda, zero_count)
+    before = ek.LAUNCHES
+    got = ek.estep_eta_fused(*args, K, **budgets)
+    want = ek.estep_eta_fused_plain(*args, K, **budgets)
+    torch.cuda.synchronize()
+    assert ek.LAUNCHES == before + 1
+    assert all(torch.isfinite(g).all() for g in got)
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-6)
+    assert float((got[2] - want[2]).abs().max()) <= ATOL
+
+
+def test_eta_kernel_keeps_a_dead_lane_dead_and_apart(cuda):
+    """An all-NaN Σ⁻¹ (a failed Cholesky) makes its lane's ν and λ NaN and
+    leaves the other lanes as they are without it."""
+    K = (7, 7)
+    args = _eta_problem(11, 3, 40, K, cuda)
+    alive = ek.estep_eta_fused(*args, K, **CAVI)
+    invS = args[5].clone()
+    invS[1] = torch.nan
+    got = ek.estep_eta_fused(*args[:5], invS, K, **CAVI)
+    assert torch.isnan(got[1][1]).all() and torch.isnan(got[2][1]).all()
+    for g, a in zip(got, alive):
+        assert torch.equal(g[[0, 2]], a[[0, 2]])
+
+
+def test_eta_wrapper_rejects_wrong_dtype_shape_or_device(cuda):
+    args = _eta_problem(3, 2, 8, (3, 2), cuda)
+    with pytest.raises(TypeError, match="float32"):
+        ek.estep_eta_fused(*(a.double() for a in args), (3, 2))
+    with pytest.raises(ValueError, match="is on"):
+        ek.estep_eta_fused(*args[:5], args[5].cpu(), (3, 2))
+    with pytest.raises(ValueError, match="must have shape"):
+        ek.estep_eta_fused(args[0], args[1], args[2][:, :1], *args[3:], (3, 2))
+
+
+def test_solve_eta_sends_float32_to_the_eta_kernel_and_float64_to_the_split_route(cuda):
+    K = (7, 7)
+    lam, nu, N, st, mu, invS = _eta_problem(5, 2, 40, K, cuda)
+    config = mt.MMCTMConfig(K=K, V=(96, 48), D=40, dtype=torch.float32)
+    eta, lam_before = ek.LAUNCHES, lk.LAUNCHES
+    got32 = ctm_base.solve_eta(lam, nu, N, st, mu, invS, config)
+    assert (ek.LAUNCHES, lk.LAUNCHES) == (eta + 1, lam_before)
+    config64 = mt.MMCTMConfig(K=K, V=(96, 48), D=40, dtype=torch.float64, **{
+        "lambda_n_iter": 3, "lambda_cg_iter": 4, "lambda_polish_iter": 1, "nu_n_iter": 4})
+    got64 = ctm_base.solve_eta(*(t.double() for t in (lam, nu, N, st, mu, invS)), config64)
+    assert (ek.LAUNCHES, lk.LAUNCHES) == (eta + 1, lam_before)
+    for a, b in zip(got32, got64):
+        torch.testing.assert_close(a.double(), b, rtol=1e-4, atol=ATOL)
 
 
 def test_dispatch_sends_float32_to_the_kernel_and_float64_to_the_plain_solver(cuda):
@@ -156,8 +239,8 @@ def test_theta_moments_dispatch_on_the_card(cuda):
 
 
 def test_immctm_fit_on_the_card_matches_the_cpu_in_float64(cuda):
-    """3 lanes x 10 iterations of a small IMMCTM: float32 on the card (both
-    kernels) against float64 on the CPU (plain path), from the same seed and
+    """3 lanes x 10 iterations of a small IMMCTM: float32 on the card (the η
+    and θ kernels) against float64 on the CPU (plain path), from the same seed and
     with the same solver budgets, so only the precision differs."""
     from multimodalmusig_tpu_torch.models import ilda, immctm
 
@@ -174,10 +257,10 @@ def test_immctm_fit_on_the_card_matches_the_cpu_in_float64(cuda):
         F = tuple(ilda.feature_onehots(f, j, dtype, device) for f, j in zip(features, J))
         state = immctm.init(torch.Generator().manual_seed(1), config, [[0.1, 0.1]] * 2,
                             restarts=3, device=device)
-        lam_before, theta_before = lk.LAUNCHES, tk.LAUNCHES
+        eta_before, theta_before = ek.LAUNCHES, tk.LAUNCHES
         res = mt.fit_immctm_restarts_from_states(state, X, F, config, maxiter=10, tol=0.0)
         if device == cuda:
-            assert lk.LAUNCHES - lam_before == 10
+            assert ek.LAUNCHES - eta_before == 10
             assert tk.LAUNCHES - theta_before == 20
         out.append(res.ll_history.cpu().double().numpy())
     np.testing.assert_allclose(out[0], out[1], rtol=1e-4)
@@ -202,8 +285,50 @@ def test_fit_on_the_card_matches_the_cpu_in_float64(cuda):
 def test_single_model_on_the_card(cuda):
     rng = np.random.default_rng(0)
     docs = [[mt.make_count_matrix(rng.integers(0, 5, 12)) for _ in range(2)] for _ in range(30)]
-    model = mt.MMCTM([3, 2], [0.1, 0.1], [12, 12], docs, device="cuda")
-    before = lk.LAUNCHES
+    model = mt.MMCTM([3, 2], [0.1, 0.1], [12, 12], docs)
+    assert model.device.type == "cuda"
+    before = ek.LAUNCHES
     history = model.fit(maxiter=15, tol=0.0)
-    assert lk.LAUNCHES - before == 15 and len(history) == 15
+    assert ek.LAUNCHES - before == 15 and len(history) == 15
     assert np.isfinite(model.ll).all() and np.isfinite(model.elbo)
+
+
+def _poisson_docs():
+    """24 documents of Poisson counts over V = (10, 8), as
+    tests/test_torch_two_stage.py makes them."""
+    rng = np.random.default_rng(0)
+    return [rng.poisson(rng.gamma(1.0, 3.0, (24, 1)) * rng.dirichlet(np.ones(v), 24) * 5)
+            .astype(np.float64) for v in (10, 8)]
+
+
+def test_compacted_fit_on_the_card_matches_the_cpu_in_float64(cuda):
+    """6 lanes to tol 1e-4 with compaction at 25 and 35 iterations: float32
+    on the card (the η kernel, once per iteration) against float64 on the
+    CPU. A lane's final ll may come one iteration apart, so rtol 2e-3."""
+    X = _poisson_docs()
+    out = []
+    for dtype, device in ((torch.float32, cuda), (torch.float64, "cpu")):
+        config = mt.MMCTMConfig(K=(2, 2), V=(10, 8), D=24, dtype=dtype)
+        before = ek.LAUNCHES
+        res = mt.fit_restarts(3, X, config, [0.1, 0.1], restarts=6, maxiter=80, tol=1e-4,
+                              compact_schedule=(25, 10), device=device)
+        if device == cuda:
+            assert ek.LAUNCHES - before >= int(res.n_iters.max())
+        out.append(res)
+    np.testing.assert_allclose(out[0].ll.cpu().double().numpy(), out[1].ll.numpy(), rtol=2e-3)
+    assert (np.abs(out[0].n_iters.cpu().numpy() - out[1].n_iters.numpy()) <= 2).all()
+
+
+def test_two_stage_fit_on_the_card_matches_the_cpu_in_float64(cuda):
+    """The two-stage fit from one seed: the same stage-1 winners (read from
+    f64 re-scores) and the selected model's ll within rtol 2e-3."""
+    X = _poisson_docs()
+    picks = []
+    for dtype, device in ((torch.float32, cuda), (torch.float64, "cpu")):
+        config = mt.MMCTMConfig(K=(2, 2), V=(10, 8), D=24, dtype=dtype)
+        info = {}
+        best, _, _, _ = mt.two_stage_fit(8, X, config, [0.1, 0.1], restarts=6, maxiter=80,
+                                         selection_info=info, device=device)
+        picks.append((info["stage1_winners"], best.ll[0].cpu().double().numpy()))
+    np.testing.assert_array_equal(picks[0][0], picks[1][0])
+    np.testing.assert_allclose(picks[0][1], picks[1][1], rtol=2e-3)

@@ -1,0 +1,183 @@
+"""The fused η side of the E-step in the PyTorch port: the plain version
+against the JAX package's Pallas kernel (interpret mode on the CPU) and
+against the JAX XLA sequence in float64, the split route against the plain
+version, and the dispatch rule. The CUDA kernel itself is held against the
+plain version on a card by tests/test_torch_cuda.py.
+
+Tolerances: float32, rtol 2e-5 and atol 2e-6, the JAX suite's own bound
+between its Pallas η kernel and the XLA sequence
+(tests/test_pallas_kernels.py:172-174); float64, rtol 1e-10, the
+trajectory standard of the port's other f64 parity tests."""
+
+import os
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multimodalmusig_tpu_torch.models import ctm_base
+from multimodalmusig_tpu_torch.ops import estep_kernel as ek
+
+sys.path.insert(
+    0,
+    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"),
+)
+
+torch.set_num_threads(2)
+
+RTOL32, ATOL32 = 2e-5, 2e-6
+
+
+def _inputs(rng, R, B, K, dtype=np.float32):
+    """The inputs of tests/test_pallas_kernels.py TestFusedEstep, with a
+    leading restart dimension and one μ/Σ⁻¹ per lane."""
+    MK, M = sum(K), len(K)
+    lam = rng.standard_normal((R, B, MK))
+    nu = rng.uniform(0.05, 1.0, (R, B, MK))
+    N = rng.integers(0, 40, (B, M)).astype(np.float64)
+    st = rng.uniform(0.0, 10.0, (R, B, MK))
+    mu = rng.standard_normal((R, MK))
+    A = rng.standard_normal((R, MK, MK))
+    invS = A @ np.swapaxes(A, 1, 2) + 0.5 * np.eye(MK)
+    return [a.astype(dtype) for a in (lam, nu, N, st, mu, invS)]
+
+
+@pytest.mark.parametrize("R, B, K", [(1, 17, (3, 4)), (3, 17, (3, 4)), (2, 9, (2, 3, 2))])
+def test_plain_matches_the_jax_kernel_per_lane(rng, R, B, K):
+    from pallas_experiments.estep_kernel import estep_eta_fused as jax_fused
+
+    lam, nu, N, st, mu, invS = _inputs(rng, R, B, K)
+    got = ek.estep_eta_fused_plain(*map(torch.as_tensor, (lam, nu, N, st, mu, invS)), K)
+    assert [tuple(g.shape) for g in got] == [(R, B, len(K)), (R, B, sum(K)), (R, B, sum(K))]
+    for r in range(R):
+        want = jax_fused(jnp.asarray(lam[r]), jnp.asarray(nu[r]), jnp.asarray(N),
+                         jnp.asarray(st[r]), jnp.asarray(mu[r]), jnp.asarray(invS[r]), K,
+                         tile_b=128, interpret=True)
+        for g, w, label in zip(got, want, ("zeta", "nu", "lam")):
+            np.testing.assert_allclose(g[r].numpy(), np.asarray(w), rtol=RTOL32, atol=ATOL32,
+                                       err_msg=label)
+
+
+def test_plain_matches_the_jax_xla_sequence_in_float64(rng):
+    """ζ → N/ζ → ν → λ of the JAX package (update_zeta, calculate_Ndivzeta,
+    maximize_nu, maximize_lambda) per lane, at the same budgets."""
+    from multimodalmusig_tpu.models.ctm_base import (
+        CTMBaseConfig,
+        calculate_Ndivzeta,
+        update_zeta,
+    )
+    from multimodalmusig_tpu.ops.solvers import maximize_lambda, maximize_nu
+
+    K, R, B = (3, 4), 3, 17
+    MK = sum(K)
+    lam, nu, N, st, mu, invS = _inputs(rng, R, B, K, dtype=np.float64)
+    budgets = dict(n_iter=7, cg_iter=MK, polish_iter=2)
+    got = ek.estep_eta_fused_plain(*map(torch.as_tensor, (lam, nu, N, st, mu, invS)), K,
+                                   nu_n_iter=8, **budgets)
+    config = CTMBaseConfig(K=K, V=(5, 5), D=B, dtype=jnp.float64)
+    for r in range(R):
+        zeta = update_zeta(jnp.asarray(lam[r]), jnp.asarray(nu[r]), config)
+        ndz = calculate_Ndivzeta(jnp.asarray(N), zeta, config)
+        nu2 = maximize_nu(jnp.asarray(nu[r]), jnp.asarray(lam[r]), ndz,
+                          jnp.diagonal(jnp.asarray(invS[r]))[None, :], n_iter=8)
+        lam2 = maximize_lambda(jnp.asarray(lam[r]), nu2, ndz, jnp.asarray(st[r]),
+                               jnp.asarray(mu[r]), jnp.asarray(invS[r]), **budgets)
+        for g, w, label in zip(got, (zeta, nu2, lam2), ("zeta", "nu", "lam")):
+            np.testing.assert_allclose(g[r].numpy(), np.asarray(w), rtol=1e-10, err_msg=label)
+
+
+def test_zero_count_modality(rng):
+    """A document with zero counts in one modality: N/ζ = 0 there, and the
+    ν and λ solves stay finite (the 0·exp guard), as in the JAX kernel."""
+    from pallas_experiments.estep_kernel import estep_eta_fused as jax_fused
+
+    K, B = (2, 2), 5
+    lam = np.zeros((1, B, 4), np.float32)
+    nu = np.ones((1, B, 4), np.float32)
+    N = rng.integers(0, 30, (B, 2)).astype(np.float32)
+    N[0, 1] = 0.0
+    st = rng.uniform(0.0, 5.0, (1, B, 4)).astype(np.float32)
+    st[0, 0, 2:] = 0.0
+    mu = np.zeros((1, 4), np.float32)
+    invS = np.eye(4, dtype=np.float32)[None]
+    got = ek.estep_eta_fused(*map(torch.as_tensor, (lam, nu, N, st, mu, invS)), K)
+    assert all(torch.isfinite(g).all() for g in got)
+    want = jax_fused(*(jnp.asarray(a[0]) for a in (lam, nu)), jnp.asarray(N),
+                     jnp.asarray(st[0]), jnp.asarray(mu[0]), jnp.asarray(invS[0]), K,
+                     tile_b=128, interpret=True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g[0].numpy(), np.asarray(w), rtol=RTOL32, atol=ATOL32)
+
+
+def test_split_route_computes_what_the_plain_version_computes(rng):
+    """On the CPU solve_eta takes the "split" route; at the resolved CAVI
+    budgets it is the kernel's plain version, bit for bit."""
+    K = (3, 4)
+    lam, nu, N, st, mu, invS = map(torch.as_tensor, _inputs(rng, 2, 11, K))
+    config = ctm_base.CTMBaseConfig(K=K, V=(5, 5), D=11, dtype=torch.float32)
+    got = ctm_base.solve_eta(lam, nu, N, st, mu, invS, config)
+    b = ctm_base.resolved_budgets(config)
+    want = ek.estep_eta_fused_plain(lam, nu, N, st, mu, invS, K, n_iter=b["lambda_n_iter"],
+                                    cg_iter=b["lambda_cg_iter"],
+                                    polish_iter=b["lambda_polish_iter"],
+                                    nu_n_iter=b["nu_n_iter"])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_fused_route_hands_the_kernel_the_resolved_budgets(rng, monkeypatch):
+    """With the route forced to "fused", solve_eta calls the η kernel's
+    wrapper once with the config's K and budgets (on the CPU the wrapper
+    then takes the plain version, so the result equals the split route's)."""
+    calls = []
+    real = ek.estep_eta_fused
+
+    def spy(*a, **k):
+        calls.append((a[6], k))
+        return real(*a, **k)
+
+    K = (2, 3)
+    lam, nu, N, st, mu, invS = map(torch.as_tensor, _inputs(rng, 2, 6, K))
+    config = ctm_base.CTMBaseConfig(K=K, V=(5, 5), D=6, dtype=torch.float32, nu_n_iter=6)
+    split = ctm_base.solve_eta(lam, nu, N, st, mu, invS, config)
+    monkeypatch.setattr(ek, "estep_eta_fused", spy)
+    monkeypatch.setattr(ctm_base, "_eta_route", lambda *a: "fused")
+    fused = ctm_base.solve_eta(lam, nu, N, st, mu, invS, config)
+    assert calls == [(K, dict(n_iter=3, cg_iter=4, polish_iter=1, nu_n_iter=6))]
+    assert all(torch.equal(a, b) for a, b in zip(fused, split))
+
+
+@pytest.mark.parametrize("device, dtype, MK, route", [
+    ("cuda", torch.float32, 14, "fused"),
+    ("cuda", torch.float32, 40, "fused"),
+    ("cuda", torch.float32, 128, "fused"),
+    ("cuda", torch.float32, 129, "split"),
+    ("cuda", torch.float64, 14, "split"),
+    ("cpu", torch.float32, 14, "split"),
+    ("cpu", torch.float64, 40, "split"),
+])
+def test_eta_route(device, dtype, MK, route):
+    assert ctm_base._eta_route(device, dtype, MK) == route
+
+
+def test_cpu_tensors_take_the_plain_version_without_a_launch(rng):
+    args = list(map(torch.as_tensor, _inputs(rng, 2, 7, (2, 2))))
+    before = ek.LAUNCHES
+    got = ek.estep_eta_fused(*args, (2, 2), n_iter=2, cg_iter=3, polish_iter=1, nu_n_iter=3)
+    want = ek.estep_eta_fused_plain(*args, (2, 2), n_iter=2, cg_iter=3, polish_iter=1,
+                                    nu_n_iter=3)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert ek.LAUNCHES == before
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(rng):
+    args = list(map(torch.as_tensor, _inputs(rng, 1, 4, (2, 3))))
+    with pytest.raises(ValueError, match="summing to MK"):
+        ek.estep_eta_fused(*args, (2, 2))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ek.estep_eta_fused(*(a.to("meta") for a in args), (2, 3))
+    big = [torch.zeros(1, 2, 129), torch.ones(1, 2, 129), torch.ones(2, 1),
+           torch.zeros(1, 2, 129), torch.zeros(1, 129), torch.eye(129)[None]]
+    with pytest.raises(ValueError, match="exceeds the η kernel's limit"):
+        ek.estep_eta_fused(*big, (129,))

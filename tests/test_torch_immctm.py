@@ -103,7 +103,7 @@ def test_calculate_elbo_matches_jax(tiny):
 def test_wrapper_fields_match_the_jax_wrapper(tiny):
     """The R = 1 wrapper: the reference's constructor and field surface."""
     want = tiny["model"]
-    got = mt.IMMCTM(K, ALPHA, FEATURES, X, dtype=torch.float64)
+    got = mt.IMMCTM(K, ALPHA, FEATURES, X, dtype=torch.float64, device="cpu")
     for name in ("K", "D", "M", "I", "J", "V", "N", "alpha"):
         assert getattr(got, name) == getattr(want, name), name
     assert got.mu.shape == (5,) and got.Sigma.shape == (5, 5)
@@ -210,7 +210,7 @@ def test_fit_immctm_restarts_matches_jax_lanes_and_selection(brca_slice, monkeyp
     monkeypatch.setattr(tr.immctm_mod, "init",
                         lambda *a, **k: mt.immctm_state_from_numpy(b["inits"]))
     model = mt.fit_immctm_restarts([3, 3], [0.1, 0.1], list(b["feats"]), b["docs"], restarts=3,
-                                   maxiter=12, tol=0.0, dtype=torch.float64)
+                                   maxiter=12, tol=0.0, dtype=torch.float64, device="cpu")
     res = model.restart_result
     np.testing.assert_allclose(res.ll_history.numpy(), want.ll_history, rtol=RTOL)
     np.testing.assert_allclose(res.elbo.numpy(), want.elbo, rtol=RTOL)
@@ -224,9 +224,9 @@ def test_fit_immctm_restarts_matches_jax_lanes_and_selection(brca_slice, monkeyp
 
 def test_fit_immctm_restarts_from_a_seed_is_reproducible():
     a = mt.fit_immctm_restarts(K, ALPHA, FEATURES, X, restarts=3, maxiter=8, tol=0.0, seed=4,
-                               dtype=torch.float64)
+                               dtype=torch.float64, device="cpu")
     b = mt.fit_immctm_restarts(K, ALPHA, FEATURES, X, restarts=3, maxiter=8, tol=0.0, seed=4,
-                               dtype=torch.float64, rescore_f64=False)
+                               dtype=torch.float64, rescore_f64=False, device="cpu")
     assert torch.equal(a.restart_result.ll_history, b.restart_result.ll_history)
     assert a.restart_result.ll.shape == (3, 2) and np.isfinite(a.ll).all()
     gam = a.restart_result.state.gamma

@@ -20,6 +20,7 @@ from multimodalmusig_tpu.utils import fast_tsv as jax_fast_tsv
 from multimodalmusig_tpu.utils import formatting as jax_formatting
 from multimodalmusig_tpu.utils.hermetic import scrubbed_env
 
+import multimodalmusig_tpu_torch as mt
 from multimodalmusig_tpu_torch.models import ctm_base, mmctm
 from multimodalmusig_tpu_torch.ops import convergence, solvers
 from multimodalmusig_tpu_torch.utils import data, fast_tsv, formatting
@@ -32,19 +33,101 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
+    """Every module of the port, found with pkgutil.walk_packages (the
+    kernel wrappers and profile_step included), imports without JAX."""
     code = (
-        "import json, sys\n"
+        "import importlib, json, pkgutil, sys\n"
         "before = set(sys.modules)\n"
-        "import multimodalmusig_tpu_torch\n"
+        "import multimodalmusig_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "new = set(sys.modules) - before\n"
-        "print(json.dumps(sorted(m for m in new if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'multimodalmusig_tpu'))))\n"
+        "print(json.dumps([names, sorted(m for m in new if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'multimodalmusig_tpu'))]))\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], env=scrubbed_env(), cwd=REPO,
         capture_output=True, text=True, timeout=120, check=True,
     )
-    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    names, jax_modules = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert {"multimodalmusig_tpu_torch.ops.estep_kernel",
+            "multimodalmusig_tpu_torch.ops.lambda_kernel",
+            "multimodalmusig_tpu_torch.ops.theta_kernel",
+            "multimodalmusig_tpu_torch.profile_step"} <= set(names)
+    assert jax_modules == []
+
+
+ENTRY_POINTS = [
+    ("fit_restarts", lambda: mt.fit_restarts(0, _X, _CFG, [0.1, 0.1], restarts=2, maxiter=2)),
+    ("fit_immctm_restarts", lambda: mt.fit_immctm_restarts(
+        [1, 1], [0.1, 0.1], _FEATURES, _DOCS, restarts=2, maxiter=2)),
+    ("fit_mmctm_restarts", lambda: mt.fit_mmctm_restarts([1, 1], [0.1, 0.1], _DOCS, restarts=2,
+                                                         maxiter=2)),
+    ("two_stage_fit", lambda: mt.two_stage_fit(0, _X, _CFG, [0.1, 0.1], restarts=2, maxiter=2)),
+    ("MMCTM", lambda: mt.MMCTM([1, 1], [0.1, 0.1], _DOCS)),
+    ("IMMCTM", lambda: mt.IMMCTM([1, 1], [0.1, 0.1], _FEATURES, _DOCS)),
+]
+_X = [np.ones((3, 2)), np.ones((3, 2))]
+_CFG = mmctm.MMCTMConfig(K=(1, 1), V=(2, 2), D=3)
+_DOCS = [[np.array([[1, 2], [2, 1]]), np.array([[2, 3]])] for _ in range(3)]
+_FEATURES = [np.array([[1, 1], [2, 1]]), np.array([[1, 1], [1, 2]])]
+
+
+@pytest.mark.parametrize("name, call", ENTRY_POINTS, ids=[e[0] for e in ENTRY_POINTS])
+def test_entry_points_default_to_the_card_and_never_fall_back(monkeypatch, name, call):
+    """Each entry point's device defaults to "cuda"; with no card a call
+    without a device raises an error that names device="cpu" instead of
+    running on the CPU."""
+    import inspect
+
+    fn = getattr(mt, name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        call()
+
+
+def test_build_hash_covers_every_header(tmp_path, monkeypatch):
+    """Without running nvcc: an edit to a csrc/*.cuh moves every kernel's
+    build directory, and cuda_function hands the compiler `-I csrc` and the
+    headers. Each kernel keeps a library of its own."""
+    from multimodalmusig_tpu_torch import native_build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("lambda_newton.cu", "estep_eta.cu", "lambda_solve.cuh"):
+        (csrc / name).write_bytes(open(os.path.join(native_build.CSRC_DIR, name), "rb").read())
+    monkeypatch.setattr(native_build, "CSRC_DIR", str(csrc))
+    assert native_build.csrc_headers() == [str(csrc / "lambda_solve.cuh")]
+
+    def dirs():
+        cmd = native_build.cuda_command()
+        return [native_build.build_dir(n, [str(csrc / f"{n}.cu")], cmd,
+                                       native_build.csrc_headers())
+                for n in ("lambda_newton", "estep_eta")]
+
+    before = dirs()
+    assert before == dirs() and before[0] != before[1]
+    with open(csrc / "lambda_solve.cuh", "a") as f:
+        f.write("// an edit\n")
+    after = dirs()
+    assert after[0] != before[0] and after[1] != before[1]
+
+    seen = []
+
+    def record(name, sources, command, headers=()):
+        seen.append((name, sources, command, headers))
+        raise RuntimeError("recorded")
+
+    monkeypatch.setattr(native_build, "build_shared_library", record)
+    monkeypatch.setattr(native_build, "_cuda_functions", {})
+    with pytest.raises(RuntimeError, match="recorded"):
+        native_build.cuda_function("estep_eta", "estep_eta_launch", [])
+    name, sources, command, headers = seen[0]
+    assert name == "estep_eta" and sources == [str(csrc / "estep_eta.cu")]
+    assert command[-2:] == ["-I", str(csrc)] and "arch=compute_90a,code=sm_90a" in command
+    assert headers == [str(csrc / "lambda_solve.cuh")]
 
 
 @pytest.mark.parametrize("port_name, jax_name", [

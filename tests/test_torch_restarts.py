@@ -113,7 +113,7 @@ def test_when_the_loop_notices_done_lanes_does_not_change_results(monkeypatch):
 
 def test_fit_restarts_takes_a_seed_or_a_generator():
     cfg, Xt, _ = _tiny(1)
-    a = tr.fit_restarts(7, Xt, cfg, [0.1, 0.1], restarts=2, maxiter=12, tol=0.0)
+    a = tr.fit_restarts(7, Xt, cfg, [0.1, 0.1], restarts=2, maxiter=12, tol=0.0, device="cpu")
     b = tr.fit_restarts(torch.Generator().manual_seed(7), [x.numpy() for x in Xt], cfg,
                         [0.1, 0.1], restarts=2, maxiter=12, tol=0.0, device="cpu")
     assert torch.equal(a.ll_history, b.ll_history)
