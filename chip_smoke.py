@@ -14,18 +14,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
      SPD problems: the main path's shape (100, 560, 14) with the f32 CAVI
      budgets (warm start) and the cold defaults, MK = 40 and 128 at
      (100, 560) with the CAVI budgets, ragged D at MK = 19, 40 and 128
-     with the cold defaults, and the R = 1 entry `maximize_lambda_fused`;
-     prints both times (median of 20 CUDA-event timings) at each (100, 560)
-     shape;
+     with the cold defaults, and the R = 1 entry `maximize_lambda_fused`
+     (B2) at (560, 14); prints both times (median of 20 CUDA-event timings)
+     at each (100, 560) shape and for the R = 1 entry, with B2's bound;
   4. η kernel against its plain PyTorch version: (100, 560, K=(7, 7)) at the
      f32 CAVI budgets and the cold defaults, K=(20, 20) and (64, 64) at
      (100, 560), a ragged M=3 case with odd D, a document with no counts in
-     one modality, and MK = 128 in three modalities; prints max |Δ| of ζ, ν
-     and λ and both times at each (100, 560) shape;
+     one modality, MK = 128 in three modalities, and either side of each
+     layout boundary (MK 16 and 17 at (100, 560), 32 and 33 ragged) and
+     R = 1; prints max |Δ| of ζ, ν and λ and both times at each (100, 560)
+     shape;
   5. θ kernel against its plain PyTorch version at the BRCA shapes
-     (100, 560, 96, 7) and (100, 560, 48, 7) and at the ragged
-     (3, 33, 128, 11) and (2, 8, 5, 2), with bit-identical repeat launches;
-     prints both times at the BRCA shapes;
+     (100, 560, 96, 7) and (100, 560, 48, 7), at R = 1 and at the ragged
+     (3, 33, 128, 11), (2, 8, 5, 2) and (7, 101, 96, 7), with bit-identical
+     repeat launches; prints both times at the BRCA shapes;
   6. main path: the best-of-100 MMCTM K=(7, 7), α=0.1 restart fit on the
      bundled BRCA-EU SNV+SV counts (D=560), float32, tol 1e-5, maxiter 1000,
      through `fit_restarts(...)` on the card, warm, then timed in turns on
@@ -52,7 +54,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
      on the card, warm and then timed; prints the stage-1 winners, their
      f64 scores and the selected ll; the selected lane must be finite and
      converged, no more than 5e-3 below the JAX package's two-stage fit
-     per modality, and the η kernel must run once per CAVI iteration.
+     per modality, and the η kernel must run once per CAVI iteration;
+ 11. θ launches: one θ call at each BRCA shape runs exactly one device
+     kernel (torch.profiler), checked after the timed paths.
 The last two lines of standard output are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
 """
@@ -201,10 +205,11 @@ def lambda_phase(lk):
             print(f"λ time at ({R}, {D}, {MK}), f32 CAVI budgets: kernel {ms:.4f} ms, "
                   f"plain PyTorch {plain_ms:.4f} ms (median of 20 CUDA-event timings)")
 
-    # the R = 1 entry (the TPU kernel's maximize_lambda_fused, one shared μ/Σ⁻¹)
-    lam0, nu, ndz, st, mu, invS = (t[0] for t in spd_problem(gen, 1, 560, 14, "cuda"))
-    got = lk.maximize_lambda_fused(lam0, nu, ndz, st, mu, invS)
-    want = lk.maximize_lambda_restarts_plain(*(t[None] for t in (lam0, nu, ndz, st, mu, invS)))[0]
+    # the R = 1 entry (B2, the TPU kernel's maximize_lambda_fused, one shared
+    # μ/Σ⁻¹), at the cold defaults: 7 Newton steps, PCG min(14, 10), polish 2
+    args = tuple(t[0] for t in spd_problem(gen, 1, 560, 14, "cuda"))
+    got = lk.maximize_lambda_fused(*args)
+    want = lk.maximize_lambda_restarts_plain(*(t[None] for t in args))[0]
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     print(f"λ kernel R = 1 entry maximize_lambda_fused (560, 14), cold defaults: "
@@ -212,6 +217,12 @@ def lambda_phase(lk):
     if not torch.isfinite(got).all() or err > KERNEL_ATOL:
         fail(f"the R = 1 λ entry disagrees with its plain version by {err:.3e}")
     max_err = max(max_err, err)
+    b2_ms = cuda_ms(lambda: lk.maximize_lambda_fused(*args))
+    b2_plain_ms = cuda_ms(lambda: lk.maximize_lambda_restarts_plain(*(t[None] for t in args)))
+    b2_bound_ms, b2_by = lambda_bound(1, 560, 14, 7, 10, 2)
+    print(f"B2 (maximize_lambda_fused) time at (560, 14), cold defaults: kernel {b2_ms:.4f} ms, "
+          f"plain PyTorch {b2_plain_ms:.4f} ms (median of 20 CUDA-event timings); bound "
+          f"{b2_bound_ms:.6f} ms ({b2_by}); one PyTorch call: none")
     return max_err, timings[14]
 
 
@@ -296,6 +307,11 @@ def eta_phase(ek):
         ("ragged M=3, odd D=37, cold defaults", (3, 37, (3, 4, 5)), {}, False),
         ("zero counts in one modality, cold defaults", (2, 9, (3, 2)), {}, True),
         ("MK=128 in three modalities, cold defaults", (3, 29, (40, 50, 38)), {}, False),
+        ("MK=16, the thread layout's last, f32 CAVI budgets", (RESTARTS, 560, (8, 8)), cavi, False),
+        ("MK=17, the warp layout's first, f32 CAVI budgets", (RESTARTS, 560, (9, 8)), cavi, False),
+        ("MK=32, the warp layout's last, cold defaults", (3, 50, (16, 16)), {}, False),
+        ("MK=33, the block layout's first, cold defaults", (3, 50, (17, 16)), {}, False),
+        ("R=1, f32 CAVI budgets", (1, 560, (7, 7)), cavi, False),
     ):
         args = eta_problem(gen, R, D, K, zero)
         got = ek.estep_eta_fused(*args, K, **budgets)
@@ -331,7 +347,7 @@ def theta_phase(tk):
     max_err = 0.0
     timings = {}
     for R, D, V, K in ((RESTARTS, 560, 96, 7), (RESTARTS, 560, 48, 7), (3, 33, 128, 11),
-                       (2, 8, 5, 2)):
+                       (2, 8, 5, 2), (1, 560, 96, 7), (7, 101, 96, 7)):
         # the inputs of tests/test_pallas_kernels.py, per restart lane
         lam = 2.0 * torch.randn(R, D, K, generator=gen)
         logw = torch.randn(R, V, K, generator=gen) - 4.0
@@ -362,6 +378,30 @@ def theta_phase(tk):
             print(f"θ time at ({R}, {D}, {V}, {K}): kernel {ms:.4f} ms, plain PyTorch "
                   f"{plain_ms:.4f} ms (median of 20 CUDA-event timings)")
     return max_err, timings[96]
+
+
+def theta_launch_check(tk):
+    """One θ call per BRCA modality under torch.profiler: exactly one device
+    kernel each (no second pass, no memset of the arrival counters). It
+    runs after the timed paths: the profiler, once started, slows the
+    launches that follow it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(3)
+    for V in (96, 48):
+        args = [t.to("cuda") for t in (2.0 * torch.randn(RESTARTS, 560, 7, generator=gen),
+                                       torch.randn(RESTARTS, V, 7, generator=gen) - 4.0,
+                                       torch.randint(0, 30, (560, V), generator=gen).float())]
+        tk.theta_moments_fused(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tk.theta_moments_fused(*args)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        print(f"θ kernel device kernels in one call at {(RESTARTS, 560, V, 7)}: {len(names)}")
+        if len(names) != 1:
+            fail(f"one θ call ran {len(names)} device kernels, not one: {names}")
 
 
 def load_brca():
@@ -764,6 +804,7 @@ def main():
         "compaction": compaction_phase(mt, kernels, X),
         "two-stage": two_stage_phase(mt, kernels, X),
     }
+    theta_launch_check(tk)
     launches = {k: sum(p[k] for p in paths.values()) for k in ("estep_eta", "lambda_newton",
                                                                 "theta_moments")}
     print(f"kernel launches on the driven paths: {paths}")

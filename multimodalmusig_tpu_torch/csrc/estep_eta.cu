@@ -19,31 +19,42 @@
 // dead lane (an all-NaN Σ_r⁻¹) stays NaN; it cannot touch another restart,
 // whose problems run in other blocks.
 //
-// Layout: the λ kernel's. One group of P lanes serves one (r, d) problem, one
-// coordinate per lane; a block of 256 threads holds 256 / P documents of one
-// restart; WarpGroup for MK ≤ 32, BlockGroup for MK ≤ 128. Inside a group:
-//  * each lane finds its modality m_j from the block offsets, which come as a
-//    kernel argument;
-//  * ζ is a segmented sum over the group: one masked group sum per modality,
-//    M of them in every group, so every thread of a BlockGroup block meets
-//    every barrier; lane m writes ζ_dm;
-//  * each lane forms its own Ndivζ and runs the ν solve elementwise in
-//    registers;
-//  * then the shared λ solve with the new ν.
-// Padding lanes (j ≥ MK) and padding documents (d ≥ D) stay inert, as the
-// TPU kernel keeps them: a = ½ (identity row), b = 0, ν = 1, λ = μ = 0.
+// Layouts. The wrapper (ops/estep_kernel.py launch_geometry) picks one by MK
+// and passes it, with the documents per block, to estep_eta_launch:
+//  * "thread", MK ≤ 16 (the BRCA main path, MK = 14): one thread per (r, d)
+//    problem, ThreadProblem<P> of lambda_solve.cuh with P = MK rounded up to
+//    even. A block is 64 documents of one restart (D = 560 fills 560 of 576
+//    threads), staged into shared-memory columns by coalesced loads and
+//    written back the same way. ζ is M sums inside the thread over the
+//    modality blocks; N/ζ and the ν solve are elementwise, the ν solve on
+//    the thread's P coordinates at once. No shuffles, no idle lanes. At 168
+//    registers an SM holds 6 blocks (384 problems), so R = 100 by D = 560
+//    (56,000 problems) takes 1.1 waves on 132 SMs.
+//  * "warp", MK ≤ 32: one WarpGroup<32> per problem, one coordinate per lane;
+//    "block", MK ≤ 128: one BlockGroup<64 or 128>. A block of 256 threads
+//    holds 256 / P documents. Each lane finds its modality from the block
+//    offsets; ζ is one masked group sum per modality, M of them in every
+//    group, so every thread of a BlockGroup block meets every barrier.
+// Padding coordinates (j ≥ MK) and padding documents (d ≥ D) stay inert, as
+// the TPU kernel keeps them: a = ½ (identity row), b = 0, ν = 1, λ = μ = 0
+// (a padding document of the thread layout keeps its restart's μ and solves
+// a well-posed problem that is never written).
 //
-// Bounds. The ζ and ν steps add about 40·MK exps and divisions per problem
-// to the λ solve's 12 kFLOP (MK = 14, f32 CAVI budgets), and read N and ν
-// and write ζ and ν besides the λ kernel's traffic: at R = 100 restarts of
-// the D = 560, MK = 14 BRCA workload about 0.7 GFLOP and 25 MB per CAVI
-// iteration, far below the card's float32 rate and its memory bandwidth. Like
-// the λ kernel it is bound by latency and by its launch; what it saves is
-// the hundred or so launches of the plain ζ/ν sequence (each sweep of the ν
-// fixed point is several elementwise kernels) and the round trips of ζ,
-// Ndivζ and ν through device memory.
+// Bounds. At the f32 CAVI budgets (Newton 3, PCG 4, polish 1, ν sweeps 4) a
+// problem at MK = 14 is about 12 kFLOP of λ solve plus about 1.3 kFLOP of ζ
+// and ν, and it moves 5·MK·4 bytes: at R = 100 by D = 560, 0.75 GFLOP and
+// 16 MB, an operations bound of 14 µs (chip_smoke.py eta_bound). The
+// thread layout is bound by its instruction issue (the matvecs' FMAs and
+// broadcast loads, the fast paths of the PCG and ν divisions and of the
+// line search's square roots, the exps), below the card's rate. On an
+// NVIDIA H100 80GB HBM3 at 700 W,
+// torch.profiler (profile_step.py) gives 106.5 µs of device time per call
+// at R = 100 and 711.3 µs at R = 1000, against 164.7 µs and 1556.7 µs for
+// the warp layout it replaced at MK ≤ 16, which issued about 790 shuffles
+// per warp of two problems.
 //
-// Full-precision float32 throughout: expf, and no --use_fast_math.
+// Full-precision float32 throughout: expf, sqrtf and IEEE divisions, and no
+// --use_fast_math.
 
 #include "lambda_solve.cuh"
 
@@ -53,6 +64,13 @@ using namespace lambda_solve;
 
 constexpr float kNuLowerBound = 1e-7f;  // solvers.NU_LOWER_BOUND
 constexpr int kNuPolish = 4;            // solvers.NU_POLISH_ITERS
+constexpr int kMaxThreadDocs = 64;      // documents per block of the thread layout, at most
+// Blocks an SM holds in the thread layout: 6 at P ≤ 14 (168 registers a
+// thread), 5 at P = 16.
+__host__ __device__ constexpr int thread_blocks_per_sm(int P) { return P <= 14 ? 6 : 5; }
+constexpr int kColStride = kMaxThreadDocs + 1;
+
+enum Layout { kThreadLayout = 0, kWarpLayout = 1, kBlockLayout = 2 };
 
 // The per-modality topic blocks: modality m holds coordinates
 // [offset[m], offset[m + 1]); offset[M] = MK.
@@ -65,7 +83,153 @@ struct Blocks {
 __device__ __forceinline__ float clamp_below(float x, float lo) { return x < lo ? lo : x; }
 __device__ __forceinline__ float clamp_above(float x, float hi) { return x > hi ? hi : x; }
 
-// ζ, ν' and λ' for this thread's (r, d, j), shared by both layouts.
+// ν (ops/solvers.py maximize_nu) of P coordinates at once, from a = ½Σ⁻¹_jj,
+// b = Ndivζ_j·e^{λ_j} and the incoming ν, all in registers; each division by
+// div_fast, and a sweep in which any element left its range is redone with
+// IEEE divisions.
+template <int P>
+__device__ __forceinline__ void nu_solve_vec(const float (&a)[P], const float (&b)[P],
+                                             float (&nu)[P], int nu_n_iter) {
+  auto wexp = [&](int j, float v) {
+    const float w = b[j] * expf(clamp_above(0.5f * v, kExpClip));
+    return b[j] > 0.f ? w : 0.f;
+  };
+  float t[P];
+  for (int it = 0; it < nu_n_iter; ++it) {
+    bool ok = true;
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+      t[j] = clamp_below(div_fast(1.f, 2.f * a[j] + wexp(j, nu[j]), ok), kNuLowerBound);
+    if (!ok) {
+#pragma unroll
+      for (int j = 0; j < P; ++j)
+        t[j] = clamp_below(div_ieee(1.f, 2.f * a[j] + wexp(j, nu[j])), kNuLowerBound);
+    }
+#pragma unroll
+    for (int j = 0; j < P; ++j) nu[j] = t[j];
+  }
+  for (int it = 0; it < kNuPolish; ++it) {
+    bool ok = true;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const float w = wexp(j, nu[j]);
+      const float g = -a[j] - 0.5f * w + div_fast(0.5f, nu[j], ok);
+      const float hess = -0.25f * w - div_fast(0.5f, nu[j] * nu[j], ok);
+      t[j] = clamp_below(nu[j] - div_fast(g, hess, ok), kNuLowerBound);
+    }
+    if (!ok) {
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const float w = wexp(j, nu[j]);
+        const float g = -a[j] - 0.5f * w + div_ieee(0.5f, nu[j]);
+        const float hess = -0.25f * w - div_ieee(0.5f, nu[j] * nu[j]);
+        t[j] = clamp_below(nu[j] - div_ieee(g, hess), kNuLowerBound);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < P; ++j) nu[j] = isfinite(t[j]) ? t[j] : nu[j];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The thread layout.
+
+template <int P>
+__global__ void __launch_bounds__(kMaxThreadDocs, thread_blocks_per_sm(P))
+estep_eta_thread_kernel(const float* __restrict__ lam0, const float* __restrict__ nu0,
+                        const float* __restrict__ N, const float* __restrict__ st,
+                        const float* __restrict__ mu, const float* __restrict__ inv_sigma,
+                        float* __restrict__ zeta, float* __restrict__ nu_out,
+                        float* __restrict__ lam_out, const Blocks blk, int D, int MK,
+                        int n_iter, int cg_iter, int polish_iter, int nu_n_iter) {
+  using Problem = ThreadProblem<P, kColStride>;
+  constexpr int P4 = Problem::P4;
+  extern __shared__ float4 smem4[];
+  float* S = reinterpret_cast<float*>(smem4);  // [P][P4]
+  float* diag = S + P * P4;                    // [P4]
+  float* mu_s = diag + P4;                     // [P4]
+  float* cols = mu_s + P4;                     // [kColumns][P][kColStride]
+  const int T = blockDim.x, t = threadIdx.x;
+  const int r = blockIdx.y, d0 = blockIdx.x * T;
+  const int docs = min(T, D - d0);  // live documents of this block
+  auto col = [&](int c, int j, int doc) -> float& {
+    return cols[(c * P + j) * kColStride + doc];
+  };
+
+  const float* S_r = inv_sigma + static_cast<size_t>(r) * MK * MK;
+  for (int idx = t; idx < P * P4; idx += T) {
+    const int i = idx / P4, k = idx % P4;
+    const float s = (i < MK && k < MK) ? S_r[i * MK + k] : (i == k ? 1.f : 0.f);
+    S[idx] = s;
+    if (i == k) diag[i] = s;
+  }
+  for (int j = t; j < P4; j += T) mu_s[j] = j < MK ? mu[static_cast<size_t>(r) * MK + j] : 0.f;
+  for (int idx = t; idx < P * T; idx += T) {  // the inert padding
+    const int j = idx / T, doc = idx % T;
+    if (j >= MK || doc >= docs) {
+      col(kLam, j, doc) = 0.f;
+      col(kNu, j, doc) = 1.f;
+      col(kNdz, j, doc) = 0.f;
+      col(kSt, j, doc) = 0.f;
+    }
+  }
+  const size_t base = (static_cast<size_t>(r) * D + d0) * MK;
+  for (int idx = t; idx < docs * MK; idx += T) {  // coalesced: the block's rows are contiguous
+    const int doc = idx / MK, j = idx - doc * MK;
+    col(kLam, j, doc) = lam0[base + idx];
+    col(kNu, j, doc) = nu0[base + idx];
+    col(kSt, j, doc) = st[base + idx];
+  }
+  __syncthreads();
+
+  Problem prob{S, diag, mu_s, cols + t};
+  const bool live = t < docs;
+  const int d = d0 + t;
+
+  // ζ and N/ζ from the incoming λ and ν.
+  float e[P];  // a padding coordinate's e is never summed
+#pragma unroll
+  for (int j = 0; j < P; ++j) e[j] = expf(prob.at(kLam, j) + 0.5f * prob.at(kNu, j));
+  for (int m = 0; m < blk.M; ++m) {
+    const int lo = blk.offset[m], hi = blk.offset[m + 1];
+    float z = 0.f;
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+      if (j >= lo && j < hi) z += e[j];
+    if (live) zeta[(static_cast<size_t>(r) * D + d) * blk.M + m] = z;
+    const float n = live ? N[static_cast<size_t>(d) * blk.M + m] : 0.f;
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+      if (j >= lo && j < hi) prob.at(kNdz, j) = n / z;
+  }
+
+  // ν from the incoming λ, elementwise (a padding coordinate keeps ν = 1).
+  float a[P], b[P], nu[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    a[j] = 0.5f * diag[j];
+    b[j] = prob.at(kNdz, j) * expf(prob.at(kLam, j));
+    nu[j] = prob.at(kNu, j);
+  }
+  nu_solve_vec<P>(a, b, nu, nu_n_iter);
+#pragma unroll
+  for (int j = 0; j < P; ++j) prob.at(kNu, j) = nu[j];
+
+  // λ from the incoming λ, with the new ν.
+  prob.solve(n_iter, cg_iter, polish_iter);
+
+  __syncthreads();
+  for (int idx = t; idx < docs * MK; idx += T) {
+    const int doc = idx / MK, j = idx - doc * MK;
+    lam_out[base + idx] = col(kLam, j, doc);
+    nu_out[base + idx] = col(kNu, j, doc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The group layouts.
+
+// ζ, ν' and λ' for this thread's (r, d, j), shared by both group layouts.
 template <typename G>
 __device__ __forceinline__ void estep(G& grp, const float* lam0, const float* nu0,
                                       const float* N, const float* st, const float* mu,
@@ -94,22 +258,11 @@ __device__ __forceinline__ void estep(G& grp, const float* lam0, const float* nu
   }
   const float ndz = live ? N[static_cast<size_t>(d) * blk.M + m_j] / zeta_j : 0.f;
 
-  // ν (ops/solvers.py maximize_nu), elementwise, from the incoming λ.
-  const float a = 0.5f * grp.diag;
-  const float b = ndz * expf(lam);
-  auto wexp = [&](float v) {
-    return b > 0.f ? b * expf(clamp_above(0.5f * v, kExpClip)) : 0.f;
-  };
-  float nu = nu_in;
-  for (int it = 0; it < nu_n_iter; ++it)
-    nu = clamp_below(1.f / (2.f * a + wexp(nu)), kNuLowerBound);
-  for (int it = 0; it < kNuPolish; ++it) {
-    const float w = wexp(nu);
-    const float g = -a - 0.5f * w + 0.5f / nu;
-    const float hess = -0.25f * w - 0.5f / (nu * nu);
-    const float step = clamp_below(nu - g / hess, kNuLowerBound);
-    nu = isfinite(step) ? step : nu;
-  }
+  // ν from the incoming λ, elementwise.
+  const float a[1] = {0.5f * grp.diag}, b[1] = {ndz * expf(lam)};
+  float nu_v[1] = {nu_in};
+  nu_solve_vec<1>(a, b, nu_v, nu_n_iter);
+  const float nu = nu_v[0];
   if (live) nu_out[off] = nu;
 
   // λ from the incoming λ, with the new ν.
@@ -156,33 +309,50 @@ estep_eta_block_kernel(const float* __restrict__ lam0, const float* __restrict__
         cg_iter, polish_iter, nu_n_iter);
 }
 
+// ---------------------------------------------------------------------------
+// Launch.
+
 struct Args {
   const float *lam0, *nu0, *N, *st, *mu, *inv_sigma;
   float *zeta, *nu_out, *lam_out;
   int R, D, MK, n_iter, cg_iter, polish_iter, nu_n_iter;
 };
 
-template <int P>
-int launch_warp(const Args& a, const Blocks& blk, cudaStream_t stream) {
-  constexpr int kDocsPerBlock = kThreads / P;
-  const dim3 grid((a.D + kDocsPerBlock - 1) / kDocsPerBlock, a.R);
-  estep_eta_warp_kernel<P><<<grid, kThreads, 0, stream>>>(
-      a.lam0, a.nu0, a.N, a.st, a.mu, a.inv_sigma, a.zeta, a.nu_out, a.lam_out, blk, a.D,
-      a.MK, a.n_iter, a.cg_iter, a.polish_iter, a.nu_n_iter);
+template <typename Kernel>
+int launch(Kernel kernel, const Args& a, const Blocks& blk, int docs, int threads, size_t smem,
+           cudaStream_t stream) {
+  const cudaError_t rc = allow_smem(kernel, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid((a.D + docs - 1) / docs, a.R);
+  kernel<<<grid, threads, smem, stream>>>(a.lam0, a.nu0, a.N, a.st, a.mu, a.inv_sigma, a.zeta,
+                                          a.nu_out, a.lam_out, blk, a.D, a.MK, a.n_iter,
+                                          a.cg_iter, a.polish_iter, a.nu_n_iter);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int P>
-int launch_block(const Args& a, const Blocks& blk, cudaStream_t stream) {
-  constexpr int kDocsPerBlock = kThreads / P;
-  constexpr size_t smem = block_smem_bytes<P>();
-  const cudaError_t rc = allow_smem(estep_eta_block_kernel<P>, smem);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  const dim3 grid((a.D + kDocsPerBlock - 1) / kDocsPerBlock, a.R);
-  estep_eta_block_kernel<P><<<grid, kThreads, smem, stream>>>(
-      a.lam0, a.nu0, a.N, a.st, a.mu, a.inv_sigma, a.zeta, a.nu_out, a.lam_out, blk, a.D,
-      a.MK, a.n_iter, a.cg_iter, a.polish_iter, a.nu_n_iter);
-  return static_cast<int>(cudaGetLastError());
+int launch_thread(const Args& a, const Blocks& blk, int docs, cudaStream_t stream) {
+  // Shared memory, not L1, bounds the blocks an SM holds: ask for its most.
+  static const cudaError_t carveout = cudaFuncSetAttribute(
+      estep_eta_thread_kernel<P>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (carveout != cudaSuccess) return static_cast<int>(carveout);
+  return launch(estep_eta_thread_kernel<P>, a, blk, docs, docs,
+                sizeof(float) * thread_smem_floats<P, kColStride>(), stream);
+}
+
+int launch_thread_layout(int P, const Args& a, const Blocks& blk, int docs, cudaStream_t s) {
+  switch (P) {
+    case 2: return launch_thread<2>(a, blk, docs, s);
+    case 4: return launch_thread<4>(a, blk, docs, s);
+    case 6: return launch_thread<6>(a, blk, docs, s);
+    case 8: return launch_thread<8>(a, blk, docs, s);
+    case 10: return launch_thread<10>(a, blk, docs, s);
+    case 12: return launch_thread<12>(a, blk, docs, s);
+    case 14: return launch_thread<14>(a, blk, docs, s);
+    case 16: return launch_thread<16>(a, blk, docs, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -191,15 +361,19 @@ int launch_block(const Args& a, const Blocks& blk, cudaStream_t stream) {
 // contiguous float32 on the current device: lam0/nu/st and the outputs
 // nu_out/lam_out (R, D, MK), N (D, M), mu (R, MK), inv_sigma (R, MK, MK), the
 // output zeta (R, D, M). K (host memory) holds the M ≥ 1 topic counts, each
-// ≥ 1, summing to MK ≤ 128. Launches on `stream` without synchronising and
-// returns the CUDA error code (0 = launched).
+// ≥ 1, summing to MK ≤ 128. (layout, P, docs) is the launch geometry of
+// ops/estep_kernel.py launch_geometry: layout 0 (thread) with P even,
+// MK ≤ P ≤ 16 and 1 ≤ docs ≤ 64 documents per block; 1 (warp) with P = 32
+// and docs = 8; 2 (block) with P = 64 or 128 and docs = 256 / P. Launches on
+// `stream` without synchronising and returns the CUDA error code (0 =
+// launched).
 extern "C" int estep_eta_launch(const float* lam0, const float* nu, const float* N,
                                 const float* st, const float* mu, const float* inv_sigma,
                                 float* zeta, float* nu_out, float* lam_out, const int* K, int M,
                                 int R, int D, int MK, int n_iter, int cg_iter, int polish_iter,
-                                int nu_n_iter, void* stream) {
+                                int nu_n_iter, int layout, int P, int docs, void* stream) {
   if (R <= 0 || D <= 0) return static_cast<int>(cudaSuccess);
-  if (MK < 1 || MK > kMaxMK || R > 65535 || M < 1 || M > MK)
+  if (MK < 1 || MK > kMaxMK || R > 65535 || M < 1 || M > MK || P < MK)
     return static_cast<int>(cudaErrorInvalidValue);
   Blocks blk;
   blk.M = M;
@@ -212,8 +386,14 @@ extern "C" int estep_eta_launch(const float* lam0, const float* nu, const float*
   const Args a{lam0, nu, N, st, mu, inv_sigma, zeta, nu_out, lam_out,
                R, D, MK, n_iter, cg_iter, polish_iter, nu_n_iter};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (MK <= 16) return launch_warp<16>(a, blk, s);
-  if (MK <= 32) return launch_warp<32>(a, blk, s);
-  if (MK <= 64) return launch_block<64>(a, blk, s);
-  return launch_block<128>(a, blk, s);
+  if (layout == kThreadLayout && docs >= 1 && docs <= kMaxThreadDocs)
+    return launch_thread_layout(P, a, blk, docs, s);
+  if (layout == kWarpLayout && P == 32 && docs == kThreads / 32)
+    return launch(estep_eta_warp_kernel<32>, a, blk, docs, kThreads, 0, s);
+  if (layout == kBlockLayout && P == 64 && docs == kThreads / 64)
+    return launch(estep_eta_block_kernel<64>, a, blk, docs, kThreads, block_smem_bytes<64>(), s);
+  if (layout == kBlockLayout && P == 128 && docs == kThreads / 128)
+    return launch(estep_eta_block_kernel<128>, a, blk, docs, kThreads, block_smem_bytes<128>(),
+                  s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,12 +13,15 @@ Dispatch is by device only: a CPU tensor takes the plain PyTorch version
 maximize_nu → maximize_lambda at the kernel's defaults); a CUDA tensor
 launches the kernel, or raises when it cannot be built or launched — there
 is no fallback. `LAUNCHES` counts the kernel's launches, so a run can show
-that its path went through the kernel.
+that its path went through the kernel. `launch_geometry` picks the kernel's
+layout for an MK, and the wrapper passes it to the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -31,6 +34,8 @@ __all__ = [
     "build",
     "KERNEL_MAX_MK",
     "LAUNCHES",
+    "EtaGeometry",
+    "launch_geometry",
 ]
 
 # The TPU kernel's PALLAS_MAX_MK, as for the λ kernel.
@@ -39,9 +44,41 @@ KERNEL_MAX_MK = 128
 # Kernel launches since import (or since a caller last reset it to 0).
 LAUNCHES = 0
 
+# The largest MK of the per-thread layout, and its documents per block.
+THREAD_MAX_MK = 16
+THREAD_DOCS = 64
+# The kernel's layout codes (csrc/estep_eta.cu).
+_LAYOUTS = {"thread": 0, "warp": 1, "block": 2}
+
 # lam0, nu, N, sumtheta, mu, invSigma, zeta, nu_out, lam_out, K; M, R, D,
-# MK, n_iter, cg_iter, polish_iter, nu_n_iter; stream
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# MK, n_iter, cg_iter, polish_iter, nu_n_iter; layout, P, documents per
+# block; stream
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+
+
+class EtaGeometry(NamedTuple):
+    """The η kernel's launch for one MK: `layout` "thread" (one thread per
+    (restart, document) problem, holding P ≥ MK coordinates), "warp" (a
+    32-lane group per problem) or "block" (a P-lane group of whole warps);
+    `docs_per_block` documents of one restart per block."""
+
+    layout: str
+    P: int
+    docs_per_block: int
+
+
+@functools.lru_cache(maxsize=None)
+def launch_geometry(MK: int) -> EtaGeometry:
+    """MK ≤ 16: one thread per problem with P = MK rounded up to even, 64
+    documents a block (D = 560 fills 560 of 576 threads); MK ≤ 32: one warp
+    per problem, 8 a block; MK ≤ 64 and ≤ 128: a group of 64 or 128 lanes
+    per problem, in blocks of 256 threads."""
+    if not 1 <= MK <= KERNEL_MAX_MK:
+        raise ValueError(f"MK={MK} is outside the η kernel's 1..{KERNEL_MAX_MK}")
+    if MK <= THREAD_MAX_MK:
+        return EtaGeometry("thread", MK + MK % 2, THREAD_DOCS)
+    P = 32 if MK <= 32 else 64 if MK <= 64 else 128
+    return EtaGeometry("warp" if P == 32 else "block", P, 256 // P)
 
 
 def build() -> str:
@@ -120,12 +157,14 @@ def estep_eta_fused(lam0, nu, N, sumtheta, mu, invSigma, K, n_iter: int = 7,
     nu_out = torch.empty_like(args[0])
     lam_out = torch.empty_like(args[0])
     K_host = (ctypes.c_int * M)(*K)
+    geo = launch_geometry(MK)
     with torch.cuda.device(lam0.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = launch(
             *(t.data_ptr() for t in args), zeta.data_ptr(), nu_out.data_ptr(),
             lam_out.data_ptr(), ctypes.addressof(K_host), M, R, D, MK, int(n_iter),
-            cg_iter, polish_iter, nu_n_iter, stream,
+            cg_iter, polish_iter, nu_n_iter, _LAYOUTS[geo.layout], geo.P, geo.docs_per_block,
+            stream,
         )
     if rc != 0:
         raise RuntimeError(f"η kernel launch failed with CUDA error {rc}")

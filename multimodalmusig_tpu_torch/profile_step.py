@@ -12,7 +12,8 @@ bundled BRCA-EU counts) for `--restarts` lanes on the card and prints:
     rest: N/ζ, μ, lane freezing), each synchronized, so a phase's time
     includes the launches it issues, on the fused and on the split η route;
   * the kernels by device time, and the device time per call of each of
-    the port's kernels (η, λ, θ), on both η routes;
+    the port's kernels (η, λ, θ, the θ kernel also per modality), on both
+    η routes;
   * the iteration time in turns on the kernels (the fused η route), the
     split η route (PyTorch ζ/ν and the λ kernel), the plain η side (PyTorch
     ζ/ν and the plain λ solver) and the factorized θ schedule in place of
@@ -169,6 +170,11 @@ def main(argv=None):
                           f"{total / len(calls):9.2f} us per call")
                 else:
                     print(f"  {label:12s}   0.0 calls per iteration")
+                if key == "theta" and calls:  # one call per modality, in modality order
+                    calls.sort(key=lambda e: e.time_range.start)
+                    for m, V in enumerate(config.V):
+                        per = [e.time_range.elapsed_us() for e in calls[m::config.M]]
+                        print(f"    modality {m} (V={V}): {sum(per) / len(per):9.2f} us per call")
             print(prof.key_averages().table(sort_by="device_time_total", row_limit=25))
 
         timings = {label: 0.0 for label, _, _ in _PHASES}

@@ -137,6 +137,40 @@ def test_eta_kernel_keeps_a_dead_lane_dead_and_apart(cuda):
         assert torch.equal(g[[0, 2]], a[[0, 2]])
 
 
+@pytest.mark.parametrize("R, D, K, budgets", [
+    (100, 560, (7, 7), CAVI),  # MK 14: the thread layout, P = 14
+    (100, 560, (8, 8), CAVI),  # MK 16: the thread layout's last P
+    (100, 560, (9, 8), CAVI),  # MK 17: the first of the warp layout
+    (3, 50, (16, 16), {}),  # MK 32: the warp layout's last
+    (3, 50, (17, 16), {}),  # MK 33: the first of the block layout
+    (1, 560, (7, 7), CAVI),  # R = 1
+    (1, 9, (7, 7), {}),  # a single block with 55 padding documents
+])
+def test_eta_kernel_matches_plain_at_the_layout_boundaries(cuda, R, D, K, budgets):
+    """The tolerances of test_eta_kernel_matches_plain, at either side of
+    each layout boundary of ops/estep_kernel.launch_geometry."""
+    args = _eta_problem(R * D + 7 * sum(K), R, D, K, cuda)
+    got = ek.estep_eta_fused(*args, K, **budgets)
+    want = ek.estep_eta_fused_plain(*args, K, **budgets)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(g).all() for g in got)
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-6)
+    assert float((got[2] - want[2]).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize("K", [(7, 7), (10, 10), (20, 20)])  # thread, warp, block layout
+def test_eta_kernel_keeps_a_dead_lane_dead_on_every_layout(cuda, K):
+    args = _eta_problem(13, 3, 70, K, cuda)
+    alive = ek.estep_eta_fused(*args, K, **CAVI)
+    invS = args[5].clone()
+    invS[1] = torch.nan
+    got = ek.estep_eta_fused(*args[:5], invS, K, **CAVI)
+    assert torch.isnan(got[1][1]).all() and torch.isnan(got[2][1]).all()
+    for g, a in zip(got, alive):
+        assert torch.equal(g[[0, 2]], a[[0, 2]])
+
+
 def test_eta_wrapper_rejects_wrong_dtype_shape_or_device(cuda):
     args = _eta_problem(3, 2, 8, (3, 2), cuda)
     with pytest.raises(TypeError, match="float32"):
@@ -196,6 +230,7 @@ def _theta_inputs(seed, R, D, V, K, device):
 
 @pytest.mark.parametrize("R, D, V, K", [
     (100, 560, 96, 7), (100, 560, 48, 7), (3, 33, 128, 11), (2, 8, 5, 2), (2, 40, 24, 128),
+    (1, 560, 96, 7), (7, 101, 96, 7), (3, 29, 128, 128),
 ])
 def test_theta_kernel_matches_plain_and_repeats_bit_identically(cuda, R, D, V, K):
     args = _theta_inputs(R * D + V + K, R, D, V, K, cuda)
@@ -208,6 +243,22 @@ def test_theta_kernel_matches_plain_and_repeats_bit_identically(cuda, R, D, V, K
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, a)
         torch.testing.assert_close(g, w, rtol=2e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("V", [96, 48])
+def test_theta_kernel_is_one_device_kernel_per_call(cuda, V):
+    """The last block of each restart adds the scatter: no second kernel,
+    no memset of the arrival counters."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _theta_inputs(9, 100, 560, V, 7, cuda)
+    tk.theta_moments_fused(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tk.theta_moments_fused(*args)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "theta_moments_kernel" in kernels[0]
 
 
 def test_theta_kernel_reads_strided_views(cuda):

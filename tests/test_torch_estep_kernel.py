@@ -181,3 +181,46 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(rng):
            torch.zeros(1, 2, 129), torch.zeros(1, 129), torch.eye(129)[None]]
     with pytest.raises(ValueError, match="exceeds the η kernel's limit"):
         ek.estep_eta_fused(*big, (129,))
+
+
+@pytest.mark.parametrize("MK, layout, P, docs", [
+    (14, "thread", 14, 64),  # the BRCA main path, K = (7, 7)
+    (13, "thread", 14, 64),
+    (1, "thread", 2, 64),
+    (16, "thread", 16, 64),
+    (17, "warp", 32, 8),
+    (19, "warp", 32, 8),  # PCAWG
+    (32, "warp", 32, 8),
+    (33, "block", 64, 4),
+    (64, "block", 64, 4),
+    (65, "block", 128, 2),
+    (128, "block", 128, 2),
+])
+def test_launch_geometry_picks_the_layout_by_MK(MK, layout, P, docs):
+    geo = ek.launch_geometry(MK)
+    assert (geo.layout, geo.P, geo.docs_per_block) == (layout, P, docs)
+    assert geo.P >= MK
+    if layout != "thread":  # blocks of 256 threads, P a problem
+        assert geo.docs_per_block * geo.P == 256
+
+
+@pytest.mark.parametrize("D, blocks", [
+    (560, 9),  # 560 of 576 threads live
+    (561, 9),
+    (37, 1),
+    (65, 2),
+    (64, 1),
+    (1, 1),
+])
+def test_thread_layout_blocks_cover_every_document_once(D, blocks):
+    """The kernel's grid is ⌈D / docs_per_block⌉ blocks per restart: the
+    BRCA D = 560 leaves 16 padding threads, and no block is empty."""
+    docs = ek.launch_geometry(14).docs_per_block
+    assert -(-D // docs) == blocks
+    assert (blocks - 1) * docs < D <= blocks * docs
+
+
+@pytest.mark.parametrize("MK", [0, 129])
+def test_launch_geometry_rejects_MK_outside_the_kernel(MK):
+    with pytest.raises(ValueError, match="outside the η kernel"):
+        ek.launch_geometry(MK)

@@ -126,3 +126,61 @@ def test_theta_moments_on_cpu_never_reaches_the_kernel(rng, monkeypatch):
     sumtheta, _ = ctm_base.theta_moments(lam, logw, X, config)
     torch.testing.assert_close(sumtheta, torch.cat([torch.full((1, 3, 2), 2.5),
                                                     torch.full((1, 3, 2), 2.0)], dim=-1))
+
+
+@pytest.mark.parametrize("R, D, V, K, want", [
+    # the BRCA shapes: V = 96 and V = 48 fill every lane
+    (100, 560, 96, 7, dict(tile_docs=8, tile_items=4, item_groups=24, doc_rows=8,
+                           docs_per_block=64, grid=(9, 100))),
+    (100, 560, 48, 7, dict(tile_docs=4, tile_items=4, item_groups=12, doc_rows=16,
+                           docs_per_block=64, grid=(9, 100))),
+    (1, 560, 96, 7, dict(tile_docs=8, item_groups=24, doc_rows=8, grid=(9, 1))),
+    (100, 561, 96, 7, dict(docs_per_block=64, grid=(9, 100))),
+    (3, 37, 96, 7, dict(tile_docs=5, doc_rows=8, docs_per_block=40, grid=(1, 3))),
+    (2, 8, 5, 2, dict(tile_items=4, item_groups=2, doc_rows=8, tile_docs=1, grid=(1, 2))),
+])
+def test_launch_geometry_at_the_brca_and_ragged_shapes(R, D, V, K, want):
+    geo = tk.launch_geometry(R, D, V, K)
+    assert {k: getattr(geo, k) for k in want} == want
+    assert geo.scratch == R * geo.grid[0] * K * V and geo.counter == R
+
+
+SHAPES = [(100, 560, 96, 7), (100, 560, 48, 7), (1, 560, 96, 7), (100, 561, 96, 7),
+          (3, 33, 128, 11), (2, 8, 5, 2), (2, 40, 24, 128), (3, 29, 128, 128), (7, 101, 96, 7),
+          (1, 1, 1, 1), (4, 70, 97, 8), (2, 50, 20, 16), (2, 50, 64, 33)]
+
+
+@pytest.mark.parametrize("R, D, V, K", SHAPES)
+def test_launch_geometry_invariants(R, D, V, K):
+    geo = tk.launch_geometry(R, D, V, K)
+    assert geo.item_groups == -(-V // geo.tile_items)
+    assert geo.item_groups * geo.doc_rows <= tk.MAX_THREADS
+    assert geo.docs_per_block == geo.doc_rows * geo.tile_docs <= tk.BLOCK_DOCS
+    assert geo.grid == (-(-D // geo.docs_per_block), R)
+    assert (geo.grid[0] - 1) * geo.docs_per_block < D  # no block without a document
+    smem = tk._smem_bytes(K, geo.item_groups, geo.doc_rows, geo.tile_docs, geo.tile_items)
+    assert smem <= 227 * 1024  # a block's shared memory on the H100
+    if geo.tile_docs > 1:
+        assert smem <= tk.MAX_SMEM
+
+
+@pytest.mark.parametrize("R, D, V, K", SHAPES)
+def test_the_geometry_covers_every_cell_once(R, D, V, K):
+    """The kernel's map from (block, thread, tile slot) to (d, v), replayed
+    in NumPy: every cell of the (D, V) counts falls in exactly one slot."""
+    g = tk.launch_geometry(1, D, V, K)
+    b, tid, j, i = np.meshgrid(np.arange(g.grid[0]), np.arange(g.item_groups * g.doc_rows),
+                               np.arange(g.tile_docs), np.arange(g.tile_items), indexing="ij")
+    vg, dg = tid % g.item_groups, tid // g.item_groups
+    d = b * g.docs_per_block + dg * g.tile_docs + j
+    v = vg + i * g.item_groups
+    live = (d < D) & (v < V)
+    hits = np.zeros((D, V), np.int64)
+    np.add.at(hits, (d[live], v[live]), 1)
+    assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("V, K", [(96, 7), (48, 7)])
+def test_brca_vocabularies_leave_no_lane_idle(V, K):
+    geo = tk.launch_geometry(100, 560, V, K)
+    assert geo.item_groups * geo.tile_items == V and geo.item_groups * geo.doc_rows % 32 == 0
