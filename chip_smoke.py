@@ -11,12 +11,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
      csrc/lambda_solve.cuh) and the θ moments (csrc/theta_moments.cu);
      prints the build times and ptxas reports;
   3. λ kernel against its plain PyTorch version, both on the card, on seeded
-     SPD problems: the main path's shape (100, 560, 14) with the f32 CAVI
-     budgets (warm start) and the cold defaults, MK = 40 and 128 at
-     (100, 560) with the CAVI budgets, ragged D at MK = 19, 40 and 128
-     with the cold defaults, and the R = 1 entry `maximize_lambda_fused`
-     (B2) at (560, 14); prints both times (median of 20 CUDA-event timings)
-     at each (100, 560) shape and for the R = 1 entry, with B2's bound;
+     SPD problems, with a repeat launch bit-identical: the f32 CAVI budgets
+     from a warm start at (100, 560) with MK = 14 (the main path's shape),
+     19, 32, 40 and 128 and at (1000, 560, 14) and (1, 560, 19); the cold
+     defaults at (100, 560, 14), at ragged D with MK = 19, 40 and 128, either
+     side of each layout boundary of `launch_geometry` (MK 16/17, 20/21 and
+     32/33, ragged D) and of the few-problem/thread crossover (R = 1, D = 6143 and
+     6144 at MK = 14); the R = 1 entry `maximize_lambda_fused` (B2) at
+     (560, 14); a dead lane (all-NaN Σ⁻¹) on every layout at MK 14, 19 and
+     40; prints the layout, both times (median of 20 CUDA-event timings)
+     and the bound at each timed shape and for B2;
   4. η kernel against its plain PyTorch version: (100, 560, K=(7, 7)) at the
      f32 CAVI budgets and the cold defaults, K=(20, 20) and (64, 64) at
      (100, 560), a ragged M=3 case with odd D, a document with no counts in
@@ -157,6 +161,10 @@ def spd_problem(gen, R, D, MK, device):
 
 
 def lambda_phase(lk):
+    """B1 against its plain version at every shape below (and a repeat
+    launch bit-identical), timed at the shapes marked so, then B2 (the R = 1
+    entry), then a dead lane on every layout. Returns the largest error, the
+    main-path shape's (ms, plain ms) and one record per timed shape."""
     import torch
     from multimodalmusig_tpu_torch.ops.solvers import (
         CG_F32_CAVI, LAMBDA_NITER_F32_CAVI, LAMBDA_POLISH_F32_CAVI, lambda_grad,
@@ -167,43 +175,67 @@ def lambda_phase(lk):
     gen = torch.Generator().manual_seed(0)
     max_err = 0.0
     timings = {}
-    for label, (R, D, MK), budgets, warm in (
+    shapes = []
+    # (label, shape, budgets, warm start and timed)
+    for label, (R, D, MK), budgets, timed in (
         ("main-path shape, f32 CAVI budgets, warm start", (RESTARTS, 560, 14), cavi, True),
         ("main-path shape, cold defaults", (RESTARTS, 560, 14), {}, False),
+        ("R=1000, f32 CAVI budgets, warm start", (1000, 560, 14), cavi, True),
+        ("MK=19 (PCAWG), f32 CAVI budgets, warm start", (RESTARTS, 560, 19), cavi, True),
+        ("MK=32, f32 CAVI budgets, warm start", (RESTARTS, 560, 32), cavi, True),
         ("ragged D=33, MK=19, cold defaults", (3, 33, 19), {}, False),
         ("MK=40, f32 CAVI budgets, warm start", (RESTARTS, 560, 40), cavi, True),
         ("ragged D=37, MK=40, cold defaults", (3, 37, 40), {}, False),
         ("MK=128, f32 CAVI budgets, warm start", (RESTARTS, 560, 128), cavi, True),
         ("ragged D=29, MK=128, cold defaults", (3, 29, 128), {}, False),
+        ("MK=16, the thread layout's last, ragged D", (30, 559, 16), {}, False),
+        ("MK=17, the pair layout's first, ragged D", (30, 559, 17), {}, False),
+        ("MK=20, the pair layout's last, ragged D", (30, 559, 20), {}, False),
+        ("MK=21, the thread layout's first above the pair, ragged D", (30, 559, 21), {}, False),
+        ("MK=32, the thread layout's last, ragged D", (60, 557, 32), {}, False),
+        ("MK=33, the block layout's first, ragged D", (3, 37, 33), {}, False),
+        ("R=1, D=6143: the warp group's last count at MK=14", (1, 6143, 14), {}, False),
+        ("R=1, D=6144: the thread layout's first count at MK=14", (1, 6144, 14), {}, False),
+        ("R=1, MK=19, f32 CAVI budgets, warm start", (1, 560, 19), cavi, True),
     ):
         lam0, nu, ndz, st, mu, invS = spd_problem(gen, R, D, MK, "cuda")
-        if warm:
+        if timed:
             # a CAVI-like warm start: near the optimum of the previous iterate
             opt = lk.maximize_lambda_restarts_plain(lam0, nu, ndz, st, mu, invS)
             noise = torch.randn(R, D, MK, generator=gen, dtype=torch.float64)
             lam0 = opt + 0.05 * noise.to(device="cuda", dtype=torch.float32)
         args = (lam0, nu, ndz, st, mu, invS)
+        geo = tuple(lk.launch_geometry(R, D, MK))
         got = lk.maximize_lambda_restarts(*args, **budgets)
+        again = lk.maximize_lambda_restarts(*args, **budgets)
         want = lk.maximize_lambda_restarts_plain(*args, **budgets)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         g = lambda_grad(got, nu, ndz, st, mu.unsqueeze(-2), invS)
         gmax = float(g.abs().max())
-        print(f"λ kernel vs plain [{label}] (R, D, MK)=({R}, {D}, {MK}): "
-              f"max|kernel - plain| = {err:.3e}, max|grad| at kernel result = {gmax:.3e}")
+        print(f"λ kernel vs plain [{label}] (R, D, MK)=({R}, {D}, {MK}), layout {geo}: "
+              f"max|kernel - plain| = {err:.3e}, max|grad| at kernel result = {gmax:.3e}, "
+              f"repeat launch bit-identical: {bool(torch.equal(got, again))}")
         if not torch.isfinite(got).all():
             fail(f"λ kernel result not finite [{label}]")
         if err > KERNEL_ATOL:
             fail(f"λ kernel disagrees with its plain version by {err:.3e} > {KERNEL_ATOL} [{label}]")
         if gmax > STATIONARITY_TOL:
             fail(f"λ kernel result not stationary: |g| = {gmax:.3e} [{label}]")
+        if not torch.equal(got, again):
+            fail(f"two λ kernel launches on the same inputs differ [{label}]")
         max_err = max(max_err, err)
-        if warm:
+        if timed:
             ms = cuda_ms(lambda: lk.maximize_lambda_restarts(*args, **budgets))
             plain_ms = cuda_ms(lambda: lk.maximize_lambda_restarts_plain(*args, **budgets))
-            timings[MK] = (ms, plain_ms)
-            print(f"λ time at ({R}, {D}, {MK}), f32 CAVI budgets: kernel {ms:.4f} ms, "
-                  f"plain PyTorch {plain_ms:.4f} ms (median of 20 CUDA-event timings)")
+            bound_ms, bound_by = lambda_bound(R, D, MK, 3, 4, 1)
+            timings[(R, MK)] = (ms, plain_ms)
+            shapes.append({"kernel": "B1", "shape": [R, D, MK], "budgets": "cavi",
+                           "layout": list(geo), "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by})
+            print(f"λ time at ({R}, {D}, {MK}), f32 CAVI budgets, layout {geo}: kernel "
+                  f"{ms:.4f} ms, plain PyTorch {plain_ms:.4f} ms (median of 20 CUDA-event "
+                  f"timings); bound {bound_ms:.6f} ms ({bound_by}), {ms / bound_ms:.1f}x")
 
     # the R = 1 entry (B2, the TPU kernel's maximize_lambda_fused, one shared
     # μ/Σ⁻¹), at the cold defaults: 7 Newton steps, PCG min(14, 10), polish 2
@@ -212,7 +244,8 @@ def lambda_phase(lk):
     want = lk.maximize_lambda_restarts_plain(*(t[None] for t in args))[0]
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    print(f"λ kernel R = 1 entry maximize_lambda_fused (560, 14), cold defaults: "
+    geo = tuple(lk.launch_geometry(1, 560, 14))
+    print(f"λ kernel R = 1 entry maximize_lambda_fused (560, 14), cold defaults, layout {geo}: "
           f"max|kernel - plain| = {err:.3e}")
     if not torch.isfinite(got).all() or err > KERNEL_ATOL:
         fail(f"the R = 1 λ entry disagrees with its plain version by {err:.3e}")
@@ -220,10 +253,27 @@ def lambda_phase(lk):
     b2_ms = cuda_ms(lambda: lk.maximize_lambda_fused(*args))
     b2_plain_ms = cuda_ms(lambda: lk.maximize_lambda_restarts_plain(*(t[None] for t in args)))
     b2_bound_ms, b2_by = lambda_bound(1, 560, 14, 7, 10, 2)
+    shapes.append({"kernel": "B2", "shape": [560, 14], "budgets": "cold", "layout": list(geo),
+                   "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound_ms,
+                   "bound_by": b2_by})
     print(f"B2 (maximize_lambda_fused) time at (560, 14), cold defaults: kernel {b2_ms:.4f} ms, "
           f"plain PyTorch {b2_plain_ms:.4f} ms (median of 20 CUDA-event timings); bound "
           f"{b2_bound_ms:.6f} ms ({b2_by}); one PyTorch call: none")
-    return max_err, timings[14]
+
+    # a dead lane (an all-NaN Σ⁻¹, a failed Cholesky) on every layout: NaN,
+    # and the other lanes bit-identical to the run without it
+    for MK in (14, 19, 40):
+        args = spd_problem(gen, 3, 70, MK, "cuda")
+        invS = args[5].clone()
+        invS[1] = float("nan")
+        for geo in lk._candidate_geometries(MK):
+            alive = lk._launch_at(geo, *args, **cavi)
+            dead = lk._launch_at(geo, *args[:5], invS, **cavi)
+            ok = bool(torch.isnan(dead[1]).all() and torch.equal(dead[[0, 2]], alive[[0, 2]]))
+            print(f"λ kernel dead lane at MK={MK}, layout {tuple(geo)}: stays NaN and apart: {ok}")
+            if not ok:
+                fail(f"a dead lane leaked or revived at MK={MK} on layout {tuple(geo)}")
+    return max_err, timings[(RESTARTS, 14)], shapes
 
 
 def solve_flops(MK, n_iter, cg_iter, polish_iter):
@@ -788,7 +838,7 @@ def main():
         with open(lib.rsplit("/", 1)[0] + "/build.log") as f:
             print("build log:\n" + f.read().strip())
 
-    lam_err, (lam_ms, lam_plain_ms) = lambda_phase(lk)
+    lam_err, (lam_ms, lam_plain_ms), lam_shapes = lambda_phase(lk)
     eta_err, (eta_ms, eta_plain_ms) = eta_phase(ek)
     theta_err, (theta_ms, theta_plain_ms) = theta_phase(tk)
     X, terms = load_brca()
@@ -842,6 +892,7 @@ def main():
         "bound_ms": lam_bound_ms,
         "bound_by": lam_by,
         "library_ms": None,
+        "shapes": lam_shapes,
     }, {
         "name": "theta_moments",
         "route": "cuda",

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.ctm_base import check_device
 from .models.immctm import IMMCTMState
 from .models.mmctm import MMCTMState
 
@@ -22,6 +23,7 @@ _IMMCTM_DEPTHS = {"alpha": 1, "gamma": 2, "Elnphi": 2, "logw_pre": 1}
 
 
 def _from_numpy(cls, depths, fields, device, dtype):
+    device = check_device(device)
     if hasattr(fields, "_asdict"):
         fields = fields._asdict()
     batched = np.asarray(fields["mu"]).ndim == 2
@@ -35,16 +37,18 @@ def _from_numpy(cls, depths, fields, device, dtype):
     return cls(**{name: convert(fields[name], depths.get(name, 0)) for name in cls._fields})
 
 
-def state_from_numpy(fields, device="cpu", dtype: torch.dtype = torch.float64) -> MMCTMState:
+def state_from_numpy(fields, device="cuda", dtype: torch.dtype = torch.float64) -> MMCTMState:
     """An MMCTMState of this package from arrays under the JAX package's
     field names (mu, Sigma, invSigma, alpha, gamma, Elnphi, lam, nu, zeta,
     lam_pre, logw_pre) — a mapping, or any NamedTuple such as the JAX
     MMCTMState itself — unbatched (μ is (MK,)) or with a leading restart
-    dimension R (μ is (R, MK)). An unbatched state becomes one lane."""
+    dimension R (μ is (R, MK)). An unbatched state becomes one lane. On the
+    CUDA card unless the caller asks for the CPU (without a card a CUDA
+    device raises)."""
     return _from_numpy(MMCTMState, _MMCTM_DEPTHS, fields, device, dtype)
 
 
-def immctm_state_from_numpy(fields, device="cpu",
+def immctm_state_from_numpy(fields, device="cuda",
                             dtype: torch.dtype = torch.float64) -> IMMCTMState:
     """An IMMCTMState of this package from arrays under the JAX package's
     IMMCTMState field names (α a tuple over modalities, γ/Elnϕ nested

@@ -114,11 +114,14 @@ class IMMCTMFitResult(NamedTuple):
 
 
 def init(generator: torch.Generator, config: IMMCTMConfig, alpha, restarts: int = 1,
-         device="cpu") -> IMMCTMState:
+         device="cuda") -> IMMCTMState:
     """γ_m,i ~ Uniform{1..100}, μ=0, Σ=I, λ=0, ν=1 for `restarts` lanes
-    (src/IMMCTM.jl:47-83); `alpha[m]` holds modality m's I_m values. The
-    draws come from `generator` on its own device and are moved to
-    `device`, so a seed gives the same init on every device."""
+    (src/IMMCTM.jl:47-83) on `device`, the CUDA card unless the caller asks
+    for the CPU (without a card a CUDA device raises); `alpha[m]` holds
+    modality m's I_m values. The draws come from `generator` on its own
+    device and are moved to `device`, so a seed gives the same init on
+    every device."""
+    device = check_device(device)
     dt, R, D, MK = config.dtype, restarts, config.D, config.MK
     gdev = generator.device
     gamma = tuple(

@@ -104,12 +104,15 @@ def counts_tensors(X, config: MMCTMConfig, device) -> Tuple[torch.Tensor, ...]:
 
 
 def init(generator: torch.Generator, config: MMCTMConfig, X, restarts: int = 1,
-         init_method: str = "random", device="cpu") -> MMCTMState:
+         init_method: str = "random", device="cuda") -> MMCTMState:
     """μ=0, Σ=I, λ=0, ν=1 for `restarts` lanes; γ ~ Uniform{1..100}
     (`random`) or seeded with one distinct document's counts per topic
-    (`document`), then consistent ζ (src/MMCTM.jl:47-87). The random draws
-    come from `generator` on its own device and are moved to `device`, so a
-    seed gives the same init on every device."""
+    (`document`), then consistent ζ (src/MMCTM.jl:47-87), on `device`: the
+    CUDA card unless the caller asks for the CPU (without a card a CUDA
+    device raises, `ctm_base.check_device`). The random draws come from
+    `generator` on its own device and are moved to `device`, so a seed gives
+    the same init on every device."""
+    device = check_device(device)
     dt, R, D, MK = config.dtype, restarts, config.D, config.MK
     gdev = generator.device
     gamma = []
@@ -152,8 +155,9 @@ def init(generator: torch.Generator, config: MMCTMConfig, X, restarts: int = 1,
 
 
 def init_with_alpha(generator, config, X, alpha, restarts: int = 1,
-                    init_method: str = "random", device="cpu") -> MMCTMState:
+                    init_method: str = "random", device="cuda") -> MMCTMState:
     """init() plus the user's α vector (src/MMCTM.jl:35), on every lane."""
+    device = check_device(device)
     state = init(generator, config, X, restarts, init_method, device)
     a = torch.as_tensor(alpha, dtype=config.dtype, device=device)
     return state._replace(alpha=a.expand(restarts, config.M).clone())

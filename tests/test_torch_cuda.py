@@ -74,11 +74,104 @@ def test_kernel_matches_plain(cuda, R, D, MK, budgets):
         assert float(lambda_grad(got, nu, ndz, st, mu.unsqueeze(-2), invS).abs().max()) < 1e-2
 
 
+@pytest.mark.parametrize("R, D", [(0, 5), (3, 0)])
+def test_empty_batch_returns_empty_without_a_launch(cuda, R, D):
+    args = _problem(1, 3, 5, 14, cuda)
+    args = [t[:R] for t in args] if R == 0 else [t[:, :D] for t in args[:4]] + args[4:]
+    before = lk.LAUNCHES
+    got = lk.maximize_lambda_restarts(*args)
+    assert got.shape == (R, D, 14) and got.device.type == "cuda"
+    assert lk.LAUNCHES == before
+
+
 def test_single_model_entry(cuda):
     lam0, nu, ndz, st, mu, invS = _problem(1, 1, 96, 14, cuda)
     got = lk.maximize_lambda_fused(lam0[0], nu[0], ndz[0], st[0], mu[0], invS[0])
     want = lk.maximize_lambda_restarts_plain(lam0, nu, ndz, st, mu, invS)[0]
     assert float((got - want).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize("R, D, MK", [
+    (100, 560, 14),  # the thread layout at BRCA's MK
+    (30, 560, 16), (30, 560, 17),  # the thread layout's last MK, the pair's first
+    (100, 560, 19),  # PCAWG's MK, on the pair
+    (100, 560, 20), (100, 560, 21),  # the pair's last MK on restart batches, the thread's first
+    (100, 560, 32), (3, 50, 33),  # the thread layout's last MK, the block's first
+    (1, 560, 14), (2, 560, 14), (8, 560, 14),  # the warp group of the single-model entry
+    (1, 560, 19), (1, 6143, 14), (1, 6144, 14),  # either side of the few-problem crossover
+    (16, 560, 14),  # the thread layout just above the crossover
+])
+def test_kernel_matches_plain_at_the_layout_boundaries(cuda, R, D, MK):
+    """At the f32 CAVI budgets: 5e-5 against the plain version and a
+    stationary result after the cold defaults, at either side of each
+    boundary of launch_geometry."""
+    args = _problem(R * D + 3 * MK, R, D, MK, cuda)
+    lam0, nu, ndz, st, mu, invS = args
+    for budgets in (dict(n_iter=3, cg_iter=4, polish_iter=1), {}):
+        got = lk.maximize_lambda_restarts(*args, **budgets)
+        want = lk.maximize_lambda_restarts_plain(*args, **budgets)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max()) <= ATOL
+    assert float(lambda_grad(got, nu, ndz, st, mu.unsqueeze(-2), invS).abs().max()) < 1e-2
+
+
+@pytest.mark.parametrize("MK", [6, 14, 19, 32, 40, 128])
+def test_every_layout_matches_plain_and_repeats_bit_identically(cuda, MK):
+    """Each launch of _candidate_geometries, on ragged D: 5e-5 against the
+    plain version, and a second launch on the same inputs bit-identical
+    (no float atomics)."""
+    args = _problem(MK, 3, 37, MK, cuda)
+    want = lk.maximize_lambda_restarts_plain(*args)
+    for geo in lk._candidate_geometries(MK):
+        before = lk.LAUNCHES
+        got = lk._launch_at(geo, *args)
+        again = lk._launch_at(geo, *args)
+        torch.cuda.synchronize()
+        assert lk.LAUNCHES == before + 2
+        assert torch.equal(got, again), geo
+        assert float((got - want).abs().max()) <= ATOL, geo
+
+
+@pytest.mark.parametrize("MK", [14, 19, 40])
+def test_kernel_keeps_a_dead_lane_dead_and_apart_on_every_layout(cuda, MK):
+    """An all-NaN Σ⁻¹ makes its lane's λ NaN and leaves the other lanes
+    bit-identical, on each layout."""
+    args = _problem(17, 3, 70, MK, cuda)
+    invS = args[5].clone()
+    invS[1] = torch.nan
+    for geo in lk._candidate_geometries(MK):
+        alive = lk._launch_at(geo, *args, n_iter=3, cg_iter=4, polish_iter=1)
+        got = lk._launch_at(geo, *args[:5], invS, n_iter=3, cg_iter=4, polish_iter=1)
+        assert torch.isnan(got[1]).all(), geo
+        assert torch.equal(got[[0, 2]], alive[[0, 2]]), geo
+
+
+# sha256 (first 16 hex digits) of the λ kernel's output bytes before the
+# group solve batched its reductions (one-warp-group-per-problem launches,
+# NVIDIA H100 80GB HBM3, nvcc 12.9), on `_problem(R·D + MK, R, D, MK)`:
+# (R, D, MK, budgets) -> digest.
+GROUP_SOLVE_DIGESTS = {
+    (1, 560, 14, "cold"): "db2fdfbcbc5aacc2", (1, 560, 14, "cavi"): "ed7fc7dd681233b6",
+    (1, 560, 19, "cold"): "c18aae415aafa1e7", (1, 560, 19, "cavi"): "6ea599b81fb2dbb1",
+    (2, 560, 14, "cold"): "297e7a249512abe9", (2, 560, 14, "cavi"): "570b508327df3abc",
+    (1, 300, 40, "cold"): "7d69a15eb3c35292", (1, 300, 40, "cavi"): "9a77ed0c9a960fdd",
+}
+
+
+@pytest.mark.parametrize("key", sorted(GROUP_SOLVE_DIGESTS))
+def test_few_problem_layout_is_bit_identical_to_the_unbatched_group_solve(cuda, key):
+    """The batched reductions sum each value in the same order as before,
+    so the warp and block group layouts give the same bits."""
+    import hashlib
+
+    R, D, MK, budgets = key
+    args = _problem(R * D + MK, R, D, MK, cuda)
+    kw = dict(n_iter=3, cg_iter=4, polish_iter=1) if budgets == "cavi" else {}
+    assert lk.launch_geometry(R, D, MK).layout in ("warp", "block")
+    got = lk.maximize_lambda_restarts(*args, **kw)
+    digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16]
+    assert digest == GROUP_SOLVE_DIGESTS[key]
 
 
 def _eta_problem(seed, R, D, K, device, zero_count=False):

@@ -76,7 +76,7 @@ def test_fit_step_matches_jax(tiny):
     N = jmod.counts_per_doc(m.Xdense)
     want_state, want_ll = jax.jit(jmod.fit_step_fn(m.Xdense, N, m.F, tiny["jcfg"]))(js)
     step = tmod.fit_step_fn(tiny["Xt"], tcb.counts_per_doc(tiny["Xt"]), tiny["Ft"], tiny["tcfg"])
-    got_state, got_ll = step(mt.immctm_state_from_numpy(js))
+    got_state, got_ll = step(mt.immctm_state_from_numpy(js, device="cpu"))
     np.testing.assert_allclose(got_ll[0].numpy(), np.asarray(want_ll), rtol=RTOL)
     _assert_states_close(got_state, want_state, RTOL)
 
@@ -84,7 +84,8 @@ def test_fit_step_matches_jax(tiny):
 def test_fit_matches_jax(tiny):
     """20 iterations from the JAX init state."""
     want = tiny["fit"]
-    got = tmod.fit(mt.immctm_state_from_numpy(tiny["model"].state), tiny["Xt"], tiny["Ft"],
+    got = tmod.fit(mt.immctm_state_from_numpy(tiny["model"].state, device="cpu"), tiny["Xt"],
+                   tiny["Ft"],
                    tiny["tcfg"], maxiter=20, tol=0.0)
     assert int(got.n_iters[0]) == int(want.n_iters) == 20
     np.testing.assert_allclose(got.ll_history[0].numpy(), np.asarray(want.ll_history), rtol=RTOL)
@@ -95,7 +96,8 @@ def test_fit_matches_jax(tiny):
 
 def test_calculate_elbo_matches_jax(tiny):
     """The ELBO of the JAX 20-iteration state, which the JAX fit reports."""
-    got = tmod.calculate_elbo(mt.immctm_state_from_numpy(tiny["fit"].state), tiny["Xt"],
+    got = tmod.calculate_elbo(mt.immctm_state_from_numpy(tiny["fit"].state, device="cpu"),
+                              tiny["Xt"],
                               tcb.counts_per_doc(tiny["Xt"]), tiny["Ft"], tiny["tcfg"])
     np.testing.assert_allclose(float(got[0]), float(tiny["fit"].elbo), rtol=RTOL)
 
@@ -114,7 +116,7 @@ def test_wrapper_fields_match_the_jax_wrapper(tiny):
     assert len(g) == 2 and len(g[1]) == 3 and len(g[1][0]) == 2 and g[1][0][0].shape == (2,)
     np.testing.assert_allclose(got.theta[0][0].sum(axis=0), np.ones(2), rtol=1e-12)
     # with the JAX init injected, the wrapper's fit is the JAX fit
-    got.state = mt.immctm_state_from_numpy(want.state)
+    got.state = mt.immctm_state_from_numpy(want.state, device="cpu")
     history = got.fit(maxiter=20, tol=0.0)
     np.testing.assert_allclose(history, np.asarray(tiny["fit"].ll_history), rtol=RTOL)
     assert got.ll == history[-1] and np.isfinite(got.elbo)
@@ -129,9 +131,10 @@ def test_wrapper_fields_match_the_jax_wrapper(tiny):
 
 def test_immctm_state_from_numpy_batched_and_unbatched(tiny):
     js = tiny["fit"].state
-    one = mt.immctm_state_from_numpy(js)
+    one = mt.immctm_state_from_numpy(js, device="cpu")
     batched = mt.immctm_state_from_numpy(
-        jax.tree_util.tree_map(lambda a: np.stack([np.asarray(a)] * 2), js), dtype=torch.float32
+        jax.tree_util.tree_map(lambda a: np.stack([np.asarray(a)] * 2), js), device="cpu",
+        dtype=torch.float32
     )
     assert one.lam.shape == (1, 2, 5) and one.lam.dtype == torch.float64
     assert batched.lam.shape == (2, 2, 5) and batched.lam.dtype == torch.float32
@@ -208,7 +211,7 @@ def test_fit_immctm_restarts_matches_jax_lanes_and_selection(brca_slice, monkeyp
     dense-rank selection picks."""
     b, want = brca_slice, brca_slice["want"]
     monkeypatch.setattr(tr.immctm_mod, "init",
-                        lambda *a, **k: mt.immctm_state_from_numpy(b["inits"]))
+                        lambda *a, **k: mt.immctm_state_from_numpy(b["inits"], device="cpu"))
     model = mt.fit_immctm_restarts([3, 3], [0.1, 0.1], list(b["feats"]), b["docs"], restarts=3,
                                    maxiter=12, tol=0.0, dtype=torch.float64, device="cpu")
     res = model.restart_result

@@ -128,3 +128,98 @@ def test_solve_lambda_on_cpu_is_the_plain_solver(rng, monkeypatch, dtype):
     got = ctm_base.solve_lambda(*args, n_iter=3, cg_iter=4, polish_iter=1)
     want = ctm_base.maximize_lambda(*args, n_iter=3, cg_iter=4, polish_iter=1)
     assert torch.equal(got, want)
+
+
+# Problem counts either side of the layouts' threshold: the single-model
+# entry (R = 1, D = 560), the few-problem crossover at MK ≤ 16 and the
+# restart batches.
+FEW, EDGE, MANY = 560, lk.FEW_PROBLEMS[16], 100 * 560
+
+
+@pytest.mark.parametrize("n", [FEW, EDGE, MANY])
+def test_launch_geometry_covers_every_mk_once_per_layout(n):
+    """Every MK from 1 to 128 gets one launch the kernel takes, at the
+    smallest P of its layout that holds it; within each layout, each P
+    serves one contiguous run of MK, and the runs tile the layout's reach."""
+    runs = {}
+    for MK in range(1, lk.KERNEL_MAX_MK + 1):
+        geo = lk.launch_geometry(1, n, MK)
+        lk._check_geometry(geo, MK)  # raises if the kernel does not take it
+        width = 2 * geo.P if geo.layout == "pair" else geo.P
+        assert width >= MK
+        smaller = {"thread": lk.THREAD_P, "pair": (lk.PAIR_P,), "warp": (16, 32),
+                   "block": (64, 128)}[geo.layout]
+        assert all((2 * p if geo.layout == "pair" else p) < MK for p in smaller if p < geo.P)
+        runs.setdefault(geo, []).append(MK)
+    for geo, mks in runs.items():
+        assert mks == list(range(mks[0], mks[-1] + 1)), (geo, mks)
+    assert sorted(mk for mks in runs.values() for mk in mks) == list(range(1, 129))
+
+
+@pytest.mark.parametrize("MK, few, many", [
+    (16, ("warp", 16, 4), ("thread", 16, 64)),
+    (17, ("warp", 32, 8), ("pair", 10, 64)),
+    (20, ("warp", 32, 8), ("pair", 10, 64)),
+    (21, ("warp", 32, 8), ("thread", 24, 64)),
+    (32, ("warp", 32, 8), ("thread", 32, 64)),
+    (33, ("block", 64, 4), ("block", 64, 4)),
+    (64, ("block", 64, 4), ("block", 64, 4)),
+    (65, ("block", 128, 2), ("block", 128, 2)),
+])
+def test_launch_geometry_at_the_layout_boundaries(MK, few, many):
+    assert tuple(lk.launch_geometry(1, FEW, MK)) == few
+    assert tuple(lk.launch_geometry(100, 560, MK)) == many
+
+
+@pytest.mark.parametrize("MK, P, layout", [(14, 16, "thread"), (19, 32, "pair")])
+def test_launch_geometry_few_problem_crossover_at_r_1(MK, P, layout):
+    """One restart (the single-model entry) takes the warp group up to
+    FEW_PROBLEMS documents, then one thread per problem, or a pair at MK
+    17–20, at any larger count; the crossover depends on R·D alone."""
+    edge = lk.FEW_PROBLEMS[P]
+    assert lk.launch_geometry(1, 560, MK).layout == "warp"
+    assert lk.launch_geometry(1, edge - 1, MK).layout == "warp"
+    assert lk.launch_geometry(1, edge, MK).layout == layout
+    assert lk.launch_geometry(1, edge, MK) == lk.launch_geometry(edge // 64, 64, MK)
+    assert lk.launch_geometry(1, edge, MK) == lk.launch_geometry(1000, 560, MK)
+    assert lk.launch_geometry(8, 560, 14).layout == "warp"
+    assert lk.launch_geometry(16, 560, 14).layout == "thread"
+
+
+@pytest.mark.parametrize("MK", [0, -1, lk.KERNEL_MAX_MK + 1])
+def test_launch_geometry_out_of_range_mk_raises(MK):
+    with pytest.raises(ValueError, match="outside the λ kernel's"):
+        lk.launch_geometry(1, 560, MK)
+    with pytest.raises(ValueError, match="outside the λ kernel's"):
+        lk._candidate_geometries(MK)
+
+
+@pytest.mark.parametrize("geo, MK", [
+    (("thread", 14, 64), 15), (("thread", 18, 64), 17), (("thread", 14, 65), 14),
+    (("pair", 8, 64), 17), (("pair", 10, 20), 19), (("pair", 10, 64), 21), (("warp", 16, 3), 14),
+    (("warp", 16, 4), 17), (("block", 64, 2), 40), (("block", 64, 4), 65), (("tile", 16, 4), 14),
+])
+def test_a_launch_the_kernel_does_not_take_raises(rng, geo, MK):
+    args = _torch(_problem(rng, 1, 4, MK))
+    with pytest.raises(ValueError, match="has no launch"):
+        lk._launch_at(geo, *args)
+
+
+def test_candidate_geometries_are_valid_and_distinct():
+    for MK in range(1, lk.KERNEL_MAX_MK + 1):
+        cands = lk._candidate_geometries(MK)
+        assert len(set(cands)) == len(cands)
+        for geo in cands:
+            lk._check_geometry(geo, MK)
+        assert lk.launch_geometry(100, 560, MK) in cands
+        assert lk.launch_geometry(1, 560, MK) in cands
+
+
+@pytest.mark.parametrize("R, D", [(0, 5), (3, 0)])
+def test_empty_batch_gives_an_empty_result(rng, R, D):
+    """No restart or no document: an empty λ of the same shape (on the card
+    the wrapper returns it without a launch, tests/test_torch_cuda.py)."""
+    args = _torch(_problem(rng, 3, 5, 14))
+    args = [t[:R] for t in args] if R == 0 else [t[:, :D] for t in args[:4]] + args[4:]
+    got = lk.maximize_lambda_restarts(*args)
+    assert got.shape == (R, D, 14)

@@ -58,7 +58,7 @@ def mid_fit():
     ).state
     Xt = tm.counts_tensors(Xnp, tcfg, "cpu")
     return dict(jcfg=jcfg, tcfg=tcfg, Xj=Xj, Xt=Xt, js=state,
-                ts=mt.state_from_numpy(state), Nj=jcb.counts_per_doc(Xj),
+                ts=mt.state_from_numpy(state, device="cpu"), Nj=jcb.counts_per_doc(Xj),
                 Nt=tcb.counts_per_doc(Xt))
 
 
@@ -129,8 +129,8 @@ def _fit_both(Xnp, K, alpha, maxiter, tol, seed=0):
     want = jax.jit(jm.fit, static_argnames=("config", "maxiter", "tol"))(
         state, Xj, jcfg, maxiter=maxiter, tol=tol
     )
-    got = tm.fit(mt.state_from_numpy(state), tm.counts_tensors(Xnp, tcfg, "cpu"), tcfg,
-                 maxiter=maxiter, tol=tol)
+    got = tm.fit(mt.state_from_numpy(state, device="cpu"), tm.counts_tensors(Xnp, tcfg, "cpu"),
+                 tcfg, maxiter=maxiter, tol=tol)
     return got, want
 
 
@@ -191,31 +191,35 @@ def test_init_random_and_document():
     Xnp = [rng.integers(0, 9, (6, 7)).astype(np.float64), rng.integers(0, 9, (6, 5)).astype(np.float64)]
     _, cfg = _configs((3, 2), Xnp)
     Xt = tm.counts_tensors(Xnp, cfg, "cpu")
-    a = tm.init_with_alpha(torch.Generator().manual_seed(5), cfg, Xt, [0.1, 0.2], restarts=4)
-    b = tm.init_with_alpha(torch.Generator().manual_seed(5), cfg, Xt, [0.1, 0.2], restarts=4)
+    a = tm.init_with_alpha(torch.Generator().manual_seed(5), cfg, Xt, [0.1, 0.2], restarts=4,
+                          device="cpu")
+    b = tm.init_with_alpha(torch.Generator().manual_seed(5), cfg, Xt, [0.1, 0.2], restarts=4,
+                          device="cpu")
     for g, K, V in zip(a.gamma, cfg.K, cfg.V):
         assert g.shape == (4, K, V) and g.min() >= 1 and g.max() <= 100
         assert not torch.equal(g[0], g[1])  # lanes draw independently
     assert all(torch.equal(x, y) for x, y in zip(a.gamma, b.gamma))
     assert torch.equal(a.alpha, torch.tensor([[0.1, 0.2]] * 4, dtype=torch.float64))
     np.testing.assert_allclose(a.zeta.numpy(), np.broadcast_to(np.array(cfg.K) * np.exp(0.5), (4, 6, 2)))
-    d = tm.init(torch.Generator().manual_seed(5), cfg, Xt, restarts=3, init_method="document")
+    d = tm.init(torch.Generator().manual_seed(5), cfg, Xt, restarts=3, init_method="document",
+                device="cpu")
     for g, Xm in zip(d.gamma, Xt):
         for lane_g in g:
             rows = [int(np.flatnonzero((Xm.numpy() == row.numpy() - 1.0).all(axis=1))[0])
                     for row in lane_g]
             assert len(set(rows)) == len(rows)  # distinct seeding documents
     with pytest.raises(ValueError, match="init must be"):
-        tm.init(torch.Generator(), cfg, Xt, init_method="bogus")
+        tm.init(torch.Generator(), cfg, Xt, init_method="bogus", device="cpu")
 
 
 def test_state_from_numpy_batched_and_unbatched(mid_fit):
     js = mid_fit["js"]
-    one = mt.state_from_numpy(js)
+    one = mt.state_from_numpy(js, device="cpu")
     batched = mt.state_from_numpy({k: np.stack([np.asarray(v)] * 2) if k not in
                                    ("gamma", "Elnphi", "logw_pre") else
                                    tuple(np.stack([np.asarray(x)] * 2) for x in v)
-                                   for k, v in js._asdict().items()}, dtype=torch.float32)
+                                   for k, v in js._asdict().items()}, device="cpu",
+                                  dtype=torch.float32)
     assert one.lam.shape == (1,) + tuple(js.lam.shape) and one.lam.dtype == torch.float64
     assert batched.lam.shape == (2,) + tuple(js.lam.shape) and batched.lam.dtype == torch.float32
     for name in tm.MMCTMState._fields:

@@ -21,7 +21,8 @@ from multimodalmusig_tpu.utils import formatting as jax_formatting
 from multimodalmusig_tpu.utils.hermetic import scrubbed_env
 
 import multimodalmusig_tpu_torch as mt
-from multimodalmusig_tpu_torch.models import ctm_base, mmctm
+from multimodalmusig_tpu_torch import interop
+from multimodalmusig_tpu_torch.models import ctm_base, immctm, mmctm
 from multimodalmusig_tpu_torch.ops import convergence, solvers
 from multimodalmusig_tpu_torch.utils import data, fast_tsv, formatting
 
@@ -86,6 +87,69 @@ def test_entry_points_default_to_the_card_and_never_fall_back(monkeypatch, name,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         call()
+
+
+def _immctm_config():
+    return immctm.IMMCTMConfig(K=(1, 1), V=(2, 2), D=3, J=((2, 1), (1, 2)))
+
+
+def _state_fields():
+    """A one-lane MMCTM state as plain arrays, as the JAX package hands it."""
+    state = mmctm.init(torch.Generator().manual_seed(0), _CFG, [torch.ones(3, 2)] * 2,
+                       device="cpu")
+    return {k: (tuple(x.numpy() for x in v) if isinstance(v, tuple) else v.numpy())
+            for k, v in state._asdict().items()}
+
+
+def _immctm_fields():
+    state = immctm.init(torch.Generator().manual_seed(0), _immctm_config(), [[0.1, 0.1]] * 2,
+                        device="cpu")
+
+    def arrays(v):
+        return tuple(arrays(x) for x in v) if isinstance(v, tuple) else v.numpy()
+    return {k: arrays(v) for k, v in state._asdict().items()}
+
+
+STATE_CONSTRUCTORS = [
+    ("mmctm.init", lambda **kw: mmctm.init(
+        torch.Generator().manual_seed(0), _CFG, [torch.ones(3, 2)] * 2, **kw)),
+    ("init_with_alpha", lambda **kw: mt.init_with_alpha(
+        torch.Generator().manual_seed(0), _CFG, [torch.ones(3, 2)] * 2, [0.1, 0.1], **kw)),
+    ("immctm.init", lambda **kw: immctm.init(
+        torch.Generator().manual_seed(0), _immctm_config(), [[0.1, 0.1]] * 2, **kw)),
+    ("state_from_numpy", lambda **kw: mt.state_from_numpy(_state_fields(), **kw)),
+    ("immctm_state_from_numpy", lambda **kw: mt.immctm_state_from_numpy(_immctm_fields(), **kw)),
+]
+
+
+@pytest.mark.parametrize("name, make", STATE_CONSTRUCTORS, ids=[c[0] for c in STATE_CONSTRUCTORS])
+def test_state_constructors_default_to_the_card_and_never_fall_back(monkeypatch, name, make):
+    """The exported state constructors put their state where the fits run:
+    on the card unless asked for the CPU. Without a card, a call without a
+    device raises the fits' error, naming device="cpu"; with it, the state
+    lies on the CPU."""
+    import inspect
+
+    fn = {"mmctm.init": mmctm.init, "init_with_alpha": mt.init_with_alpha,
+          "immctm.init": immctm.init, "state_from_numpy": interop.state_from_numpy,
+          "immctm_state_from_numpy": interop.immctm_state_from_numpy}[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make()
+    state = make(device="cpu")
+    assert state.lam.device.type == "cpu" and state.invSigma.device.type == "cpu"
+
+
+def test_fit_of_a_default_state_runs_where_the_state_lies(monkeypatch):
+    """`fit(init_with_alpha(...), X, config)` with no device anywhere: the
+    state is made on the card (here, with no card, it raises before any
+    work), so the fit never runs on the CPU by default."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    X = mmctm.counts_tensors([np.ones((3, 2)), np.ones((3, 2))], _CFG, "cpu")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        mt.fit(mt.init_with_alpha(torch.Generator().manual_seed(0), _CFG, X, [0.1, 0.1]), X,
+               _CFG, maxiter=2)
 
 
 def test_build_hash_covers_every_header(tmp_path, monkeypatch):
@@ -189,7 +253,8 @@ def test_fit_runs_float32_products_without_tf32(monkeypatch):
         X = [rng.integers(0, 9, (5, 6)).astype(np.float32), rng.integers(0, 9, (5, 4)).astype(np.float32)]
         config = mmctm.MMCTMConfig(K=(2, 2), V=(6, 4), D=5, dtype=torch.float32)
         Xt = mmctm.counts_tensors(X, config, "cpu")
-        state = mmctm.init_with_alpha(torch.Generator().manual_seed(0), config, Xt, [0.1, 0.1])
+        state = mmctm.init_with_alpha(torch.Generator().manual_seed(0), config, Xt, [0.1, 0.1],
+                                      device="cpu")
         mmctm.fit(state, Xt, config, maxiter=2, tol=0.0)
         after = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32,
                  torch.backends.cudnn.allow_tf32)

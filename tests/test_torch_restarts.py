@@ -37,7 +37,8 @@ def test_restart_lanes_match_jax_vmapped_restarts_on_brca():
     keys = jax.random.split(jax.random.key(11), 3)
     want = jr.fit_restarts_from_keys(keys, Xj, jcfg, alpha, maxiter=20, tol=3e-3)
     inits = jax.vmap(lambda k: jm.init_with_alpha(k, jcfg, Xj, alpha))(keys)
-    got = mt.fit_restarts_from_states(mt.state_from_numpy(inits), Xnp, tcfg, maxiter=20, tol=3e-3)
+    got = mt.fit_restarts_from_states(mt.state_from_numpy(inits, device="cpu"), Xnp, tcfg,
+                                      maxiter=20, tol=3e-3)
 
     assert len(set(np.asarray(want.n_iters).tolist())) > 1
     np.testing.assert_array_equal(got.n_iters.numpy(), np.asarray(want.n_iters))
@@ -78,7 +79,8 @@ def _tiny(R, seed=0):
     Xnp = [rng.integers(0, 9, (5, 6)).astype(np.float64), rng.integers(0, 9, (5, 4)).astype(np.float64)]
     cfg = tm.MMCTMConfig(K=(2, 2), V=(6, 4), D=5, dtype=torch.float64)
     Xt = tm.counts_tensors(Xnp, cfg, "cpu")
-    state = tm.init_with_alpha(torch.Generator().manual_seed(seed), cfg, Xt, [0.1, 0.1], restarts=R)
+    state = tm.init_with_alpha(torch.Generator().manual_seed(seed), cfg, Xt, [0.1, 0.1], restarts=R,
+                               device="cpu")
     return cfg, Xt, state
 
 

@@ -47,7 +47,7 @@ def small():
 
     def inits(key, n):
         return mt.state_from_numpy(jax.vmap(lambda k: jm.init_with_alpha(k, jcfg, Xj, alpha))(
-            jax.random.split(key, n)))
+            jax.random.split(key, n)), device="cpu")
 
     return dict(X=X, Xj=Xj, jcfg=jcfg, tcfg=tcfg, alpha=alpha, inits=inits)
 
@@ -150,7 +150,8 @@ def test_compaction_takes_a_dead_lane_out_at_the_first_boundary(small):
     end as in the unchunked fit."""
     cfg = small["tcfg"]
     X = tm.counts_tensors(small["X"], cfg, "cpu")
-    state = tm.init_with_alpha(torch.Generator().manual_seed(3), cfg, X, [0.1, 0.1], restarts=4)
+    state = tm.init_with_alpha(torch.Generator().manual_seed(3), cfg, X, [0.1, 0.1], restarts=4,
+                               device="cpu")
     lam = state.lam.clone()
     lam[2, 0, 0] = torch.nan
     state = state._replace(lam=lam)
@@ -183,7 +184,8 @@ def test_run_cavi_from_resumes_in_any_cut(small):
 
     cfg = small["tcfg"]
     X = tm.counts_tensors(small["X"], cfg, "cpu")
-    state = tm.init_with_alpha(torch.Generator().manual_seed(5), cfg, X, [0.1, 0.1], restarts=3)
+    state = tm.init_with_alpha(torch.Generator().manual_seed(5), cfg, X, [0.1, 0.1], restarts=3,
+                               device="cpu")
     step = tm.fit_step_fn(X, ctm_base.counts_per_doc(X), cfg)
     whole = ctm_base.run_cavi(state, cfg, 40, 1e-4, step)
     carry = ctm_base.make_cavi_carry(state, cfg, 40)
