@@ -48,24 +48,40 @@ Phases, each of which fails the run (non-zero exit) on any error:
      SNV terms factored into substitution × context and the SV terms into
      type × size/region (tools/families_bench.py:66-77), once warm and once
      timed, with the gates of phase 6 against the JAX package's IMMCTM
-     value, and its own short card-vs-CPU check;
-  9. compaction: `fit_restarts(..., compact_schedule=...)` at tol 1e-5,
-     warm and then timed, arms in turns: R=100 with (178,), R=1000 with
-     (139, 57, 39) and R=1000 unchunked (the pins of bench.py:68-70);
-     prints each arm's wall, lane-iterations, boundaries and finite lanes;
-     gates: at least 99% finite lanes and the ll gate of phase 6;
+     value, and its own short card-vs-CPU check; then the same with
+     `compact_schedule="auto"`, warm and timed, with the same gates;
+  9. compaction: `fit_restarts` at tol 1e-5, warm and then timed, arms in
+     turns: R=100 with (178,), R=100 `fit_restarts_auto`, R=100 with
+     `chunk_iters=100`, R=1000 with (139, 57, 39) (the pins of
+     bench.py:68-70), R=1000 `fit_restarts_auto` and R=1000 unchunked;
+     prints each arm's wall, lane-iterations, boundaries and finite lanes,
+     the auto arms' pilot, boundary seconds, lane-iterations per second,
+     derived schedule and whether the schedule memo served it, the chunked
+     arm's progress calls; gates: one η and two θ launches per CAVI
+     iteration, at least 99% finite lanes and the ll gate of phase 6, and
+     progress that rises to (R, R);
  10. two-stage: `fit_mmctm_restarts([7, 7], [0.1, 0.1], docs, restarts=100)`
      on the card, warm and then timed; prints the stage-1 winners, their
      f64 scores and the selected ll; the selected lane must be finite and
      converged, no more than 5e-3 below the JAX package's two-stage fit
      per modality, and the η kernel must run once per CAVI iteration;
- 11. θ launches: one θ call at each BRCA shape runs exactly one device
+ 11. CLI: `cli.main` in this process on the bundled TSVs with --restarts
+     1000 --auto-compact --progress and every output, warm and then timed:
+     exit 0, one η and two θ launches per CAVI iteration, the selected ll
+     within the gate of phase 10, `load_model` of the checkpoint on the card
+     gives back the fitted state and ll, the signature probabilities sum to
+     1 per (modality, topic) and the proportions per (sample, modality),
+     within 1e-6; then `python3 -m multimodalmusig_tpu_torch.cli ...
+     --restarts 100` as a process of its own, without --device, must exit 0;
+ 12. θ launches: one θ call at each BRCA shape runs exactly one device
      kernel (torch.profiler), checked after the timed paths.
 The last two lines of standard output are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -100,9 +116,14 @@ JAX_CPU_BEST_IMMCTM_LL = (-3.955171585083008, -3.0439767837524414)
 #                      dtype=jnp.float32)   # multimodalmusig_tpu.parallel.restarts
 JAX_CPU_TWO_STAGE_LL = (-3.9388527870178223, -3.034494638442993)
 ETA_RTOL, ETA_ATOL = 2e-5, 2e-6
-# (restarts, compaction schedule) of the compaction phase, in turns: the
-# JAX package's pins (bench.py:68-70), and R=1000 unchunked
-COMPACTION_ARMS = ((100, (178,)), (1000, (139, 57, 39)), (1000, None))
+# (restarts, how the fit is cut) of the compaction phase, in turns: the JAX
+# package's pinned schedules (bench.py:68-70), the schedule fit_restarts_auto
+# derives at both counts, a boundary every 100 iterations, and R=1000 unchunked
+COMPACTION_ARMS = ((100, dict(compact_schedule=(178,))), (100, "auto"),
+                   (100, dict(chunk_iters=100)), (1000, dict(compact_schedule=(139, 57, 39))),
+                   (1000, "auto"), (1000, {}))
+# restarts of the CLI phase: the CLI's default
+CLI_RESTARTS = 1000
 # The card's published peaks (H100 SXM, 700 W): memory rate and float32
 # rate outside the tensor cores, for the kernels' bounds.
 PEAK_BYTES_PER_S = 3.35e12
@@ -701,69 +722,151 @@ def immctm_phase(mt, kernels, X, features):
     ll_gates("IMMCTM path", ll, JAX_CPU_BEST_IMMCTM_LL)
     if not np.isfinite(model.ll).all():
         fail(f"the selected IMMCTM lane is not finite: {model.ll}")
-    return launches
+
+    # compact_schedule="auto": the first 50 lanes run uncut as the pilot
+    t0 = time.perf_counter()
+    mt.fit_immctm_restarts([7, 7], [0.1, 0.1], features, docs, compact_schedule="auto", **kw)
+    print(f"IMMCTM auto-compacted warm-up run: {time.perf_counter() - t0:.3f} s")
+    total = dict(launches)
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    model = mt.fit_immctm_restarts([7, 7], [0.1, 0.1], features, docs, compact_schedule="auto",
+                                   **kw)
+    res = model.restart_result
+    ll = res.ll.cpu().double().numpy()
+    wall = time.perf_counter() - t0
+    launches = {"estep_eta": ek.LAUNCHES, "lambda_newton": lk.LAUNCHES,
+                "theta_moments": tk.LAUNCHES}
+    info = model.compact_info
+    print(f"IMMCTM path, compact_schedule=\"auto\": wall {wall:.4f} s (fit, f64 re-score and "
+          f"selection); pilot P={info['pilot_restarts']}, boundary "
+          f"{info['boundary_s'] * 1e3:.4f} ms, {info['lane_iters_per_s']:.0f} lane-iters/s, "
+          f"derived schedule {info['schedule']}, schedule_memo_hit "
+          f"{info['schedule_memo_hit']}; iterations max {int(res.n_iters.max())}, selected lane "
+          f"ll {model.ll}; kernel launches {launches}")
+    if (launches["estep_eta"] <= 0 or launches["lambda_newton"] != 0
+            or launches["theta_moments"] != 2 * launches["estep_eta"]):
+        fail(f"the auto-compacted IMMCTM path did not launch the η kernel once and the θ "
+             f"kernel twice per CAVI iteration: {launches}")
+    ll_gates("IMMCTM path, auto-compacted", ll, JAX_CPU_BEST_IMMCTM_LL)
+    if not np.isfinite(model.ll).all():
+        fail(f"the selected auto-compacted IMMCTM lane is not finite: {model.ll}")
+    return {k: total[k] + launches[k] for k in total}
 
 
-def compaction_phase(mt, kernels, X):
-    """The compaction arms, warm and then timed, in turns. Lane-iterations
-    (the batch size summed over the CAVI steps run) and boundaries come from
-    wrapping `mmctm.fit_step_fn` and `ctm_base.run_cavi_from`."""
-    import numpy as np
-    import torch
+@contextlib.contextmanager
+def counting_fits():
+    """While active, counts what the MMCTM fits run: `steps` (CAVI
+    iterations, each one η and two θ launches), `lane_iters` (the batch size
+    summed over the steps), `loops` (`run_cavi` calls: one per uncut fit or
+    cut fit) and `calls` (`run_cavi_from` calls); boundaries are calls -
+    loops. Wraps `mmctm.fit_step_fn`, `mmctm.run_cavi` and
+    `ctm_base.run_cavi_from`."""
     from multimodalmusig_tpu_torch.models import ctm_base
     from multimodalmusig_tpu_torch.models import mmctm as mm
 
-    ek, lk, tk = kernels
-    config = mt.MMCTMConfig(K=(7, 7), V=(96, 48), D=560, dtype=torch.float32)
-    count = {"lane_iters": 0, "calls": 0}
-    step_fn, run_from = mm.fit_step_fn, ctm_base.run_cavi_from
+    count = dict.fromkeys(("steps", "lane_iters", "loops", "calls"), 0)
+    step_fn, run, run_from = mm.fit_step_fn, mm.run_cavi, ctm_base.run_cavi_from
 
     def counting_step_fn(*a, **k):
         step = step_fn(*a, **k)
 
         def counted(state):
+            count["steps"] += 1
             count["lane_iters"] += state.lam.shape[0]
             return step(state)
         return counted
+
+    def counting_run(*a, **k):
+        count["loops"] += 1
+        return run(*a, **k)
 
     def counting_run_from(*a, **k):
         count["calls"] += 1
         return run_from(*a, **k)
 
-    def run(R, schedule):
-        count.update(lane_iters=0, calls=0)
+    mm.fit_step_fn, mm.run_cavi, ctm_base.run_cavi_from = (counting_step_fn, counting_run,
+                                                           counting_run_from)
+    try:
+        yield count
+    finally:
+        mm.fit_step_fn, mm.run_cavi, ctm_base.run_cavi_from = step_fn, run, run_from
+
+
+def check_fused_launches(label, launches, steps):
+    """The fused route's launches: one η and two θ per CAVI iteration, no λ."""
+    want = {"estep_eta": steps, "lambda_newton": 0, "theta_moments": 2 * steps}
+    if steps <= 0 or launches != want:
+        fail(f"{label} did not launch the η kernel once and the θ kernel twice per CAVI "
+             f"iteration: {launches}, {steps} iterations")
+
+
+def compaction_phase(mt, kernels, X):
+    """The compaction arms, warm and then timed, in turns. Lane-iterations
+    (the batch size summed over the CAVI steps run) and boundaries come from
+    `counting_fits`. The "auto" arms print their derivation; the chunked arm
+    its progress calls."""
+    import numpy as np
+    import torch
+
+    ek, lk, tk = kernels
+    config = mt.MMCTMConfig(K=(7, 7), V=(96, 48), D=560, dtype=torch.float32)
+
+    def name(cut):
+        return cut if cut == "auto" else (", ".join(f"{k}={v}" for k, v in cut.items())
+                                          or "unchunked")
+
+    def run(R, cut):
+        progress = []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = mt.fit_restarts(SEED, X, config, [0.1, 0.1], restarts=R, maxiter=MAXITER, tol=TOL,
-                              compact_schedule=schedule)
+        if cut == "auto":
+            res, info = mt.fit_restarts_auto(SEED, X, config, [0.1, 0.1], restarts=R,
+                                             maxiter=MAXITER, tol=TOL)
+        else:
+            res, info = mt.fit_restarts(SEED, X, config, [0.1, 0.1], restarts=R, maxiter=MAXITER,
+                                        tol=TOL, progress=lambda d, t: progress.append((d, t)),
+                                        **cut), None
         ll = res.ll.cpu().double().numpy()
-        return time.perf_counter() - t0, res, ll
+        return time.perf_counter() - t0, res, ll, info, progress
 
-    mm.fit_step_fn, ctm_base.run_cavi_from = counting_step_fn, counting_run_from
     total = {"estep_eta": 0, "lambda_newton": 0, "theta_moments": 0}
-    try:
-        for R, schedule in COMPACTION_ARMS:
-            wall, _, _ = run(R, schedule)
-            print(f"compaction warm-up, R={R} schedule {schedule}: {wall:.3f} s")
-        for R, schedule in COMPACTION_ARMS:
+    with counting_fits() as count:
+        for R, cut in COMPACTION_ARMS:
+            wall, _, _, info, _ = run(R, cut)
+            print(f"compaction warm-up, R={R} {name(cut)}: {wall:.3f} s"
+                  + (f", derived schedule {info['schedule']}" if info else ""))
+        for R, cut in COMPACTION_ARMS:
             reset_counts(kernels)
-            wall, res, ll = run(R, schedule)
+            count.update(dict.fromkeys(count, 0))
+            wall, res, ll, info, progress = run(R, cut)
             launches = {"estep_eta": ek.LAUNCHES, "lambda_newton": lk.LAUNCHES,
                         "theta_moments": tk.LAUNCHES}
             iters = res.n_iters.cpu().numpy()
             finite = int(np.isfinite(ll).all(axis=1).sum())
-            label = f"compaction R={R} schedule {schedule}"
+            label = f"compaction R={R} {name(cut)}"
             print(f"{label}: wall {wall:.4f} s, lane-iterations {count['lane_iters']}, "
-                  f"boundaries {count['calls'] - 1}, CAVI iterations {launches['estep_eta']}, "
-                  f"finite lanes {finite}/{R}, lane iterations needed {int(iters.sum())} "
-                  f"(median {float(np.median(iters)):.1f}, max {int(iters.max())}), "
-                  f"converged {int(res.converged.sum())}/{R}; kernel launches {launches}")
-            if launches["estep_eta"] <= 0 or launches["theta_moments"] != 2 * launches["estep_eta"]:
-                fail(f"{label} did not run through the η and θ kernels: {launches}")
+                  f"boundaries {count['calls'] - count['loops']}, CAVI iterations "
+                  f"{count['steps']}, finite lanes {finite}/{R}, lane iterations needed "
+                  f"{int(iters.sum())} (median {float(np.median(iters)):.1f}, max "
+                  f"{int(iters.max())}), converged {int(res.converged.sum())}/{R}; kernel "
+                  f"launches {launches}")
+            if info is not None:
+                print(f"{label}: pilot P={info['pilot_restarts']} (iterations median "
+                      f"{info['pilot_iters_median']:.1f}, max {info['pilot_iters_max']}, "
+                      f"{info['pilot_warm_s']:.4f} s), boundary {info['boundary_s'] * 1e3:.4f} "
+                      f"ms, {info['lane_iters_per_s']:.0f} lane-iters/s, boundary cost "
+                      f"{info['boundary_cost_lane_iters']:.1f} lane-iters, derived schedule "
+                      f"{info['schedule']}, schedule_memo_hit {info['schedule_memo_hit']}")
+            if "chunk_iters" in cut:
+                print(f"{label}: progress calls {progress}")
+                done = [d for d, _ in progress]
+                if done != sorted(done) or progress[-1] != (R, R) or len(progress) < 2:
+                    fail(f"{label}: progress calls {progress} do not rise to ({R}, {R})")
+            check_fused_launches(label, launches, count["steps"])
             ll_gates(label, ll, JAX_CPU_BEST_LL)
             total = {k: total[k] + launches[k] for k in total}
-    finally:
-        mm.fit_step_fn, ctm_base.run_cavi_from = step_fn, run_from
     return total
 
 
@@ -811,6 +914,160 @@ def two_stage_phase(mt, kernels, X):
     return launches
 
 
+def tensors(state):
+    """Every tensor of a (nested) state, in field order."""
+    if isinstance(state, tuple):
+        return [t for x in state for t in tensors(x)]
+    return [state]
+
+
+def read_table(path):
+    """A tab-separated table as (header, rows)."""
+    import csv
+
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f, delimiter="\t"))
+    return rows[0], rows[1:]
+
+
+def check_cli_outputs(label, out, model, terms):
+    """The CLI's files: μ, Σ and its correlation parse at (MK,) and (MK, MK),
+    the signature probabilities sum to 1 per (modality, topic) and the
+    proportions per (sample, modality), both within 1e-6."""
+    import numpy as np
+
+    MK = sum(model.K)
+    shapes = [np.loadtxt(os.path.join(out, f)).shape for f in ("mean.tsv", "cov.tsv", "cor.tsv")]
+    if shapes != [(MK,), (MK, MK), (MK, MK)]:
+        fail(f"{label}: mean/cov/cor shapes {shapes}")
+    head, rows = read_table(os.path.join(out, "sigs.tsv"))
+    sums = {}
+    for modality, k, _, _, p in rows:
+        sums[(modality, k)] = sums.get((modality, k), 0.0) + float(p)
+    sig_err = max(abs(v - 1.0) for v in sums.values())
+    if (head != ["modality", "topic", "value", "term", "probability"] or len(sums) != MK
+            or len(rows) != sum(k * len(t) for k, t in zip(model.K, terms)) or sig_err > 1e-6):
+        fail(f"{label}: the signature table is malformed or does not sum to 1 (max |Σ - 1| "
+             f"{sig_err:.3e})")
+    head, rows = read_table(os.path.join(out, "props.tsv"))
+    props = np.array([[float(x) for x in r[1:]] for r in rows])
+    blocks = np.split(props, np.cumsum(model.K)[:-1])
+    prop_err = max(float(np.abs(b.sum(axis=0) - 1.0).max()) for b in blocks)
+    if props.shape != (MK, model.D) or len(head) != model.D + 1 or prop_err > 1e-6:
+        fail(f"{label}: the proportion table {props.shape} is malformed or does not sum to 1 "
+             f"(max |Σ - 1| {prop_err:.3e})")
+    print(f"{label}: outputs parse; max |Σ - 1| of the signature probabilities {sig_err:.3e}, "
+          f"of the proportions {prop_err:.3e}")
+
+
+def cli_phase(mt, kernels, terms):
+    """`cli.main` in this process, on the bundled counts, with --restarts
+    1000 --auto-compact --progress and every output: warm, then timed. The
+    fitted model is caught on its way out of `fit_mmctm_restarts` to hold
+    the checkpoint against it."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from multimodalmusig_tpu_torch import cli
+    from multimodalmusig_tpu_torch.models import ctm_base
+    from multimodalmusig_tpu_torch.models import mmctm as mm
+    from multimodalmusig_tpu_torch.parallel import restarts as rs
+    from multimodalmusig_tpu_torch.utils.data import BRCA_FILES, brca_counts_path
+
+    ek, lk, tk = kernels
+    fit, caught = rs.fit_mmctm_restarts, {}
+
+    def catching_fit(*a, **k):
+        caught["model"] = fit(*a, **k)
+        return caught["model"]
+
+    with tempfile.TemporaryDirectory() as out:
+        argv = ([brca_counts_path(f) for f in BRCA_FILES]
+                + ["-k", "7", "7", "-m", "SNV", "SV", "--restarts", str(CLI_RESTARTS),
+                   "--maxiter", str(MAXITER), "--auto-compact", "--progress"]
+                + [a for f in ("model.npz", "mean.tsv", "cov.tsv", "cor.tsv", "sigs.tsv",
+                               "props.tsv")
+                   for a in (f"--{f.split('.')[0]}", os.path.join(out, f))])
+        rs.fit_mmctm_restarts = catching_fit
+        try:
+            with counting_fits() as count:
+                t0 = time.perf_counter()
+                if cli.main(argv) != 0:
+                    fail("the CLI warm-up run did not exit 0")
+                print(f"CLI warm-up run: {time.perf_counter() - t0:.3f} s")
+                torch.cuda.synchronize()
+                reset_counts(kernels)
+                count.update(dict.fromkeys(count, 0))
+                t0 = time.perf_counter()
+                rc = cli.main(argv)
+                wall = time.perf_counter() - t0
+        finally:
+            rs.fit_mmctm_restarts = fit
+        launches = {"estep_eta": ek.LAUNCHES, "lambda_newton": lk.LAUNCHES,
+                    "theta_moments": tk.LAUNCHES}
+        model = caught["model"]
+        info = model.compact_info
+        print(f"CLI: run-mmctm-torch --restarts {CLI_RESTARTS} --auto-compact, BRCA-EU K=(7, 7), on "
+              f"{model.device}: rc {rc}, wall {wall:.4f} s (TSV reads, both stages, f64 "
+              f"re-scores, selection, every output written); CAVI iterations {count['steps']}, "
+              f"lane-iterations {count['lane_iters']}, boundaries "
+              f"{count['calls'] - count['loops']}; kernel launches {launches}")
+        print(f"CLI: pilot P={info['pilot_restarts']}, boundary {info['boundary_s'] * 1e3:.4f} "
+              f"ms, {info['lane_iters_per_s']:.0f} lane-iters/s, derived schedule "
+              f"{info['schedule']}, schedule_memo_hit {info['schedule_memo_hit']}; selected "
+              f"model ll {model.ll}, converged {model.converged} (JAX CPU two-stage "
+              f"best-of-16 {list(JAX_CPU_TWO_STAGE_LL)})")
+        if rc != 0 or model.device.type != "cuda":
+            fail(f"the CLI run exited {rc} on {model.device}")
+        check_fused_launches("the CLI run", launches, count["steps"])
+        if not (np.isfinite(model.ll).all() and model.converged):
+            fail(f"the CLI's selected model is not finite and converged: {model.ll}")
+        for m, (b, ref) in enumerate(zip(model.ll, JAX_CPU_TWO_STAGE_LL)):
+            if not b >= ref - LL_SLACK:
+                fail(f"CLI: modality {m}: selected ll {b} worse than the JAX value {ref} by "
+                     f"more than {LL_SLACK}")
+
+        loaded = mt.load_model(os.path.join(out, "model.npz"))
+        leaves = list(zip(tensors(loaded.state), tensors(model.state)))
+        with ctm_base.full_f32_matmuls():
+            again = mm.modality_loglikelihoods(loaded.Xdense, mm.props_from(loaded.state.lam,
+                                                                            loaded.config),
+                                               mm.phi_point(loaded.state.gamma))[0]
+        rel = float(np.max(np.abs(again.cpu().double().numpy() - model.ll) / np.abs(model.ll)))
+        print(f"CLI: load_model of the checkpoint on {loaded.device}: ll {loaded.ll}, "
+              f"{len(leaves)} state tensors equal: {all(torch.equal(a, b) for a, b in leaves)}, "
+              f"ll recomputed from the loaded state on the card within {rel:.3e} relative")
+        if (loaded.device.type != "cuda" or loaded.ll != model.ll
+                or not all(torch.equal(a, b) for a, b in leaves) or rel > 1e-6):
+            fail("the CLI's checkpoint does not give back the fitted model on the card")
+        check_cli_outputs("CLI", out, model, terms)
+    return launches
+
+
+def cli_subprocess_phase():
+    """`python3 -m multimodalmusig_tpu_torch.cli` in a process of its own,
+    without --device: it must run on the card and exit 0."""
+    import tempfile
+
+    from multimodalmusig_tpu_torch.utils.data import BRCA_FILES, brca_counts_path
+
+    with tempfile.TemporaryDirectory() as out:
+        cmd = ([sys.executable, "-m", "multimodalmusig_tpu_torch.cli"]
+               + [brca_counts_path(f) for f in BRCA_FILES]
+               + ["-k", "7", "7", "-m", "SNV", "SV", "--restarts", "100", "--verbose",
+                  "--props", os.path.join(out, "props.tsv")])
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        last = (proc.stdout.strip().splitlines() or [""])[-1]
+        print(f"CLI subprocess (--restarts 100, no --device): rc {proc.returncode}, "
+              f"{wall:.2f} s with the interpreter's start; last line: {last}")
+        if proc.returncode != 0 or not os.path.exists(os.path.join(out, "props.tsv")):
+            fail(f"the CLI subprocess failed: {proc.stderr[-2000:]}")
+
+
 def main():
     import torch
 
@@ -853,7 +1110,9 @@ def main():
         "IMMCTM": immctm_phase(mt, kernels, X, features),
         "compaction": compaction_phase(mt, kernels, X),
         "two-stage": two_stage_phase(mt, kernels, X),
+        "CLI": cli_phase(mt, kernels, terms),
     }
+    cli_subprocess_phase()
     theta_launch_check(tk)
     launches = {k: sum(p[k] for p in paths.values()) for k in ("estep_eta", "lambda_newton",
                                                                 "theta_moments")}

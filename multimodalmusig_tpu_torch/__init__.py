@@ -20,7 +20,15 @@ device="cpu" (without a card they raise):
   * `fit_immctm_restarts(k, alpha, features, X, restarts, ...)` —
     best-of-N IMMCTM with f64 re-scored selection (parallel/restarts.py);
   * `IMMCTM(k, alpha, features, X)` and `.fit()` — one feature-factorized
-    model (models/immctm.py).
+    model (models/immctm.py);
+  * `python -m multimodalmusig_tpu_torch.cli` (`run-mmctm-torch`) — the
+    reference CLI on count TSVs, with checkpoints (`save_model`,
+    `load_model`) and TSV outputs (utils/io.py).
+
+The fits can be cut at boundaries: `chunk_iters`, a `compact_schedule`
+tuple, or `compact_schedule="auto"`, which `fit_restarts_auto` derives from
+a timed pilot and a boundary cost measured on the device
+(`measure_boundary_seconds`, `auto_compact_schedule`).
 """
 
 from .interop import immctm_state_from_numpy, state_from_numpy
@@ -36,12 +44,15 @@ from .models.mmctm import (
 from .ops import estep_kernel, lambda_kernel, theta_kernel
 from .parallel.rescore import rescore_immctm_f64, rescore_mmctm_f64
 from .parallel.restarts import (
+    auto_compact_schedule,
     fit_immctm_restarts,
     fit_immctm_restarts_from_states,
     fit_mmctm_restarts,
     fit_restarts,
+    fit_restarts_auto,
     fit_restarts_from_states,
     lane,
+    measure_boundary_seconds,
     pick_optimal_modality_restarts,
     pick_optimal_restart,
     select_best_restart_f64,
@@ -50,6 +61,7 @@ from .parallel.restarts import (
     two_stage_fit,
     two_stage_fit_from_states,
 )
+from .utils import io
 from .utils.data import brca_counts_path, brca_data_dir
 from .utils.fast_tsv import read_counts_tsv
 from .utils.formatting import (
@@ -60,6 +72,7 @@ from .utils.formatting import (
     make_count_matrix,
     sparse_to_dense,
 )
+from .utils.io import load_model, save_model
 
 __all__ = [
     "IMMCTM",
@@ -74,6 +87,9 @@ __all__ = [
     "init_with_alpha",
     "fit_restarts",
     "fit_restarts_from_states",
+    "fit_restarts_auto",
+    "auto_compact_schedule",
+    "measure_boundary_seconds",
     "fit_immctm_restarts",
     "fit_immctm_restarts_from_states",
     "fit_mmctm_restarts",
@@ -92,6 +108,9 @@ __all__ = [
     "estep_kernel",
     "lambda_kernel",
     "theta_kernel",
+    "io",
+    "save_model",
+    "load_model",
     "brca_counts_path",
     "brca_data_dir",
     "read_counts_tsv",

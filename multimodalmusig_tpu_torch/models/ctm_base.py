@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops import estep_kernel, lambda_kernel, theta_kernel
+from ..ops import estep_kernel, flags, lambda_kernel, theta_kernel
 from ..ops.convergence import MIN_ITERS_BEFORE_CONVERGENCE, relative_change
 from ..ops.solvers import (
     CG_F32_CAVI,
@@ -200,8 +200,10 @@ def resolved_budgets(config) -> dict:
     {"lambda_n_iter", "lambda_cg_iter", "lambda_polish_iter", "nu_n_iter"},
     None meaning the solver's own cold-start default. Float32 fits take the
     warm-start caps measured in the JAX package (Newton 3, PCG 4, polish 1,
-    ν sweeps 4); float64 keeps the full budgets. Config fields always win."""
-    f32 = config.dtype == torch.float32
+    ν sweeps 4) unless MUSIG_F32_FULL_BUDGETS=1 (`flags.F32_FULL_BUDGETS`,
+    read here at each call); float64 keeps the full budgets. Config fields
+    always win."""
+    f32 = config.dtype == torch.float32 and not flags.F32_FULL_BUDGETS
     out = {
         "lambda_n_iter": LAMBDA_NITER_F32_CAVI if f32 else None,
         "lambda_cg_iter": CG_F32_CAVI if f32 else None,
@@ -418,7 +420,8 @@ def _cat_lanes(trees):
     return torch.cat(trees, dim=0)
 
 
-def run_cavi(state, config, maxiter: int, tol: float, step_fn, compact_schedule=()):
+def run_cavi(state, config, maxiter: int, tol: float, step_fn, compact_schedule=(),
+             progress=None):
     """The whole CAVI loop over every lane of `state`, from a fresh carry.
     Returns (state, ll_buf (R, maxiter, M), n_iters (R,), done (R,)).
 
@@ -427,16 +430,22 @@ def run_cavi(state, config, maxiter: int, tol: float, step_fn, compact_schedule=
     iterations, then the finished lanes (done, or at maxiter) leave the
     batch and the survivors, gathered with index_select on every state
     field, run c2 more, and so on; once the schedule is spent the survivors
-    run to their end. The finished groups come back in restart order.
-    Finished lanes are frozen either way, so each lane's result does not
-    depend on the schedule. The JAX package pads each survivor batch to a
-    power of two, because each batch size there is a compiled executable of
-    its own; eager PyTorch compiles nothing per shape, so nothing is padded.
-    Each boundary reads the (n_iters, done) vectors on the host (one sync);
-    an empty (or None) schedule is one uncut `run_cavi_from`."""
+    run to their end. Any iterable of budgets will do, an endless
+    `itertools.repeat(chunk_iters)` included: it is read one budget per
+    boundary. The finished groups come back in restart order. Finished
+    lanes are frozen either way, so each lane's result does not depend on
+    the schedule. The JAX package pads each survivor batch to a power of
+    two, because each batch size there is a compiled executable of its own;
+    eager PyTorch compiles nothing per shape, so nothing is padded. Each
+    boundary reads the (n_iters, done) vectors on the host (one sync); an
+    empty (or None) schedule is one uncut `run_cavi_from`.
+
+    `progress(done, total)` is called at every boundary and once at the
+    end, with the number of finished lanes (converged, non-finite or at
+    maxiter) out of R; an uncut fit calls it once, with (R, R)."""
     carry = make_cavi_carry(state, config, maxiter)
     R, device = state.lam.shape[0], state.lam.device
-    budgets = iter(tuple(int(c) for c in compact_schedule or ()))
+    budgets = (int(c) for c in (() if compact_schedule is None else compact_schedule))
     order = np.arange(R)
     groups, group_orders = [], []
     carry = run_cavi_from(carry, maxiter, tol, step_fn, next(budgets, None))
@@ -444,6 +453,8 @@ def run_cavi(state, config, maxiter: int, tol: float, step_fn, compact_schedule=
         it, done = (t.cpu().numpy() for t in (carry[2], carry[3]))
         done = done | (it >= maxiter)
         done_pos, active_pos = np.nonzero(done)[0], np.nonzero(~done)[0]
+        if progress is not None:
+            progress(R - len(active_pos), R)
         if len(active_pos) == 0:
             groups.append(carry)
             group_orders.append(order)

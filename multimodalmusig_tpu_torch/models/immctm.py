@@ -302,14 +302,17 @@ def finalize_fit(carry, X, N, F, config: IMMCTMConfig) -> IMMCTMFitResult:
 
 
 def fit(state: IMMCTMState, X, F, config: IMMCTMConfig, maxiter: int = 100,
-        tol: float = 1e-4) -> IMMCTMFitResult:
+        tol: float = 1e-4, compact_schedule=(), progress=None) -> IMMCTMFitResult:
     """Full IMMCTM CAVI over every lane of `state` (src/IMMCTM.jl:437-466),
     with TF32 off for all float32 products. X (dense (D, V_m)) and F (one-hot
-    (V_m, J_mi)) are tensors on the state's device and dtype."""
+    (V_m, J_mi)) are tensors on the state's device and dtype.
+    `compact_schedule` (any iterable of budgets) and `progress(done,
+    total)` are ctm_base.run_cavi's."""
     X = tuple(X)
     with full_f32_matmuls():
         N = counts_per_doc(X)
-        carry = run_cavi(state, config, maxiter, tol, fit_step_fn(X, N, F, config))
+        carry = run_cavi(state, config, maxiter, tol, fit_step_fn(X, N, F, config),
+                         compact_schedule, progress)
         return finalize_fit(carry, X, N, F, config)
 
 

@@ -310,16 +310,16 @@ def finalize_fit(carry, X, N, config: MMCTMConfig) -> MMCTMFitResult:
 
 
 def fit(state: MMCTMState, X, config: MMCTMConfig, maxiter: int = 100,
-        tol: float = 1e-4, compact_schedule=()) -> MMCTMFitResult:
+        tol: float = 1e-4, compact_schedule=(), progress=None) -> MMCTMFitResult:
     """Full MMCTM CAVI over every lane of `state` (src/MMCTM.jl:457-494),
     with TF32 off for all float32 products. X is a tuple of dense (D, V_m)
-    tensors on the state's device and dtype. `compact_schedule` is
-    ctm_base.run_cavi's straggler compaction."""
+    tensors on the state's device and dtype. `compact_schedule` (any
+    iterable of budgets) and `progress(done, total)` are ctm_base.run_cavi's."""
     X = tuple(X)
     with full_f32_matmuls():
         N = counts_per_doc(X)
         carry = run_cavi(state, config, maxiter, tol, fit_step_fn(X, N, config),
-                         compact_schedule)
+                         compact_schedule, progress)
         return finalize_fit(carry, X, N, config)
 
 

@@ -25,10 +25,19 @@ init (λ=0, ν=1, μ=0, Σ=I and the uniform θ are fixed), so its R stage-2
 workers compute R identical models and the rank pick returns the first.
 Stage 2 therefore runs once by default (`stage2_restarts=1`); more lanes
 only add identical copies.
+
+Every fit here can be cut at boundaries (ctm_base.run_cavi): `chunk_iters`
+puts one every chunk_iters iterations, `compact_schedule=(c1, c2, ...)` at
+the given budgets, and `compact_schedule="auto"` derives the budgets from a
+timed pilot of the first lanes (`fit_restarts_auto`). At each boundary the
+finished lanes leave the batch and `progress` hears how many have finished.
 """
 
 from __future__ import annotations
 
+import itertools
+import time
+from functools import partial
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -47,8 +56,11 @@ __all__ = [
     "pick_optimal_restart",
     "lane",
     "suggest_compact_schedule",
+    "measure_boundary_seconds",
+    "auto_compact_schedule",
     "fit_restarts_from_states",
     "fit_restarts",
+    "fit_restarts_auto",
     "select_modality_winners_f64",
     "select_best_restart_f64",
     "two_stage_fit_from_states",
@@ -182,17 +194,196 @@ def suggest_compact_schedule(
     return tuple(out)
 
 
+def _resolve_schedule(chunk_iters, compact_schedule):
+    """The budgets of ctm_base.run_cavi for the two mutually exclusive ways
+    to cut a fit (restarts.py:1503-1510 of the JAX package): `chunk_iters`,
+    a boundary every chunk_iters iterations (an endless repeat), or
+    `compact_schedule`, the budgets (c1, c2, ...) after which the survivors
+    run to their end. None for both: one uncut run."""
+    if chunk_iters is not None and compact_schedule is not None:
+        raise ValueError("chunk_iters and compact_schedule are mutually exclusive")
+    if isinstance(compact_schedule, str):
+        raise ValueError(f"compact_schedule: expected a tuple of budgets, got "
+                         f"{compact_schedule!r} (fit_restarts_auto derives one)")
+    if chunk_iters is None:
+        return compact_schedule
+    if int(chunk_iters) < 1:
+        raise ValueError(f"chunk_iters must be at least 1, got {chunk_iters}")
+    return itertools.repeat(int(chunk_iters))
+
+
+def _is_auto(compact_schedule, chunk_iters) -> bool:
+    """True for compact_schedule="auto", which excludes chunk_iters; any
+    other string is a ValueError (restarts.py:1304-1312 of the JAX
+    package)."""
+    if not isinstance(compact_schedule, str):
+        return False
+    if compact_schedule != "auto":
+        raise ValueError(f"compact_schedule: expected 'auto' or a tuple, got {compact_schedule!r}")
+    if chunk_iters is not None:
+        raise ValueError("chunk_iters and compact_schedule='auto' are mutually exclusive")
+    return True
+
+
+def _sync(device: torch.device):
+    """Drain the device's queue (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+_BOUNDARY_CACHE: dict = {}
+
+
+def measure_boundary_seconds(carry, reps: int = 5) -> float:
+    """Seconds that one compaction boundary of ctm_base.run_cavi costs
+    beyond the lane-iterations it runs, timed on `carry` (a CAVI carry
+    (state, ll_buf, n_iters, done), on the fit's device). It times what
+    run_cavi does there: the host read of the (n_iters, done) pair, which
+    waits for the device; the read of the running lanes' iteration count
+    that opens run_cavi_from (`n_iters[~done].unique().tolist()`), another
+    wait; and the two gathers (index_select over every carry field, with
+    their index vectors sent from the host) that part the finished lanes
+    from the survivors, here half and half. The queue is drained before the
+    clock starts and before it stops: unsynchronized, the clock would time
+    the enqueue only (restarts.py:293-299 of the JAX package). Returns the
+    least of `reps` timings."""
+    n_iters, done = carry[2], carry[3]
+    device = n_iters.device
+    pos = np.arange(n_iters.shape[0])
+    half = len(pos) // 2
+    best = float("inf")
+    for _ in range(reps):
+        _sync(device)
+        t0 = time.perf_counter()
+        n_iters.cpu().numpy(), done.cpu().numpy()
+        n_iters[~done].unique().tolist()
+        ctm_base._index_lanes(carry, torch.as_tensor(pos[:half], device=device))
+        ctm_base._index_lanes(carry, torch.as_tensor(pos[half:], device=device))
+        _sync(device)
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def measure_boundary_seconds_cached(carry, reps: int = 5) -> float:
+    """`measure_boundary_seconds` once per device: a boundary's cost is the
+    host's round trip to the device more than it is the data, so later
+    derivations reuse the first measurement (restarts.py:210-218 of the JAX
+    package)."""
+    key = str(carry[2].device)
+    if key not in _BOUNDARY_CACHE:
+        _BOUNDARY_CACHE[key] = measure_boundary_seconds(carry, reps)
+    return _BOUNDARY_CACHE[key]
+
+
+_SCHEDULE_MEMO: dict = {}
+_SCHEDULE_MEMO_MAX = 64
+
+
+def _derive_auto_schedule(iters, t_warm, production_restarts, maxiter, max_boundaries, carry):
+    """The schedule of an auto-compacted fit (restarts.py:851-901 of the JAX
+    package): the lane-iterations per second of the timed pilot (P lanes
+    that ran iters.max() iterations in t_warm seconds), the boundary cost
+    measured once per device on the pilot's `carry`, and their product as
+    the DP's boundary cost in lane-iterations. Returns (schedule, info).
+
+    The schedule is memoized per pilot iteration counts and DP inputs,
+    everything but the measured t_warm: a repeat of the same fit keeps the
+    first schedule instead of flipping with the noise of a wall-clock
+    measurement. So the first derivation in a process holds for its life,
+    and a cold first pilot (kernels loading) pins a schedule derived from
+    too low a rate, which prices boundaries too cheap. FIFO-capped at
+    _SCHEDULE_MEMO_MAX entries."""
+    iters = np.asarray(iters)
+    P = int(iters.size)
+    sig = (iters.tobytes(), str(iters.dtype), int(production_restarts), int(maxiter),
+           int(max_boundaries))
+    memo = _SCHEDULE_MEMO.get(sig)
+    rate = P * float(iters.max()) / max(t_warm, 1e-9)
+    t_boundary = measure_boundary_seconds_cached(carry)
+    B = t_boundary * rate
+    if memo is not None:
+        schedule = memo
+    else:
+        schedule = tuple(suggest_compact_schedule(
+            iters, maxiter=maxiter, boundary_cost_lane_iters=B,
+            max_boundaries=max_boundaries, production_restarts=production_restarts,
+        ))
+        _SCHEDULE_MEMO[sig] = schedule
+        while len(_SCHEDULE_MEMO) > _SCHEDULE_MEMO_MAX:
+            _SCHEDULE_MEMO.pop(next(iter(_SCHEDULE_MEMO)))
+    info = {
+        "pilot_restarts": P,
+        "pilot_iters_max": int(iters.max()),
+        "pilot_iters_median": float(np.median(iters)),
+        "pilot_warm_s": t_warm,
+        "lane_iters_per_s": rate,
+        "boundary_s": t_boundary,
+        "boundary_cost_lane_iters": B,
+        "schedule": tuple(schedule),
+        "schedule_memo_hit": memo is not None,
+    }
+    return tuple(schedule), info
+
+
+def _fit_auto(state, fit_fn, maxiter: int, pilot_restarts: int = 64, max_boundaries: int = 3,
+              progress=None):
+    """Zero-config compaction with a folded pilot (fit_restarts_auto and
+    _family_restarts_auto of the JAX package, restarts.py:904-1057), for
+    any family: the first P = max(2, min(pilot_restarts, R // 2)) lanes of
+    the batched initial `state` run uncut and timed (the clock stops at the
+    host read of their n_iters, which waits for the fit), and double as the
+    pilot; the other R − P lanes run with the schedule derived from them.
+    Nothing is fit twice, and lane i of the result is lane i of `state`'s
+    fit. Below 8 lanes it is one uncut fit. `fit_fn(state, schedule,
+    progress)` fits a batched state. Returns (result, info)."""
+    R = int(state.lam.shape[0])
+    if R < 8:
+        result = fit_fn(state, None, progress)
+        iters = result.n_iters.cpu().numpy()
+        return result, {
+            "pilot_restarts": R,
+            "pilot_iters_max": int(iters.max()),
+            "pilot_iters_median": float(np.median(iters)),
+            "pilot_warm_s": 0.0,
+            "lane_iters_per_s": 0.0,
+            "boundary_s": 0.0,
+            "boundary_cost_lane_iters": 0.0,
+            "schedule": (),
+            "note": "too few restarts to split; single unchunked fit",
+        }
+    P = max(2, min(int(pilot_restarts), R // 2))
+    device = state.lam.device
+    lanes = torch.arange(R, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    pilot = fit_fn(ctm_base._index_lanes(state, lanes[:P]), None, None)
+    iters = pilot.n_iters.cpu().numpy()
+    t_warm = time.perf_counter() - t0
+    if progress is not None:
+        progress(P, R)
+    schedule, info = _derive_auto_schedule(
+        iters, t_warm, R - P, maxiter, max_boundaries,
+        (pilot.state, pilot.ll_history, pilot.n_iters, pilot.converged),
+    )
+    rest = fit_fn(ctm_base._index_lanes(state, lanes[P:]), schedule,
+                  None if progress is None else lambda d, t: progress(P + d, R))
+    return ctm_base._cat_lanes([pilot, rest]), info
+
+
 def fit_restarts_from_states(state: MMCTMState, X, config: MMCTMConfig,
                              maxiter: int = 1000, tol: float = 1e-4,
-                             compact_schedule: Optional[Sequence[int]] = None) -> MMCTMFitResult:
+                             compact_schedule: Optional[Sequence[int]] = None,
+                             progress=None) -> MMCTMFitResult:
     """Fit every lane of a batched initial `state` (counterpart of the JAX
     package's fit_restarts_from_keys, with the init handed in: a state from
     `mmctm.init_with_alpha`, or one injected by `interop.state_from_numpy`).
     X is a tuple of dense (D, V_m) counts, moved to the state's device.
-    `compact_schedule` as in `fit_restarts`."""
+    `compact_schedule` (any iterable of budgets) and `progress` as in
+    `fit_restarts`."""
+    schedule = _resolve_schedule(None, compact_schedule)
     X = mmctm_mod.counts_tensors(X, config, state.lam.device)
     return mmctm_mod.fit(state, X, config, maxiter=maxiter, tol=tol,
-                         compact_schedule=compact_schedule)
+                         compact_schedule=schedule, progress=progress)
 
 
 def _generator(seed_or_generator) -> torch.Generator:
@@ -203,8 +394,8 @@ def _generator(seed_or_generator) -> torch.Generator:
 
 def fit_restarts(seed_or_generator: Union[int, torch.Generator], X, config: MMCTMConfig,
                  alpha, restarts: int, maxiter: int = 1000, tol: float = 1e-4,
-                 init_method: str = "random",
-                 compact_schedule: Optional[Sequence[int]] = None,
+                 init_method: str = "random", chunk_iters: Optional[int] = None,
+                 compact_schedule: Optional[Sequence[int]] = None, progress=None,
                  device="cuda") -> MMCTMFitResult:
     """Fit `restarts` independently initialized MMCTMs as one batch on
     `device`, the CUDA card unless the caller asks for the CPU (replaces
@@ -217,11 +408,19 @@ def fit_restarts(seed_or_generator: Union[int, torch.Generator], X, config: MMCT
     iteration counts sets the work of every lane. With a schedule, all lanes
     run c1 iterations, the finished ones leave the batch, the survivors run
     c2 more, and so on; after the last boundary the survivors run to their
-    end (`suggest_compact_schedule` picks boundaries). Finished lanes are
-    frozen in both fits, so each lane's result equals the unchunked fit's
-    (bit for bit on the CPU; in float32 on the card the smaller batches
-    round differently, about 1e-3 on a few lanes' ll after hundreds of
-    iterations). The compacted loop is ctm_base.run_cavi's."""
+    end (`suggest_compact_schedule` picks boundaries, `fit_restarts_auto`
+    derives them). `chunk_iters` instead puts a boundary every chunk_iters
+    iterations until every lane has finished; the two are mutually
+    exclusive. Finished lanes are frozen in every fit, so each lane's result
+    equals the unchunked fit's (bit for bit on the CPU; in float32 on the
+    card the smaller batches round differently, about 1e-3 on a few lanes'
+    ll after hundreds of iterations). The compacted loop is
+    ctm_base.run_cavi's.
+
+    `progress(done, total)` hears the number of finished restarts
+    (converged, non-finite or at maxiter) at every boundary and at the end;
+    an uncut fit calls it once, at the end."""
+    schedule = _resolve_schedule(chunk_iters, compact_schedule)
     device = ctm_base.check_device(device)
     X = mmctm_mod.counts_tensors(X, config, device)
     state = mmctm_mod.init_with_alpha(
@@ -229,7 +428,74 @@ def fit_restarts(seed_or_generator: Union[int, torch.Generator], X, config: MMCT
         init_method=init_method, device=device,
     )
     return fit_restarts_from_states(state, X, config, maxiter=maxiter, tol=tol,
-                                    compact_schedule=compact_schedule)
+                                    compact_schedule=schedule, progress=progress)
+
+
+def _fit_mmctm_auto(state, X, config, maxiter, tol, pilot_restarts=64, max_boundaries=3,
+                    progress=None):
+    """`_fit_auto` for a batched MMCTM state; X on the state's device."""
+    def fit_fn(st, schedule, prog):
+        return mmctm_mod.fit(st, X, config, maxiter=maxiter, tol=tol,
+                             compact_schedule=schedule, progress=prog)
+    return _fit_auto(state, fit_fn, maxiter, pilot_restarts, max_boundaries, progress)
+
+
+def fit_restarts_auto(seed_or_generator: Union[int, torch.Generator], X, config: MMCTMConfig,
+                      alpha, restarts: int, maxiter: int = 1000, tol: float = 1e-4,
+                      init_method: str = "random", pilot_restarts: int = 64,
+                      max_boundaries: int = 3, progress=None, device="cuda"):
+    """Zero-config compacted restart fit (restarts.py:965-1057 of the JAX
+    package) on `device`, the CUDA card unless the caller asks for the CPU:
+    the R lane inits are drawn once, from the same generator stream as
+    `fit_restarts`; the first P = max(2, min(pilot_restarts, R // 2)) lanes
+    run uncut and timed, and double as the pilot; the other R − P lanes run
+    with the schedule that `suggest_compact_schedule` derives from the
+    pilot's iteration counts, its lane-iterations per second and a boundary
+    cost measured on this device (`measure_boundary_seconds`). With R < 8 it
+    is one uncut fit. Lane i of the result is lane i of `fit_restarts` (to
+    the last bit on the CPU; on the card the batches round differently).
+
+    `progress(done, total)` hears (P, R) after the pilot, then the finished
+    lanes at each boundary of the rest. Returns (batched MMCTMFitResult over
+    all lanes in lane order, info: the derivation's measurements)."""
+    device = ctm_base.check_device(device)
+    X = mmctm_mod.counts_tensors(X, config, device)
+    state = mmctm_mod.init_with_alpha(
+        _generator(seed_or_generator), config, X, alpha, restarts=restarts,
+        init_method=init_method, device=device,
+    )
+    with ctm_base.full_f32_matmuls():
+        return _fit_mmctm_auto(state, X, config, maxiter, tol, pilot_restarts, max_boundaries,
+                               progress)
+
+
+def auto_compact_schedule(seed_or_generator: Union[int, torch.Generator], X,
+                          config: MMCTMConfig, alpha, restarts: int, maxiter: int = 1000,
+                          tol: float = 1e-4, pilot_restarts: int = 64,
+                          init_method: str = "random", max_boundaries: int = 3,
+                          device="cuda"):
+    """A compaction schedule for `fit_restarts` from a separate pilot
+    (restarts.py:252-309 of the JAX package): max(2, min(pilot_restarts,
+    restarts)) lanes, drawn from a generator seeded away from the
+    production stream (so the production fit's inits do not change), fit
+    and timed on `device`; then `_derive_auto_schedule` for `restarts`
+    production lanes. Returns (schedule, info). `fit_restarts_auto` does
+    the same work without fitting the pilot twice."""
+    device = ctm_base.check_device(device)
+    X = mmctm_mod.counts_tensors(X, config, device)
+    pilot_R = max(2, min(int(pilot_restarts), int(restarts)))
+    gen = torch.Generator().manual_seed(_generator(seed_or_generator).initial_seed() ^ 0x9E3779B9)
+    state = mmctm_mod.init_with_alpha(gen, config, X, alpha, restarts=pilot_R,
+                                      init_method=init_method, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    pilot = mmctm_mod.fit(state, X, config, maxiter=maxiter, tol=tol)
+    iters = pilot.n_iters.cpu().numpy()
+    t_warm = time.perf_counter() - t0
+    return _derive_auto_schedule(
+        iters, t_warm, int(restarts), maxiter, max_boundaries,
+        (pilot.state, pilot.ll_history, pilot.n_iters, pilot.converged),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -260,27 +526,46 @@ def two_stage_fit_from_states(state1: MMCTMState, X, config: MMCTMConfig, alpha,
                               stage2_restarts: int = 1, maxiter: int = 1000,
                               stage1_tol: float = 1e-4, stage2_tol: float = 1e-5,
                               init_method: str = "random",
-                              compact_schedule: Optional[Sequence[int]] = None,
-                              rescore_f64: bool = True, generator=None,
+                              chunk_iters: Optional[int] = None,
+                              compact_schedule: Union[Sequence[int], str, None] = None,
+                              progress=None, rescore_f64: bool = True, generator=None,
+                              pilot_restarts: int = 64, auto_info: Optional[dict] = None,
                               selection_info: Optional[dict] = None):
     """The two-stage protocol (run_mmctm.jl:163-180) from a batched stage-1
     initial state, on its device: stage 1 fits every lane (with
-    `compact_schedule`, as `fit_restarts`); the per-modality winners' γ and
-    E[ln ϕ] are grafted over `stage2_restarts` fresh inits drawn from
+    `compact_schedule`, as `fit_restarts`, or "auto", as
+    `fit_restarts_auto` with `pilot_restarts`); the per-modality winners' γ
+    and E[ln ϕ] are grafted over `stage2_restarts` fresh inits drawn from
     `generator` (a CPU generator of their own by default) and refit at
     `stage2_tol`; the dense-rank pick chooses among them. Both picks read
     exact float64 re-scores unless `rescore_f64` is False (then the in-fit
-    f32 lls). Runs with TF32 off throughout.
+    f32 lls). Runs with TF32 off throughout. `chunk_iters` cuts both
+    stages, and excludes `compact_schedule` (ValueError).
 
+    `progress(stage, done, total)` hears the finished lanes of stage 1 and
+    of stage 2 at each boundary, and at least once per stage, when it ends
+    (a stage that runs uncut has no other boundary). `auto_info`, when a
+    dict, receives the measurements of an "auto" derivation.
     `selection_info`, when a dict, receives {"stage1_winners" (M,),
     "stage1_winner_ll" (M,)}: the winners and the scores the pick read.
     Returns (the selected stage-2 lane (R = 1), stage-1 result, stage-2
     result, selected index)."""
+    auto = _is_auto(compact_schedule, chunk_iters)
+    schedule1 = None if auto else _resolve_schedule(chunk_iters, compact_schedule)
+    schedule2 = _resolve_schedule(chunk_iters, None)
+    progress1, progress2 = (None, None) if progress is None else (partial(progress, 1),
+                                                                  partial(progress, 2))
     device = state1.lam.device
     X = mmctm_mod.counts_tensors(X, config, device)
     with ctm_base.full_f32_matmuls():
-        stage1 = mmctm_mod.fit(state1, X, config, maxiter=maxiter, tol=stage1_tol,
-                               compact_schedule=compact_schedule)
+        if auto:
+            stage1, info = _fit_mmctm_auto(state1, X, config, maxiter, stage1_tol,
+                                           pilot_restarts, progress=progress1)
+            if auto_info is not None:
+                auto_info.update(info)
+        else:
+            stage1 = mmctm_mod.fit(state1, X, config, maxiter=maxiter, tol=stage1_tol,
+                                   compact_schedule=schedule1, progress=progress1)
         if rescore_f64:
             best_m, sel = select_modality_winners_f64(stage1, X, config)
             cand = list(sel["rescored_lanes"])
@@ -308,7 +593,8 @@ def two_stage_fit_from_states(state1: MMCTMState, X, config: MMCTMConfig, alpha,
 
         state2 = state2._replace(gamma=graft(stage1.state.gamma),
                                  Elnphi=graft(stage1.state.Elnphi))
-        stage2 = mmctm_mod.fit(state2, X, config, maxiter=maxiter, tol=stage2_tol)
+        stage2 = mmctm_mod.fit(state2, X, config, maxiter=maxiter, tol=stage2_tol,
+                               compact_schedule=schedule2, progress=progress2)
         if rescore_f64:
             best, _ = select_best_restart_f64(stage2, X, config)
         else:
@@ -319,17 +605,19 @@ def two_stage_fit_from_states(state1: MMCTMState, X, config: MMCTMConfig, alpha,
 def two_stage_fit(seed_or_generator: Union[int, torch.Generator], X, config: MMCTMConfig,
                   alpha, restarts: int, stage2_restarts: int = 1, maxiter: int = 1000,
                   stage1_tol: float = 1e-4, stage2_tol: float = 1e-5,
-                  init_method: str = "random",
-                  compact_schedule: Optional[Sequence[int]] = None,
-                  rescore_f64: bool = True, selection_info: Optional[dict] = None,
+                  init_method: str = "random", chunk_iters: Optional[int] = None,
+                  compact_schedule: Union[Sequence[int], str, None] = None, progress=None,
+                  rescore_f64: bool = True, pilot_restarts: int = 64,
+                  auto_info: Optional[dict] = None, selection_info: Optional[dict] = None,
                   device="cuda"):
     """The reference CLI's two-stage protocol (run_mmctm.jl:163-180) on
     `device`, the CUDA card unless the caller asks for the CPU: `restarts`
     stage-1 lanes initialized as `fit_restarts` initializes them from
-    `seed_or_generator`, then `two_stage_fit_from_states`; the stage-2 inits
-    come from a CPU generator seeded from a draw of the same generator,
-    after the stage-1 inits. Returns (the selected stage-2 lane (R = 1),
-    stage-1 result, stage-2 result, selected index)."""
+    `seed_or_generator`, then `two_stage_fit_from_states`, which the other
+    options go to; the stage-2 inits come from a CPU generator seeded from a
+    draw of the same generator, after the stage-1 inits. Returns (the
+    selected stage-2 lane (R = 1), stage-1 result, stage-2 result, selected
+    index)."""
     device = ctm_base.check_device(device)
     gen = _generator(seed_or_generator)
     Xt = mmctm_mod.counts_tensors(X, config, device)
@@ -339,8 +627,9 @@ def two_stage_fit(seed_or_generator: Union[int, torch.Generator], X, config: MMC
     return two_stage_fit_from_states(
         state1, Xt, config, alpha, stage2_restarts=stage2_restarts, maxiter=maxiter,
         stage1_tol=stage1_tol, stage2_tol=stage2_tol, init_method=init_method,
-        compact_schedule=compact_schedule, rescore_f64=rescore_f64, generator=gen2,
-        selection_info=selection_info,
+        chunk_iters=chunk_iters, compact_schedule=compact_schedule, progress=progress,
+        rescore_f64=rescore_f64, generator=gen2, pilot_restarts=pilot_restarts,
+        auto_info=auto_info, selection_info=selection_info,
     )
 
 
@@ -349,28 +638,47 @@ def fit_mmctm_restarts(k: Sequence[int], alpha: Sequence[float], X,
                        stage2_restarts: int = 1, maxiter: int = 1000,
                        stage1_tol: float = 1e-4, stage2_tol: float = 1e-5,
                        seed: int = 147959412, dtype: torch.dtype = torch.float32,
-                       compact_schedule: Optional[Sequence[int]] = None,
+                       chunk_iters: Optional[int] = None,
+                       compact_schedule: Union[Sequence[int], str, None] = None,
+                       pilot_restarts: int = 64, progress=None,
                        rescore_f64: bool = True, verbose: bool = False,
                        device="cuda") -> MMCTM:
     """Best-of-N two-stage MMCTM fitting, the reference CLI's `fit_model`
     (run_mmctm.jl:163-180; the JAX package's fit_mmctm_restarts), on
     `device`, the CUDA card unless the caller asks for the CPU. The
     arguments before `restarts` are the `MMCTM` wrapper's (X[doc][modality]
-    as (n, 2) 1-based (vocab_index, count) matrices); `compact_schedule`
-    compacts stage 1 (`fit_restarts`). Returns that wrapper holding the
-    selected stage-2 lane, with `ll_history` (its per-iteration lls),
-    `stage1_ll` ((R, M) float64 array of the stage-1 in-fit lls) and
-    `restart_result` (the batched stage-1 MMCTMFitResult). `verbose` prints
-    the lls the selection read."""
+    as (n, 2) 1-based (vocab_index, count) matrices). `compact_schedule`
+    compacts stage 1 (`fit_restarts`); "auto" derives its schedule from the
+    first `pilot_restarts` lanes (`fit_restarts_auto`) and records the
+    derivation as `model.compact_info`. `chunk_iters` cuts both stages;
+    `progress(stage, done, total)` hears each stage's finished lanes at its
+    boundaries and its end (`two_stage_fit_from_states`). Returns that
+    wrapper holding the selected stage-2 lane, with `ll_history` (its
+    per-iteration lls), `stage1_ll` ((R, M) float64 array of the stage-1
+    in-fit lls) and `restart_result` (the batched stage-1 MMCTMFitResult).
+    `verbose` prints the derived schedule and the lls the selection read."""
     args = (list(k), list(alpha)) + (() if V is None else (list(V),)) + (X,)
     model = MMCTM(*args, dtype=dtype, device=device)
+    auto_info: dict = {}
     selection_info: dict = {}
     best, stage1, _, _ = two_stage_fit(
         seed, model.Xdense, model.config, [float(a) for a in alpha], restarts=restarts,
         stage2_restarts=stage2_restarts, maxiter=maxiter, stage1_tol=stage1_tol,
-        stage2_tol=stage2_tol, compact_schedule=compact_schedule, rescore_f64=rescore_f64,
-        selection_info=selection_info, device=model.device,
+        stage2_tol=stage2_tol, chunk_iters=chunk_iters, compact_schedule=compact_schedule,
+        progress=progress, rescore_f64=rescore_f64, pilot_restarts=pilot_restarts,
+        auto_info=auto_info, selection_info=selection_info, device=model.device,
     )
+    if auto_info:
+        model.compact_info = auto_info
+        if verbose:
+            print(
+                f"auto-compact: schedule={auto_info['schedule']} "
+                f"(pilot = first {auto_info['pilot_restarts']} production "
+                f"lanes, median {auto_info['pilot_iters_median']:.0f} "
+                f"iters; boundary {auto_info['boundary_s'] * 1e3:.3f} ms = "
+                f"{auto_info['boundary_cost_lane_iters']:.0f} lane-iters at "
+                f"{auto_info['lane_iters_per_s']:.0f} lane-iters/s)"
+            )
     model.state = best.state
     model.converged = bool(best.converged[0])
     model.elbo = float(best.elbo[0])
@@ -389,43 +697,63 @@ def fit_mmctm_restarts(k: Sequence[int], alpha: Sequence[float], X,
 
 
 # ---------------------------------------------------------------------------
-# IMMCTM restarts (the unchunked branch of the JAX package's
-# fit_immctm_restarts)
+# IMMCTM restarts (restarts.py:1685-1762 of the JAX package)
 # ---------------------------------------------------------------------------
 
 
 def fit_immctm_restarts_from_states(state: IMMCTMState, X, F, config: IMMCTMConfig,
-                                    maxiter: int = 1000, tol: float = 1e-4) -> IMMCTMFitResult:
+                                    maxiter: int = 1000, tol: float = 1e-4,
+                                    compact_schedule: Optional[Sequence[int]] = None,
+                                    progress=None) -> IMMCTMFitResult:
     """Fit every lane of a batched initial IMMCTM `state` (from
     `immctm.init`, or injected by `interop.immctm_state_from_numpy`). X (dense
     (D, V_m) counts) and F (one-hot (V_m, J_mi) features) are moved to the
-    state's device and dtype."""
+    state's device and dtype. `compact_schedule` (any iterable of budgets)
+    and `progress` as in `fit_restarts`."""
+    schedule = _resolve_schedule(None, compact_schedule)
     device = state.lam.device
     X = mmctm_mod.counts_tensors(X, config, device)
     F = tuple(tuple(torch.as_tensor(f).to(device=device, dtype=config.dtype) for f in Fm)
               for Fm in F)
-    return immctm_mod.fit(state, X, F, config, maxiter=maxiter, tol=tol)
+    return immctm_mod.fit(state, X, F, config, maxiter=maxiter, tol=tol,
+                          compact_schedule=schedule, progress=progress)
 
 
 def fit_immctm_restarts(k, alpha, features, X, restarts: int = 100, maxiter: int = 1000,
                         tol: float = 1e-4, seed: int = 147959412,
                         dtype: torch.dtype = torch.float32, device="cuda",
-                        rescore_f64: bool = True) -> IMMCTM:
-    """Best-of-N IMMCTM fitting (the unchunked branch of the JAX package's
-    fit_immctm_restarts, restarts.py:1685-1762): `restarts` lanes initialized
+                        rescore_f64: bool = True, chunk_iters: Optional[int] = None,
+                        compact_schedule: Union[Sequence[int], str, None] = None,
+                        pilot_restarts: int = 64) -> IMMCTM:
+    """Best-of-N IMMCTM fitting (the JAX package's fit_immctm_restarts,
+    restarts.py:1685-1762, but for `devices`): `restarts` lanes initialized
     from a CPU generator seeded with `seed`, fit as one batch on `device`
     (the CUDA card unless the caller asks for the CPU), then one lane
     selected by the minimum mean dense rank of |ll| across modalities
     (run_mmctm.jl:136-147), over exact float64 re-scores of every lane's
     final state by default (parallel/rescore.py). The arguments are the
-    `IMMCTM` wrapper's. Returns that wrapper holding the selected lane; its
-    `restart_result` is the batched IMMCTMFitResult of all lanes."""
+    `IMMCTM` wrapper's. `chunk_iters` and a `compact_schedule` tuple cut
+    the fit as in `fit_restarts`; `compact_schedule="auto"` derives the
+    schedule from a pilot of the first `pilot_restarts` lanes, as
+    `fit_restarts_auto` does, and records the derivation as
+    `model.compact_info`. Returns that wrapper holding the selected lane;
+    its `restart_result` is the batched IMMCTMFitResult of all lanes."""
+    auto = _is_auto(compact_schedule, chunk_iters)
+    schedule = None if auto else _resolve_schedule(chunk_iters, compact_schedule)
     model = IMMCTM(k, alpha, features, X, dtype=dtype, device=device)
     cfg = model.config
     state = immctm_mod.init(torch.Generator().manual_seed(int(seed)), cfg, model.alpha,
                             restarts=restarts, device=model.device)
-    result = fit_immctm_restarts_from_states(state, model.Xdense, model.F, cfg,
-                                             maxiter=maxiter, tol=tol)
+    if auto:
+        def fit_fn(st, sched, prog):
+            return immctm_mod.fit(st, model.Xdense, model.F, cfg, maxiter=maxiter, tol=tol,
+                                  compact_schedule=sched, progress=prog)
+        with ctm_base.full_f32_matmuls():
+            result, model.compact_info = _fit_auto(state, fit_fn, maxiter, pilot_restarts)
+    else:
+        result = fit_immctm_restarts_from_states(state, model.Xdense, model.F, cfg,
+                                                 maxiter=maxiter, tol=tol,
+                                                 compact_schedule=schedule)
     score = (rescore_immctm_f64(result.state.lam, result.state.gamma, model.Xdense, model.F, cfg)
              if rescore_f64 else result.ll)
     sel = lane(result, int(pick_optimal_restart(score)))

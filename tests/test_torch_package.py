@@ -2,6 +2,7 @@
 are the JAX package's, its fit runs float32 products without TF32, and its
 NumPy-only copies of the data utilities give the JAX package's output."""
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -14,6 +15,7 @@ import torch
 from multimodalmusig_tpu.models import ctm_base as jax_ctm_base
 from multimodalmusig_tpu.models.mmctm import MMCTMConfig as JaxConfig
 from multimodalmusig_tpu.ops import convergence as jax_convergence
+from multimodalmusig_tpu.ops import flags as jax_flags
 from multimodalmusig_tpu.ops import solvers as jax_solvers
 from multimodalmusig_tpu.utils import data as jax_data
 from multimodalmusig_tpu.utils import fast_tsv as jax_fast_tsv
@@ -23,7 +25,7 @@ from multimodalmusig_tpu.utils.hermetic import scrubbed_env
 import multimodalmusig_tpu_torch as mt
 from multimodalmusig_tpu_torch import interop
 from multimodalmusig_tpu_torch.models import ctm_base, immctm, mmctm
-from multimodalmusig_tpu_torch.ops import convergence, solvers
+from multimodalmusig_tpu_torch.ops import convergence, flags, solvers
 from multimodalmusig_tpu_torch.utils import data, fast_tsv, formatting
 
 from conftest import requires_brca_data
@@ -35,7 +37,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
     """Every module of the port, found with pkgutil.walk_packages (the
-    kernel wrappers and profile_step included), imports without JAX."""
+    kernel wrappers, profile_step, the CLI, utils.io and ops.flags
+    included), imports without JAX."""
     code = (
         "import importlib, json, pkgutil, sys\n"
         "before = set(sys.modules)\n"
@@ -55,12 +58,19 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
     assert {"multimodalmusig_tpu_torch.ops.estep_kernel",
             "multimodalmusig_tpu_torch.ops.lambda_kernel",
             "multimodalmusig_tpu_torch.ops.theta_kernel",
+            "multimodalmusig_tpu_torch.ops.flags",
+            "multimodalmusig_tpu_torch.utils.io",
+            "multimodalmusig_tpu_torch.cli",
             "multimodalmusig_tpu_torch.profile_step"} <= set(names)
     assert jax_modules == []
 
 
 ENTRY_POINTS = [
     ("fit_restarts", lambda: mt.fit_restarts(0, _X, _CFG, [0.1, 0.1], restarts=2, maxiter=2)),
+    ("fit_restarts_auto", lambda: mt.fit_restarts_auto(0, _X, _CFG, [0.1, 0.1], restarts=2,
+                                                       maxiter=2)),
+    ("auto_compact_schedule", lambda: mt.auto_compact_schedule(0, _X, _CFG, [0.1, 0.1],
+                                                               restarts=2, maxiter=2)),
     ("fit_immctm_restarts", lambda: mt.fit_immctm_restarts(
         [1, 1], [0.1, 0.1], _FEATURES, _DOCS, restarts=2, maxiter=2)),
     ("fit_mmctm_restarts", lambda: mt.fit_mmctm_restarts([1, 1], [0.1, 0.1], _DOCS, restarts=2,
@@ -220,6 +230,24 @@ def test_resolved_budgets_equal_the_jax_ones(dtypes):
     port = mmctm.MMCTMConfig(K=(7, 7), V=(96, 48), D=560, dtype=dtypes[0])
     ref = JaxConfig(K=(7, 7), V=(96, 48), D=560, dtype=dtypes[1])
     assert ctm_base.resolved_budgets(port) == jax_ctm_base.resolved_budgets(ref)
+
+
+@pytest.mark.parametrize("full_budgets", [False, True], ids=["caps", "full budgets"])
+@pytest.mark.parametrize("dtypes", [(torch.float32, np.float32), (torch.float64, np.float64)],
+                         ids=["f32", "f64"])
+def test_resolved_budgets_follow_the_full_budgets_flag(monkeypatch, dtypes, full_budgets):
+    """MUSIG_F32_FULL_BUDGETS, as each package's flags module holds it:
+    with it set, a float32 fit runs the cold-start budgets in both."""
+    monkeypatch.setattr(flags, "F32_FULL_BUDGETS", full_budgets)
+    monkeypatch.setattr(jax_flags, "F32_FULL_BUDGETS", full_budgets)
+    port = mmctm.MMCTMConfig(K=(7, 7), V=(96, 48), D=560, dtype=dtypes[0])
+    ref = JaxConfig(K=(7, 7), V=(96, 48), D=560, dtype=dtypes[1])
+    got = ctm_base.resolved_budgets(port)
+    assert got == jax_ctm_base.resolved_budgets(ref)
+    capped = dtypes[0] == torch.float32 and not full_budgets
+    assert (got["lambda_n_iter"] is not None) == capped
+    # a config field still wins
+    assert ctm_base.resolved_budgets(dataclasses.replace(port, nu_n_iter=9))["nu_n_iter"] == 9
 
 
 def test_fit_runs_float32_products_without_tf32(monkeypatch):
