@@ -26,12 +26,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
      (100, 560), a ragged M=3 case with odd D, a document with no counts in
      one modality, MK = 128 in three modalities, and either side of each
      layout boundary (MK 16 and 17 at (100, 560), 32 and 33 ragged) and
-     R = 1; prints max |Δ| of ζ, ν and λ and both times at each (100, 560)
-     shape;
+     R = 1; the inference shapes: one modality (M = 1, K = (7,)) at R = 1
+     and 100, and R = 1 at the 112 held-out documents; the K selection's
+     K = (5, 5) and (9, 9) at (100, 448) and at R = 1 on the 112; prints max |Δ| of ζ,
+     ν and λ and both times at each (100, 560) shape;
   5. θ kernel against its plain PyTorch version at the BRCA shapes
      (100, 560, 96, 7) and (100, 560, 48, 7), at R = 1 and at the ragged
-     (3, 33, 128, 11), (2, 8, 5, 2) and (7, 101, 96, 7), with bit-identical
-     repeat launches; prints both times at the BRCA shapes;
+     (3, 33, 128, 11), (2, 8, 5, 2) and (7, 101, 96, 7), and at the K
+     selection's (1, 560, 96, 9) and (100, 448, 48, 5) with log-weights near
+     -30 on rare terms, with bit-identical repeat launches; prints both
+     times at the (100, ...) shapes;
   6. main path: the best-of-100 MMCTM K=(7, 7), α=0.1 restart fit on the
      bundled BRCA-EU SNV+SV counts (D=560), float32, tol 1e-5, maxiter 1000,
      through `fit_restarts(...)` on the card, warm, then timed in turns on
@@ -41,8 +45,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
      the θ kernel twice, that at least 99 lanes are finite and that the best
      ll per modality is within 5e-3 of the JAX package's value; a short fit
      on the card is also held against the same fit in float64 on the CPU;
-  7. single model: `MMCTM([7, 7], [0.1, 0.1], X).fit(maxiter=30)` on the
-     card, the η kernel at R = 1;
+  7. single model: `MMCTM([7, 7], [0.1, 0.1], X).fit(maxiter=30,
+     verbose=False)` on the card, the η kernel at R = 1;
   8. IMMCTM path: `fit_immctm_restarts([7, 7], [0.1, 0.1], features, X,
      restarts=100, maxiter=1000, tol=1e-5)` on the same counts, with the
      SNV terms factored into substitution × context and the SV terms into
@@ -73,7 +77,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
      1 per (modality, topic) and the proportions per (sample, modality),
      within 1e-6; then `python3 -m multimodalmusig_tpu_torch.cli ...
      --restarts 100` as a process of its own, without --device, must exit 0;
- 12. θ launches: one θ call at each BRCA shape runs exactly one device
+ 12. inference, MMCTM: `train_test_split_docs(docs, 0.2, seed=0)` (448 /
+     112 documents), `fit_mmctm_restarts([7, 7], [0.1, 0.1], train, V=(96,
+     48), restarts=100)`, then `fit_heldout(test, model)`, `transform(model,
+     docs)` with fit_gaussian False and True and `predict_modality_eta(Xobs,
+     m, model)` for m = 1 and 2 on the 112, each warm and then timed;
+     IMMCTM: the same five calls on the IMMCTM phase's selected model.
+     Prints each call's wall, CAVI iterations and ms per iteration. Gates:
+     finite outputs; one η launch per CAVI iteration and one θ launch per
+     observed modality per iteration; a 30-iteration run of each call's
+     loop (tol 0) on the card within the stated tolerances of the same run
+     in float64 on the CPU from the same trained state; the held-out ll of
+     the K=(7, 7) model no more than HELDOUT_SLACK below the JAX package's;
+ 13. K selection: `select_k_mmctm([(5, 5), (7, 7), (9, 9)], docs, [0.1, 0.1],
+     restarts=100, maxiter=1000)` on the card, warm and then timed; prints
+     the curve, the chosen K and the wall; every held-out ll finite, one η
+     and two θ launches per CAVI iteration;
+ 14. θ launches: one θ call at each BRCA shape runs exactly one device
      kernel (torch.profiler), checked after the timed paths.
 The last two lines of standard output are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
@@ -116,6 +136,23 @@ JAX_CPU_BEST_IMMCTM_LL = (-3.955171585083008, -3.0439767837524414)
 #                      dtype=jnp.float32)   # multimodalmusig_tpu.parallel.restarts
 JAX_CPU_TWO_STAGE_LL = (-3.9388527870178223, -3.034494638442993)
 ETA_RTOL, ETA_ATOL = 2e-5, 2e-6
+# The held-out ll per modality of the JAX package's K=(7, 7) model on the
+# same split, on the CPU, float32 (seeds 1 and 2 gave (-4.186100006103516,
+# -3.006852626800537) and (-4.185704708099365, -3.010918378829956), a spread
+# of 6.5e-4 and 4.8e-3, so the slack is the floor of 5e-3):
+#   train, test = train_test_split_docs(docs, 0.2, seed=0)   # model_selection
+#   model = fit_mmctm_restarts([7, 7], [0.1, 0.1], train, V=(96, 48), restarts=16,
+#                              dtype=jnp.float32)   # multimodalmusig_tpu.parallel.restarts
+#   fit_heldout(test, model).ll                     # multimodalmusig_tpu.models.mmctm
+JAX_CPU_HELDOUT_LL = (-4.185447692871094, -3.011613130569458)
+HELDOUT_SLACK = 5e-3
+# A 30-iteration inference loop (tol 0) in float32 on the card against the
+# same loop in float64 on the CPU: the largest |Δ| of the proportions or of
+# η, and the largest relative |Δ| of the per-iteration lls
+# (the largest seen on an H100: 7.3e-5, 2.4e-5 and 1.4e-7, PERF.md §2)
+INFER_PROPS_ATOL, INFER_ETA_ATOL, INFER_LL_RTOL = 2.5e-4, 2.5e-4, 1e-6
+# the K selection's candidates
+K_CANDIDATES = ((5, 5), (7, 7), (9, 9))
 # (restarts, how the fit is cut) of the compaction phase, in turns: the JAX
 # package's pinned schedules (bench.py:68-70), the schedule fit_restarts_auto
 # derives at both counts, a boundary every 100 iterations, and R=1000 unchunked
@@ -383,6 +420,15 @@ def eta_phase(ek):
         ("MK=32, the warp layout's last, cold defaults", (3, 50, (16, 16)), {}, False),
         ("MK=33, the block layout's first, cold defaults", (3, 50, (17, 16)), {}, False),
         ("R=1, f32 CAVI budgets", (1, 560, (7, 7)), cavi, False),
+        ("one modality (M = 1), R=1, f32 CAVI budgets", (1, 560, (7,)), cavi, False),
+        ("one modality (M = 1), f32 CAVI budgets", (RESTARTS, 560, (7,)), cavi, False),
+        ("R=1 at the 112 held-out documents, f32 CAVI budgets", (1, 112, (7, 7)), cavi, False),
+        ("K selection's MK=10, f32 CAVI budgets", (RESTARTS, 448, (5, 5)), cavi, False),
+        ("K selection's MK=10, R=1 at the 112 held-out documents, f32 CAVI budgets",
+         (1, 112, (5, 5)), cavi, False),
+        ("K selection's MK=18, f32 CAVI budgets", (RESTARTS, 448, (9, 9)), cavi, False),
+        ("K selection's MK=18, R=1 at the 112 held-out documents, f32 CAVI budgets",
+         (1, 112, (9, 9)), cavi, False),
     ):
         args = eta_problem(gen, R, D, K, zero)
         got = ek.estep_eta_fused(*args, K, **budgets)
@@ -405,9 +451,12 @@ def eta_phase(ek):
             ms = cuda_ms(lambda: ek.estep_eta_fused(*args, K, **budgets))
             plain_ms = cuda_ms(lambda: ek.estep_eta_fused_plain(*args, K, **budgets))
             timings[(K, bool(budgets))] = (ms, plain_ms)
+            MK = sum(K)
+            steps = ((3, 4, 1, 4) if budgets else (7, min(MK, 10), 2, 8))
+            bound_ms, bound_by = eta_bound(R, D, K, *steps)
             print(f"η time at ({R}, {D}, {K}), {'f32 CAVI budgets' if budgets else 'cold defaults'}: "
                   f"kernel {ms:.4f} ms, plain PyTorch {plain_ms:.4f} ms "
-                  "(median of 20 CUDA-event timings)")
+                  f"(median of 20 CUDA-event timings); bound {bound_ms:.6f} ms ({bound_by})")
     return max_err, timings[((7, 7), True)]
 
 
@@ -417,11 +466,17 @@ def theta_phase(tk):
     gen = torch.Generator().manual_seed(1)
     max_err = 0.0
     timings = {}
-    for R, D, V, K in ((RESTARTS, 560, 96, 7), (RESTARTS, 560, 48, 7), (3, 33, 128, 11),
-                       (2, 8, 5, 2), (1, 560, 96, 7), (7, 101, 96, 7)):
+    # (R, D, V, K, rare terms), the last two the K selection's: K = 9 (the
+    # 16-wide instantiation) and K = 5
+    for R, D, V, K, rare in ((RESTARTS, 560, 96, 7, False), (RESTARTS, 560, 48, 7, False),
+                             (3, 33, 128, 11, False), (2, 8, 5, 2, False),
+                             (1, 560, 96, 7, False), (7, 101, 96, 7, False),
+                             (1, 560, 96, 9, True), (RESTARTS, 448, 48, 5, True)):
         # the inputs of tests/test_pallas_kernels.py, per restart lane
         lam = 2.0 * torch.randn(R, D, K, generator=gen)
         logw = torch.randn(R, V, K, generator=gen) - 4.0
+        if rare:  # a rare term: log ϕ about -30 in all topics but the one that owns it
+            logw[:, ::5, 1:] -= 26.0
         X = torch.randint(0, 30, (D, V), generator=gen).float()
         args = [t.to("cuda") for t in (lam, logw, X)]
         got = tk.theta_moments_fused(*args)
@@ -445,34 +500,45 @@ def theta_phase(tk):
         if R == RESTARTS:
             ms = cuda_ms(lambda: tk.theta_moments_fused(*args))
             plain_ms = cuda_ms(lambda: tk.theta_moments_fused_plain(*args))
-            timings[V] = (ms, plain_ms)
+            timings[(V, K)] = (ms, plain_ms)
+            bound_ms, bound_by = theta_bound(R, D, V, K)
             print(f"θ time at ({R}, {D}, {V}, {K}): kernel {ms:.4f} ms, plain PyTorch "
-                  f"{plain_ms:.4f} ms (median of 20 CUDA-event timings)")
-    return max_err, timings[96]
+                  f"{plain_ms:.4f} ms (median of 20 CUDA-event timings); bound {bound_ms:.6f} ms "
+                  f"({bound_by})")
+    return max_err, timings[(96, 7)]
 
 
 def theta_launch_check(tk):
-    """One θ call per BRCA modality under torch.profiler: exactly one device
-    kernel each (no second pass, no memset of the arrival counters). It
-    runs after the timed paths: the profiler, once started, slows the
-    launches that follow it."""
+    """One θ call per BRCA modality under torch.profiler, both in one
+    session: exactly one device kernel each (no second pass, no memset of
+    the arrival counters), so two in all. It runs after the timed paths:
+    the profiler, once started, slows the launches that follow it. A
+    session that records no device event at all (seen now and then on the
+    chip machine, PERF.md §7) is a miss of the profiler, not a count: it is
+    tried again, up to three sessions."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator().manual_seed(3)
+    calls = []
     for V in (96, 48):
-        args = [t.to("cuda") for t in (2.0 * torch.randn(RESTARTS, 560, 7, generator=gen),
-                                       torch.randn(RESTARTS, V, 7, generator=gen) - 4.0,
-                                       torch.randint(0, 30, (560, V), generator=gen).float())]
-        tk.theta_moments_fused(*args)
-        torch.cuda.synchronize()
+        calls.append([t.to("cuda") for t in (2.0 * torch.randn(RESTARTS, 560, 7, generator=gen),
+                                             torch.randn(RESTARTS, V, 7, generator=gen) - 4.0,
+                                             torch.randint(0, 30, (560, V), generator=gen).float())])
+        tk.theta_moments_fused(*calls[-1])
+    torch.cuda.synchronize()
+    for session in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            tk.theta_moments_fused(*args)
-            torch.cuda.synchronize()
+            for args in calls:
+                tk.theta_moments_fused(*args)
+                torch.cuda.synchronize()
         names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        print(f"θ kernel device kernels in one call at {(RESTARTS, 560, V, 7)}: {len(names)}")
-        if len(names) != 1:
-            fail(f"one θ call ran {len(names)} device kernels, not one: {names}")
+        print(f"θ kernel device kernels in one call at each of {(RESTARTS, 560, 96, 7)} and "
+              f"{(RESTARTS, 560, 48, 7)}, session {session + 1}: {len(names)} in all")
+        if names:
+            break
+    if len(names) != len(calls) or not all("theta_moments_kernel" in n for n in names):
+        fail(f"two θ calls ran {len(names)} device kernels, not one each: {names}")
 
 
 def load_brca():
@@ -571,27 +637,40 @@ def immctm_short_fit(mt, X, features):
 
 
 def sync_probe(mt, X):
-    """Counts device→host syncs inside one CAVI step (informational)."""
+    """Counts device→host syncs inside one step of the fit, of a fit with
+    autoα and without the Σ update, and of the inference E-step (frozen
+    ln ϕ, no scatter); fails on any."""
     import torch
     from multimodalmusig_tpu_torch.models import mmctm as mm
 
     config = mt.MMCTMConfig(K=(7, 7), V=(96, 48), D=560, dtype=torch.float32)
     Xt = mm.counts_tensors(X, config, "cuda")
+    N = mm.counts_per_doc(Xt)
     state = mm.init_with_alpha(torch.Generator().manual_seed(SEED), config, Xt,
                                [0.1, 0.1], restarts=RESTARTS, device="cuda")
-    step = mm.fit_step_fn(Xt, mm.counts_per_doc(Xt), config)
-    step(state)
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            step(state)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = [str(w.message).splitlines()[0] for w in caught
-             if "called a synchronizing CUDA operation" in str(w.message)]
-    print(f"device->host syncs inside one CAVI step: {len(syncs)} {syncs[:3]}")
+    logw = mm.unsmoothed_logw(mm.phi_point(state.gamma))
+    steps = {
+        "the fit's CAVI step": mm.fit_step_fn(Xt, N, config),
+        "a CAVI step with autoα and no Σ update": mm.fit_step_fn(Xt, N, config, autoalpha=True,
+                                                               update_sigma=False),
+        "the inference E-step": lambda s: mm.e_step_moments(s, Xt, N, config, logw=logw,
+                                                            want_scatter=False),
+    }
+    for label, step in steps.items():
+        step(state)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                step(state)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = [str(w.message).splitlines()[0] for w in caught
+                 if "called a synchronizing CUDA operation" in str(w.message)]
+        print(f"device->host syncs inside {label}: {len(syncs)} {syncs[:3]}")
+        if syncs:
+            fail(f"{label} syncs the host {len(syncs)} times")
 
 
 def loop_iterations(max_n_iters, maxiter=MAXITER):
@@ -672,7 +751,7 @@ def single_model_phase(mt, ek, X):
     docs = [[mt.make_count_matrix(X[m][d]) for m in range(2)] for d in range(X[0].shape[0])]
     ek.LAUNCHES = 0
     model = mt.MMCTM([7, 7], [0.1, 0.1], docs)
-    history = model.fit(maxiter=30)  # tol 1e-4
+    history = model.fit(maxiter=30, verbose=False)  # tol 1e-4
     torch.cuda.synchronize()
     launches = ek.LAUNCHES
     print(f"single model on {model.device}: {len(history)} iterations, final ll {model.ll}, "
@@ -752,46 +831,47 @@ def immctm_phase(mt, kernels, X, features):
     ll_gates("IMMCTM path, auto-compacted", ll, JAX_CPU_BEST_IMMCTM_LL)
     if not np.isfinite(model.ll).all():
         fail(f"the selected auto-compacted IMMCTM lane is not finite: {model.ll}")
-    return {k: total[k] + launches[k] for k in total}
+    return {k: total[k] + launches[k] for k in total}, model
 
 
 @contextlib.contextmanager
 def counting_fits():
-    """While active, counts what the MMCTM fits run: `steps` (CAVI
-    iterations, each one η and two θ launches), `lane_iters` (the batch size
-    summed over the steps), `loops` (`run_cavi` calls: one per uncut fit or
-    cut fit) and `calls` (`run_cavi_from` calls); boundaries are calls -
-    loops. Wraps `mmctm.fit_step_fn`, `mmctm.run_cavi` and
-    `ctm_base.run_cavi_from`."""
+    """While active, counts what the CAVI loops run, the inference loops
+    included: `steps` (CAVI iterations), `lane_iters` (the batch size summed
+    over the steps), `loops` (`run_cavi` calls of models/mmctm.py: one per
+    uncut or cut MMCTM fit), `calls` (`run_cavi_from`
+    calls; boundaries are calls - loops) and `loop_s` (the seconds of those
+    calls, each ended by a synchronize: its caller reads the carry on the
+    host right after). Wraps the step function `ctm_base.run_cavi_from` is
+    given, `ctm_base.run_cavi_from` and `mmctm.run_cavi`."""
+    import torch
     from multimodalmusig_tpu_torch.models import ctm_base
     from multimodalmusig_tpu_torch.models import mmctm as mm
 
-    count = dict.fromkeys(("steps", "lane_iters", "loops", "calls"), 0)
-    step_fn, run, run_from = mm.fit_step_fn, mm.run_cavi, ctm_base.run_cavi_from
-
-    def counting_step_fn(*a, **k):
-        step = step_fn(*a, **k)
-
-        def counted(state):
-            count["steps"] += 1
-            count["lane_iters"] += state.lam.shape[0]
-            return step(state)
-        return counted
+    count = dict.fromkeys(("steps", "lane_iters", "loops", "calls", "loop_s"), 0)
+    run, run_from = mm.run_cavi, ctm_base.run_cavi_from
 
     def counting_run(*a, **k):
         count["loops"] += 1
         return run(*a, **k)
 
-    def counting_run_from(*a, **k):
+    def counting_run_from(carry, maxiter, tol, step_fn, *a, **k):
+        def step(state):
+            count["steps"] += 1
+            count["lane_iters"] += state.lam.shape[0]
+            return step_fn(state)
         count["calls"] += 1
-        return run_from(*a, **k)
+        t0 = time.perf_counter()
+        out = run_from(carry, maxiter, tol, step, *a, **k)
+        torch.cuda.synchronize()
+        count["loop_s"] += time.perf_counter() - t0
+        return out
 
-    mm.fit_step_fn, mm.run_cavi, ctm_base.run_cavi_from = (counting_step_fn, counting_run,
-                                                           counting_run_from)
+    mm.run_cavi, ctm_base.run_cavi_from = counting_run, counting_run_from
     try:
         yield count
     finally:
-        mm.fit_step_fn, mm.run_cavi, ctm_base.run_cavi_from = step_fn, run, run_from
+        mm.run_cavi, ctm_base.run_cavi_from = run, run_from
 
 
 def check_fused_launches(label, launches, steps):
@@ -1068,6 +1148,190 @@ def cli_subprocess_phase():
             fail(f"the CLI subprocess failed: {proc.stderr[-2000:]}")
 
 
+def _sub_model(model, modalities, X, dtype, device):
+    """A fresh wrapper of `model`'s family over X for the given modalities."""
+    cls = type(model)
+    third = model.features if hasattr(model, "features") else model.V
+    return cls([model.K[i] for i in modalities], [model.alpha[i] for i in modalities],
+               [third[i] for i in modalities], X, dtype=dtype, device=device)
+
+
+def inference_reference_check(label, model, test, docs):
+    """30 iterations (tol 0) of each inference loop from `model`'s trained
+    state: float32 on the card against float64 on the CPU, both at the f32
+    CAVI budgets, so only the precision differs. Compares the proportions
+    (η for the predictions) and the per-iteration lls."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from multimodalmusig_tpu_torch.models import immctm as im
+    from multimodalmusig_tpu_torch.models import mmctm as mm
+
+    mod = im if hasattr(model, "features") else mm
+
+    def props(result):
+        """Every document's proportions, the modalities side by side."""
+        return torch.cat(mm.props_from(result.state.lam, model.config), dim=-1)[0]
+
+    def cast(x, dtype, device):
+        if isinstance(x, tuple):
+            parts = [cast(y, dtype, device) for y in x]
+            return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+        return x.to(device=device, dtype=dtype)
+
+    def runs(dtype, device):
+        trained = cast(model.state, dtype, device)
+        full_cfg = dataclasses.replace(model.config, dtype=dtype, **CAVI_BUDGETS)
+        out = {}
+
+        def loop(fn, X, modalities=(0, 1)):
+            w = _sub_model(model, modalities, X, dtype, device)
+            F = (w.F,) if mod is im else ()
+            return fn(w, F, dataclasses.replace(w.config, **CAVI_BUDGETS))
+
+        kw = dict(maxiter=30, tol=0.0)
+        r = loop(lambda w, F, c: mod.fit_heldout_states(
+            trained, w.state, w.Xdense, *F, c, **kw), test)
+        out["fit_heldout"] = (props(r), r.ll_history[0])
+        for fg in (False, True):
+            r = loop(lambda w, F, c: mod.transform_states(
+                trained, w.state, w.Xdense, *F, c, fit_gaussian=fg, **kw), docs)
+            out[f"transform, fit_gaussian={fg}"] = (props(r), r.ll_history[0])
+        for m in (1, 2):
+            Xobs = [[doc[2 - m]] for doc in test]
+            eta, _, _ = loop(lambda w, F, c: mod.predict_modality_eta_states(
+                trained, w.state, w.Xdense, m - 1, *F, full_cfg, c, **kw), Xobs, (2 - m,))
+            out[f"predict_modality_eta, m={m}"] = (eta[0], None)
+        return {k: tuple(None if t is None else t.cpu().double().numpy() for t in v)
+                for k, v in out.items()}
+
+    got, want = runs(torch.float32, "cuda"), runs(torch.float64, "cpu")
+    for name in want:
+        (a, la), (b, lb) = got[name], want[name]
+        err = float(np.max(np.abs(a - b)))
+        what = "η" if la is None else "proportions"
+        rel = None if la is None else float(np.max(np.abs(la - lb) / np.abs(lb)))
+        print(f"{label} reference check, {name}: 30 iterations, f32 on the card vs f64 on the "
+              f"CPU: max |Δ {what}| {err:.3e}"
+              + ("" if rel is None else f", max relative ll difference {rel:.3e}"))
+        atol = INFER_ETA_ATOL if la is None else INFER_PROPS_ATOL
+        if not (np.isfinite(a).all() and err <= atol and (rel is None or rel <= INFER_LL_RTOL)):
+            fail(f"{label} {name}: the card run disagrees with the f64 CPU run ({what} "
+                 f"{err:.3e} > {atol} or ll {rel} > {INFER_LL_RTOL})")
+
+
+def output_finite(out):
+    """Whether an inference call's output is finite: η, or the new model's
+    lls, ELBO and λ."""
+    import numpy as np
+    import torch
+
+    if isinstance(out, list):
+        return bool(np.isfinite(np.stack(out)).all())
+    return bool(np.isfinite(out.ll).all() and np.isfinite(out.elbo)
+                and torch.isfinite(out.state.lam).all())
+
+
+def inference_phase(mt, kernels, label, model, test, docs):
+    """fit_heldout on `test`, transform of `docs` (fit_gaussian False and
+    True) and predict_modality_eta of each modality from the other on
+    `test`, warm and then timed, each with its launch gate; then the
+    card-vs-CPU check. Returns (the timed calls' launches, the held-out
+    model)."""
+    import torch
+
+    ek, lk, tk = kernels
+    obs = {1: [[doc[1]] for doc in test], 2: [[doc[0]] for doc in test]}
+    calls = (
+        ("fit_heldout(test, model)", lambda: mt.fit_heldout(test, model), 2),
+        ("transform(model, docs)", lambda: mt.transform(model, docs), 2),
+        ("transform(model, docs, fit_gaussian=True)",
+         lambda: mt.transform(model, docs, fit_gaussian=True), 2),
+        ("predict_modality_eta(Xobs, 1, model)", lambda: mt.predict_modality_eta(obs[1], 1, model), 1),
+        ("predict_modality_eta(Xobs, 2, model)", lambda: mt.predict_modality_eta(obs[2], 2, model), 1),
+    )
+    for _, call, _ in calls:
+        call()
+    total = {"estep_eta": 0, "lambda_newton": 0, "theta_moments": 0}
+    heldout = None
+    for name, call, n_obs in calls:
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        with counting_fits() as count:
+            t0 = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {"estep_eta": ek.LAUNCHES, "lambda_newton": lk.LAUNCHES,
+                    "theta_moments": tk.LAUNCHES}
+        n = count["steps"]
+        summary = "η finite" if isinstance(out, list) else f"ll {out.ll}, converged {out.converged}"
+        loop_ms = 1000 * count["loop_s"]
+        print(f"{label}: {name} on {model.device}: wall {wall:.4f} s (the new model's set-up, "
+              f"the loop, the final ELBO), {n} CAVI iterations, {1000 * wall / n:.4f} ms per CAVI "
+              f"iteration; the loop alone {loop_ms:.4f} ms, {loop_ms / n:.4f} ms per CAVI "
+              f"iteration (R = 1); {summary}; kernel launches {launches}")
+        if not output_finite(out):
+            fail(f"{label}: {name} gave a non-finite output")
+        if n <= 0 or launches != {"estep_eta": n, "lambda_newton": 0, "theta_moments": n_obs * n}:
+            fail(f"{label}: {name} did not launch the η kernel once and the θ kernel once per "
+                 f"observed modality per CAVI iteration: {launches}, {n} iterations")
+        if name.startswith("fit_heldout"):
+            heldout = out
+        total = {k: total[k] + launches[k] for k in total}
+    inference_reference_check(label, model, test, docs)
+    return total, heldout
+
+
+def mmctm_inference_phase(mt, kernels, docs):
+    """The MMCTM model of the 448 training documents, the five inference
+    calls, and the held-out ll gate against the JAX package's."""
+    train, test = mt.train_test_split_docs(docs, 0.2, seed=0)
+    t0 = time.perf_counter()
+    model = mt.fit_mmctm_restarts([7, 7], [0.1, 0.1], train, V=(96, 48), restarts=RESTARTS)
+    print(f"MMCTM inference: {len(train)} training and {len(test)} held-out documents; "
+          f"fit_mmctm_restarts R={RESTARTS} on the training split: {time.perf_counter() - t0:.3f} "
+          f"s, ll {model.ll}")
+    launches, heldout = inference_phase(mt, kernels, "MMCTM inference", model, test, docs)
+    print(f"MMCTM inference: held-out ll {heldout.ll} (JAX CPU {list(JAX_CPU_HELDOUT_LL)}, "
+          f"slack {HELDOUT_SLACK})")
+    for m, (b, ref) in enumerate(zip(heldout.ll, JAX_CPU_HELDOUT_LL)):
+        if not b >= ref - HELDOUT_SLACK:
+            fail(f"MMCTM inference: modality {m}: held-out ll {b} worse than the JAX value {ref} "
+                 f"by more than {HELDOUT_SLACK}")
+    return launches
+
+
+def k_selection_phase(mt, kernels, docs):
+    """select_k_mmctm over K_CANDIDATES at R=100, warm and then timed."""
+    import numpy as np
+    import torch
+
+    ek, lk, tk = kernels
+    kw = dict(restarts=RESTARTS, maxiter=MAXITER)
+    t0 = time.perf_counter()
+    mt.select_k_mmctm(K_CANDIDATES, docs, [0.1, 0.1], **kw)
+    print(f"K selection warm-up run: {time.perf_counter() - t0:.3f} s")
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    with counting_fits() as count:
+        t0 = time.perf_counter()
+        best, curve = mt.select_k_mmctm(K_CANDIDATES, docs, [0.1, 0.1], **kw)
+        wall = time.perf_counter() - t0
+    launches = {"estep_eta": ek.LAUNCHES, "lambda_newton": lk.LAUNCHES,
+                "theta_moments": tk.LAUNCHES}
+    n = count["steps"]
+    print(f"K selection: select_k_mmctm({list(K_CANDIDATES)}, docs, restarts={RESTARTS}, "
+          f"maxiter={MAXITER}) on the card: wall {wall:.4f} s (split, three two-stage fits, "
+          f"three held-out fits), {n} CAVI iterations; chosen K {best}; curve {curve}; kernel "
+          f"launches {launches}")
+    if not np.isfinite([ll for _, ll in curve]).all():
+        fail(f"K selection: a held-out ll is not finite: {curve}")
+    check_fused_launches("K selection", launches, n)
+    return launches
+
+
 def main():
     import torch
 
@@ -1103,14 +1367,21 @@ def main():
     reference_phase("MMCTM", mmctm_short_fit(mt, X))
     reference_phase("IMMCTM", immctm_short_fit(mt, X, features))
     sync_probe(mt, X)
+    docs = [[mt.make_count_matrix(X[m][d]) for m in range(2)] for d in range(X[0].shape[0])]
+    immctm_launches, immctm_model = immctm_phase(mt, kernels, X, features)
     paths = {
         "main path (fused and split)": main_path_phase(mt, kernels, X),
         "single model": {"estep_eta": single_model_phase(mt, ek, X), "lambda_newton": 0,
                          "theta_moments": 0},
-        "IMMCTM": immctm_phase(mt, kernels, X, features),
+        "IMMCTM": immctm_launches,
         "compaction": compaction_phase(mt, kernels, X),
         "two-stage": two_stage_phase(mt, kernels, X),
         "CLI": cli_phase(mt, kernels, terms),
+        "inference, MMCTM": mmctm_inference_phase(mt, kernels, docs),
+        "inference, IMMCTM": inference_phase(mt, kernels, "IMMCTM inference", immctm_model,
+                                             mt.train_test_split_docs(docs, 0.2, seed=0)[1],
+                                             docs)[0],
+        "K selection": k_selection_phase(mt, kernels, docs),
     }
     cli_subprocess_phase()
     theta_launch_check(tk)

@@ -23,7 +23,14 @@ device="cpu" (without a card they raise):
     model (models/immctm.py);
   * `python -m multimodalmusig_tpu_torch.cli` (`run-mmctm-torch`) — the
     reference CLI on count TSVs, with checkpoints (`save_model`,
-    `load_model`) and TSV outputs (utils/io.py).
+    `load_model`) and TSV outputs (utils/io.py);
+  * inference with a fitted or loaded model, on its device: `transform(model,
+    X)`, `fit_heldout(Xheldout, model)` and `predict_modality_eta(Xobs, m,
+    model)` (1-based m), dispatched to models/mmctm.py or models/immctm.py
+    as the reference's multiple dispatch does, with `calculate_elbo`,
+    `calculate_loglikelihoods` and `calculate_docmodality_loglikelihoods`;
+  * `select_k_mmctm(k_values, X, alpha, ...)` — K by held-out
+    log-likelihood (model_selection.py).
 
 The fits can be cut at boundaries: `chunk_iters`, a `compact_schedule`
 tuple, or `compact_schedule="auto"`, which `fit_restarts_auto` derives from
@@ -31,9 +38,15 @@ a timed pilot and a boundary cost measured on the device
 (`measure_boundary_seconds`, `auto_compact_schedule`).
 """
 
-from .interop import immctm_state_from_numpy, state_from_numpy
+import torch
+
+from .interop import immctm_from_state, immctm_state_from_numpy, mmctm_from_state, state_from_numpy
+from .model_selection import heldout_ll_curve, select_k_mmctm, train_test_split_docs
+from .models import immctm as _immctm, mmctm as _mmctm
+from .models.ctm_base import counts_per_doc as _counts_per_doc, full_f32_matmuls as _full_f32
 from .models.immctm import IMMCTM, IMMCTMConfig, IMMCTMFitResult, IMMCTMState
 from .models.mmctm import (
+    CTM,
     MMCTM,
     MMCTMConfig,
     MMCTMFitResult,
@@ -74,7 +87,11 @@ from .utils.formatting import (
 )
 from .utils.io import load_model, save_model
 
+# The reference's Project.toml:4 version, as the JAX package's __version__.
+__version__ = "0.3.0"
+
 __all__ = [
+    "CTM",
     "IMMCTM",
     "IMMCTMConfig",
     "IMMCTMFitResult",
@@ -105,6 +122,17 @@ __all__ = [
     "pick_optimal_restart",
     "state_from_numpy",
     "immctm_state_from_numpy",
+    "mmctm_from_state",
+    "immctm_from_state",
+    "transform",
+    "fit_heldout",
+    "predict_modality_eta",
+    "calculate_elbo",
+    "calculate_loglikelihoods",
+    "calculate_docmodality_loglikelihoods",
+    "train_test_split_docs",
+    "heldout_ll_curve",
+    "select_k_mmctm",
     "estep_kernel",
     "lambda_kernel",
     "theta_kernel",
@@ -121,3 +149,97 @@ __all__ = [
     "make_count_matrix",
     "sparse_to_dense",
 ]
+
+# The generic functions of the reference (its multiple dispatch on the model
+# type), as multimodalmusig_tpu/__init__.py:71-238 has them for MMCTM (and
+# CTM) and IMMCTM.
+
+
+def _unsupported(name, model):
+    """The TypeError for a model this package has no `name` for; LDA and ILDA
+    wait for their port."""
+    if type(model).__name__ in ("LDA", "ILDA"):
+        raise TypeError(f"no {name} for {type(model).__name__}: LDA and ILDA wait for their "
+                        "port (ROADMAP A7)")
+    raise TypeError(f"no {name} for {type(model)!r}")
+
+
+def transform(model, X, **kwargs):
+    """`transform(model, X)`: models/mmctm.transform or models/immctm.transform."""
+    if isinstance(model, IMMCTM):
+        return _immctm.transform(model, X, **kwargs)
+    if isinstance(model, MMCTM):
+        return _mmctm.transform(model, X, **kwargs)
+    _unsupported("transform", model)
+
+
+def fit_heldout(Xheldout, model, **kwargs):
+    """`fit_heldout(Xheldout, model)`, by the model's type."""
+    if isinstance(model, IMMCTM):
+        return _immctm.fit_heldout(Xheldout, model, **kwargs)
+    if isinstance(model, MMCTM):
+        return _mmctm.fit_heldout(Xheldout, model, **kwargs)
+    _unsupported("fit_heldout", model)
+
+
+def predict_modality_eta(Xobs, m, model, **kwargs):
+    """`predict_modality_η(Xobs, m, model)` (1-based m), by the model's type."""
+    if isinstance(model, IMMCTM):
+        return _immctm.predict_modality_eta(Xobs, m, model, **kwargs)
+    if isinstance(model, MMCTM):
+        return _mmctm.predict_modality_eta(Xobs, m, model, **kwargs)
+    _unsupported("predict_modality_eta", model)
+
+
+def calculate_elbo(model) -> float:
+    """ELBO of the model's current variational state (src/MMCTM.jl:372-382,
+    src/IMMCTM.jl:247-360)."""
+    if not isinstance(model, (MMCTM, IMMCTM)):
+        _unsupported("calculate_elbo", model)
+    with _full_f32():
+        N = _counts_per_doc(model.Xdense)
+        if isinstance(model, IMMCTM):
+            elbo = _immctm.calculate_elbo(model.state, model.Xdense, N, model.F, model.config)
+        else:
+            elbo = _mmctm.calculate_elbo(model.state, model.Xdense, N, model.config)
+    return float(elbo[0])
+
+
+def _counts_and_model(args, name):
+    """(dense counts, model) of `(model)` or `(X, model)`: the model's own
+    counts, or X[doc][modality] made dense on the model's device."""
+    model = args[-1]
+    if not isinstance(model, (MMCTM, IMMCTM)):
+        _unsupported(name, model)
+    if len(args) == 1:
+        return model.Xdense, model
+    X = args[0]
+    dense = [sparse_to_dense([doc[m] for doc in X], model.V[m]) for m in range(model.M)]
+    return _mmctm.counts_tensors(dense, model.config, model.device), model
+
+
+def _loglikelihoods(per_doc, args, name):
+    Xd, model = _counts_and_model(args, name)
+    with _full_f32():
+        if isinstance(model, IMMCTM):
+            fn = _immctm.docmodality_loglikelihoods if per_doc else _immctm.modality_loglikelihoods
+            return fn(Xd, model.state.lam, model.state.gamma, model.F, model.config)[0]
+        fn = _mmctm.docmodality_loglikelihoods if per_doc else _mmctm.modality_loglikelihoods
+        return fn(Xd, _mmctm.props_from(model.state.lam, model.config),
+                  _mmctm.phi_point(model.state.gamma))[0]
+
+
+def calculate_loglikelihoods(*args):
+    """Per-modality per-word log-likelihoods as a list of floats:
+    `calculate_loglikelihoods(model)` or `(X, model)` (src/MMCTM.jl:384-448,
+    src/IMMCTM.jl:388-428)."""
+    return [float(v) for v in _loglikelihoods(False, args, "calculate_loglikelihoods").cpu()]
+
+
+def calculate_docmodality_loglikelihoods(*args):
+    """Per-document per-modality normalized log-likelihoods as a (D, M)
+    float64 array: `(model)` or `(X, model)` (src/MMCTM.jl:384-401,
+    src/IMMCTM.jl:362-386); NaN where a document has no counts in a
+    modality, the reference's division by N_d = 0."""
+    ll = _loglikelihoods(True, args, "calculate_docmodality_loglikelihoods")
+    return ll.cpu().to(torch.float64).numpy()

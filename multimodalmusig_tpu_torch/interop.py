@@ -2,8 +2,11 @@
 
 `jax.random` and torch generators never draw the same numbers, so the
 parity tests hand the JAX package's initial state to this package through
-`state_from_numpy` / `immctm_state_from_numpy` instead of re-seeding. The
-functions take plain arrays (they import neither JAX nor the JAX package).
+`state_from_numpy` / `immctm_state_from_numpy` instead of re-seeding, and a
+trained state into the wrappers through `mmctm_from_state` /
+`immctm_from_state`, so both packages run inference on one trained model.
+The functions take plain arrays (they import neither JAX nor the JAX
+package).
 """
 
 from __future__ import annotations
@@ -12,10 +15,11 @@ import numpy as np
 import torch
 
 from .models.ctm_base import check_device
-from .models.immctm import IMMCTMState
-from .models.mmctm import MMCTMState
+from .models.immctm import IMMCTM, IMMCTMState
+from .models.mmctm import MMCTM, MMCTMState
 
-__all__ = ["state_from_numpy", "immctm_state_from_numpy"]
+__all__ = ["state_from_numpy", "immctm_state_from_numpy", "mmctm_from_state",
+           "immctm_from_state"]
 
 # Tuple depth of each nested field (absent: a plain array).
 _MMCTM_DEPTHS = {"gamma": 1, "Elnphi": 1, "logw_pre": 1}
@@ -55,3 +59,36 @@ def immctm_state_from_numpy(fields, device="cuda",
     [m][i], logw_pre a tuple), a mapping or the JAX NamedTuple itself,
     unbatched or with a leading restart dimension R, as `state_from_numpy`."""
     return _from_numpy(IMMCTMState, _IMMCTM_DEPTHS, fields, device, dtype)
+
+
+def _one_lane(state):
+    if state.lam.shape[0] != 1:
+        raise ValueError(f"a wrapper holds one lane, the state has {state.lam.shape[0]}")
+    return state
+
+
+def mmctm_from_state(fields, X, device="cuda", dtype: torch.dtype = torch.float64) -> MMCTM:
+    """An `MMCTM` wrapper over the documents X (X[doc][modality] (n, 2)
+    1-based (vocab_index, count) matrices) holding a trained state given as
+    `state_from_numpy` takes it (one lane). K, V and α come from the state's
+    γ and α. On the CUDA card unless the caller asks for the CPU."""
+    state = _one_lane(state_from_numpy(fields, device, dtype))
+    K = [g.shape[-2] for g in state.gamma]
+    V = [g.shape[-1] for g in state.gamma]
+    model = MMCTM(K, state.alpha[0].tolist(), V, X, dtype=dtype, device=device)
+    model.state = state
+    return model
+
+
+def immctm_from_state(fields, features, X, device="cuda",
+                      dtype: torch.dtype = torch.float64) -> IMMCTM:
+    """An `IMMCTM` wrapper over the documents X with the (V_m, I_m) 1-based
+    feature tables `features`, holding a trained state given as
+    `immctm_state_from_numpy` takes it (one lane); K and α come from the
+    state. On the CUDA card unless the caller asks for the CPU."""
+    state = _one_lane(immctm_state_from_numpy(fields, device, dtype))
+    K = [gm[0].shape[-2] for gm in state.gamma]
+    model = IMMCTM(K, [a[0].tolist() for a in state.alpha], features, X, dtype=dtype,
+                   device=device)
+    model.state = state
+    return model

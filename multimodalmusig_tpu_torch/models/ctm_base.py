@@ -11,7 +11,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +50,12 @@ __all__ = [
     "carry_converged",
     "elbo_eta_z_term_dict",
     "DONE_CHECK_EVERY",
+    "FrozenTopics",
+    "update_mu_Sigma",
+    "transform_states",
+    "fit_heldout_states",
+    "conditional_eta",
+    "predict_modality_eta_states",
 ]
 
 # The CAVI host loop reads `done.all()` (a device→host sync) once per this
@@ -145,9 +151,13 @@ def _theta_route(device_type: str, dtype: torch.dtype, V: int, K: int) -> str:
     return "factorized"
 
 
-def theta_moments(lam, logw, X, config):
+def theta_moments(lam, logw, X, config, want_scatter: bool = True):
     """Both count-weighted θ moments without materializing θ: (sumθ
-    (R, D, MK), scatters tuple of (R, K_m, V_m)).
+    (R, D, MK), scatters tuple of (R, K_m, V_m), or None when
+    `want_scatter` is False, as in the inference loops, which keep the
+    topics frozen). The "kernel" route computes the scatter either way, as
+    the TPU kernel does, and drops it; the "factorized" route skips its
+    matmul.
 
     Per modality, `_theta_route` picks the schedule:
       * "kernel": the fused CUDA kernel, which forms each cell's softmax in
@@ -176,8 +186,9 @@ def theta_moments(lam, logw, X, config):
         B = torch.exp(logw[m] - logw[m].amax(dim=-1, keepdim=True))        # (R, V, K)
         Rm = X[m] / (A @ B.mT)                                             # (R, D, V)
         sum_parts.append(A * (Rm @ B))
-        scatters.append((B * (Rm.mT @ A)).mT)
-    return torch.cat(sum_parts, dim=-1), tuple(scatters)
+        if want_scatter:
+            scatters.append((B * (Rm.mT @ A)).mT)
+    return torch.cat(sum_parts, dim=-1), tuple(scatters) if want_scatter else None
 
 
 def theta_from(lam, logw, config) -> Tuple[torch.Tensor, ...]:
@@ -363,11 +374,19 @@ def make_cavi_carry(state, config, maxiter: int):
     )
 
 
-def run_cavi_from(carry, maxiter: int, tol: float, step_fn, max_new_iters=None):
+def run_cavi_from(carry, maxiter: int, tol: float, step_fn, max_new_iters=None,
+                  verbose: bool = False):
     """Resume the CAVI loop from `carry` for up to `max_new_iters` more
     iterations (None: up to maxiter in all), with the reference's
     convergence rule (relative Δ of the (M,) ll vector < tol after iteration
     10; src/common.jl:48-56), per restart lane.
+
+    `verbose` prints each iteration's lls while a lane still runs, as
+    "<iteration>\tLog-likelihoods: <lls>" (one lane's (M,) vector at R = 1,
+    the (R, M) array else), the line of the JAX package's loop. That reads
+    the lls and `done` on the host every iteration, so a verbose loop also
+    stops as soon as every lane is done; without `verbose` the loop makes
+    no read but the periodic `done.all()`.
 
     Every lane steps every iteration; a finished lane is frozen with
     torch.where, exactly as the vmapped `lax.while_loop` of the JAX package
@@ -398,7 +417,13 @@ def run_cavi_from(carry, maxiter: int, tol: float, step_fn, max_new_iters=None):
             # ll_buf[:, -1] at it = 0 wraps, as in the JAX loop
             stop = stop | (relative_change(ll_buf[:, it - 1], ll_i) < tol)
         done = done | (active & stop)
-        if (it + 1) % DONE_CHECK_EVERY == 0 and bool(done.all()):
+        if verbose:
+            if bool(active.any()):
+                lls = ll_i[0] if ll_i.shape[0] == 1 else ll_i
+                print(f"{it + 1}\tLog-likelihoods: {lls.cpu().numpy()}")
+            if bool(done.all()):
+                break
+        elif (it + 1) % DONE_CHECK_EVERY == 0 and bool(done.all()):
             break
     return state, ll_buf, n_iters, done
 
@@ -421,7 +446,7 @@ def _cat_lanes(trees):
 
 
 def run_cavi(state, config, maxiter: int, tol: float, step_fn, compact_schedule=(),
-             progress=None):
+             progress=None, verbose: bool = False):
     """The whole CAVI loop over every lane of `state`, from a fresh carry.
     Returns (state, ll_buf (R, maxiter, M), n_iters (R,), done (R,)).
 
@@ -442,13 +467,14 @@ def run_cavi(state, config, maxiter: int, tol: float, step_fn, compact_schedule=
 
     `progress(done, total)` is called at every boundary and once at the
     end, with the number of finished lanes (converged, non-finite or at
-    maxiter) out of R; an uncut fit calls it once, with (R, R)."""
+    maxiter) out of R; an uncut fit calls it once, with (R, R). `verbose`
+    is `run_cavi_from`'s."""
     carry = make_cavi_carry(state, config, maxiter)
     R, device = state.lam.shape[0], state.lam.device
     budgets = (int(c) for c in (() if compact_schedule is None else compact_schedule))
     order = np.arange(R)
     groups, group_orders = [], []
-    carry = run_cavi_from(carry, maxiter, tol, step_fn, next(budgets, None))
+    carry = run_cavi_from(carry, maxiter, tol, step_fn, next(budgets, None), verbose=verbose)
     while True:
         it, done = (t.cpu().numpy() for t in (carry[2], carry[3]))
         done = done | (it >= maxiter)
@@ -465,7 +491,7 @@ def run_cavi(state, config, maxiter: int, tol: float, step_fn, compact_schedule=
             group_orders.append(order[done_pos])
             carry = _index_lanes(carry, torch.as_tensor(active_pos, device=device))
             order = order[active_pos]
-        carry = run_cavi_from(carry, maxiter, tol, step_fn, budget)
+        carry = run_cavi_from(carry, maxiter, tol, step_fn, budget, verbose=verbose)
     if len(groups) == 1:  # no lane left the batch: restart order already
         return groups[0]
     inv = np.argsort(np.concatenate(group_orders))
@@ -499,3 +525,128 @@ def elbo_eta_z_term_dict(lam, nu, zeta, mu, invSigma, sumtheta, N, config):
     )
     ElnQeta = -0.5 * (torch.log(nu).sum(dim=(-2, -1)) + D * MK * (log2pi + 1.0))
     return {"ElnPeta": ElnPeta, "ElnPZ": ElnPZ, "ElnQeta": ElnQeta}
+
+
+# ---------------------------------------------------------------------------
+# Inference with the topics frozen (src/MMCTM.jl:496-634, src/IMMCTM.jl:468-545)
+# ---------------------------------------------------------------------------
+
+
+class FrozenTopics(NamedTuple):
+    """What the inference loops take from a CTM family, its one-hot
+    features (IMMCTM) bound:
+      e_step(state, X, N, config, logw=, want_scatter=) -> (state, scatters);
+      smoothed_logw(state, config): the log-weights of E[ln ϕ];
+      unsmoothed_logw(gamma, config): the log-weights of ln ϕ, ϕ from γ;
+      lls(gamma, X, config) -> a function of the state, its (R, M) lls
+        under the topics `gamma`;
+      finalize(carry, X, N, config): the family's fit result."""
+    e_step: Callable
+    smoothed_logw: Callable
+    unsmoothed_logw: Callable
+    lls: Callable
+    finalize: Callable
+
+
+def update_mu_Sigma(state, config, update_sigma: bool = True):
+    """μ = mean λ, then (if update_sigma) Σ and Σ⁻¹ (src/MMCTM.jl:200-212)."""
+    state = state._replace(mu=update_mu_vec(state.lam))
+    if update_sigma:
+        Sigma, invSigma = update_Sigma_mats(state.lam, state.nu, state.mu, config.D)
+        state = state._replace(Sigma=Sigma, invSigma=invSigma)
+    return state
+
+
+def _frozen_loop(family: FrozenTopics, state, X, config, logw, maxiter: int, tol: float,
+                 fit_gaussian: bool, verbose: bool):
+    """run_cavi over the documents X with the topics frozen: each iteration
+    the E-step with the fixed log-weights `logw` and no scatter, μ and Σ
+    refit if `fit_gaussian`, and the lls under `state.gamma`. Returns
+    (carry, N)."""
+    N = counts_per_doc(X)
+    lls = family.lls(state.gamma, X, config)
+
+    def step(s):
+        s, _ = family.e_step(s, X, N, config, logw=logw, want_scatter=False)
+        if fit_gaussian:
+            s = update_mu_Sigma(s, config)
+        return s, lls(s)
+
+    return run_cavi(state, config, maxiter, tol, step, verbose=verbose), N
+
+
+def transform_states(family: FrozenTopics, trained, state, Xnew, config, maxiter: int,
+                     tol: float, fit_gaussian: bool, verbose: bool):
+    """Fold new documents into the trained point estimate ϕ
+    (src/MMCTM.jl:511-552), every lane of `state` against the same lane of
+    `trained`: θ from the frozen ln ϕ; γ and E[ln ϕ] copied from `trained`,
+    so the returned ELBO is that of {trained topics, new posteriors}; μ, Σ
+    and Σ⁻¹ = spd_inverse(trained Σ) copied unless `fit_gaussian`, which
+    refits μ and Σ from the new documents every iteration."""
+    Xnew = tuple(Xnew)
+    with full_f32_matmuls():
+        state = state._replace(gamma=trained.gamma, Elnphi=trained.Elnphi)
+        if not fit_gaussian:
+            state = state._replace(mu=trained.mu, Sigma=trained.Sigma,
+                                   invSigma=spd_inverse(trained.Sigma))
+        logw = family.unsmoothed_logw(trained.gamma, config)
+        carry, N = _frozen_loop(family, state, Xnew, config, logw, maxiter, tol, fit_gaussian,
+                                verbose)
+        return family.finalize(carry, Xnew, N, config)
+
+
+def fit_heldout_states(family: FrozenTopics, trained, state, Xheldout, config, maxiter: int,
+                       tol: float, verbose: bool):
+    """Refit the document side of held-out documents with the trained global
+    posterior copied (μ, Σ, Σ⁻¹, γ, E[ln ϕ], α; src/MMCTM.jl:554-586): θ
+    from the trained E[ln ϕ], the lls under the trained ϕ."""
+    Xheldout = tuple(Xheldout)
+    with full_f32_matmuls():
+        state = state._replace(mu=trained.mu, Sigma=trained.Sigma, invSigma=trained.invSigma,
+                               gamma=trained.gamma, Elnphi=trained.Elnphi, alpha=trained.alpha)
+        logw = family.smoothed_logw(state, config)
+        carry, N = _frozen_loop(family, state, Xheldout, config, logw, maxiter, tol, False,
+                                verbose)
+        return family.finalize(carry, Xheldout, N, config)
+
+
+def _modality_split(config: CTMBaseConfig, m: int, device):
+    """(unobserved, observed) topic indices of modality m's block and of
+    the rest, as index tensors on `device`."""
+    o = config.offsets[m]
+    unobs = np.arange(o, o + config.K[m])
+    obs = np.setdiff1d(np.arange(config.MK), unobs)
+    return (torch.as_tensor(unobs, device=device), torch.as_tensor(obs, device=device))
+
+
+def conditional_eta(trained, lam_obs, unobs, obs):
+    """The reference's linear conditioning η = μ_u + Σ_uo·Σ⁻¹_oo·(λ − μ_o),
+    with Σ⁻¹_oo the [obs, obs] block of the full inverse, not inv(Σ_oo)
+    (src/MMCTM.jl:625-631): (R, D, K_u) from λ (R, D, MK − K_u)."""
+    A = trained.Sigma[:, unobs][:, :, obs] @ trained.invSigma[:, obs][:, :, obs]
+    return trained.mu[:, None, unobs] + (lam_obs - trained.mu[:, None, obs]) @ A.mT
+
+
+def predict_modality_eta_states(family: FrozenTopics, trained, obs_state, Xobs, m: int, config,
+                                obs_config, maxiter: int, tol: float, verbose: bool):
+    """Cross-modality imputation (src/MMCTM.jl:588-634): fit the document
+    side of the observed modalities (0-based `m` is the held-out one) with
+    μ, Σ and Σ⁻¹ sliced to their [obs, obs] blocks and the observed γ and
+    E[ln ϕ] copied from `trained`, then `conditional_eta`. `family` holds
+    the observed modalities' features. Returns (η (R, D, K_m), the fitted
+    observed state, converged (R,))."""
+    unobs, obs = _modality_split(config, m, trained.mu.device)
+    Xobs = tuple(Xobs)
+    with full_f32_matmuls():
+        obs_state = obs_state._replace(
+            mu=trained.mu[:, obs],
+            Sigma=trained.Sigma[:, obs][:, :, obs],
+            invSigma=trained.invSigma[:, obs][:, :, obs],
+            gamma=tuple(g for i, g in enumerate(trained.gamma) if i != m),
+            Elnphi=tuple(e for i, e in enumerate(trained.Elnphi) if i != m),
+        )
+        logw = family.smoothed_logw(obs_state, obs_config)
+        (obs_state, ll_buf, n_iters, done), _ = _frozen_loop(
+            family, obs_state, Xobs, obs_config, logw, maxiter, tol, False, verbose)
+        eta = conditional_eta(trained, obs_state.lam, unobs, obs)
+    return eta, obs_state, carry_converged(ll_buf, n_iters, done)

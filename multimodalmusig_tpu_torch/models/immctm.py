@@ -27,10 +27,13 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops.solvers import maximize_alpha
 from ..ops.special import dirichlet_expectation, logmvbeta, logmvbeta_symmetric, safe_xlogy, xlogx
 from ..utils.formatting import sparse_to_dense
+from . import ctm_base
 from .ctm_base import (
     CTMBaseConfig,
+    FrozenTopics,
     carry_converged,
     check_device,
     counts_per_doc,
@@ -41,31 +44,45 @@ from .ctm_base import (
     solve_eta,
     theta_from,
     theta_moments,
-    update_Sigma_mats,
-    update_mu_vec,
+    update_mu_Sigma,
     update_zeta,
 )
 from .ilda import feature_onehots
-from .mmctm import counts_tensors
+from .mmctm import (
+    _eta_list,
+    _fit_options,
+    _observed,
+    _take_result,
+    counts_tensors,
+)
 
 __all__ = [
     "IMMCTMConfig",
     "IMMCTMState",
     "IMMCTMFitResult",
     "IMMCTM",
+    "transform",
+    "fit_heldout",
+    "predict_modality_eta",
     "init",
     "summed_Elnphi",
     "smoothed_logw",
+    "unsmoothed_logw",
     "reconstruct_theta",
     "e_step_moments",
     "update_gamma",
+    "update_alpha",
     "phi_point",
     "vocab_topic_probs",
     "modality_loglikelihoods",
+    "docmodality_loglikelihoods",
     "calculate_elbo",
     "fit_step_fn",
     "finalize_fit",
     "fit",
+    "transform_states",
+    "fit_heldout_states",
+    "predict_modality_eta_states",
 ]
 
 
@@ -178,17 +195,29 @@ def smoothed_logw(state: IMMCTMState, F, config: IMMCTMConfig) -> Tuple[torch.Te
     return tuple(summed_Elnphi(state.Elnphi[m], F[m]) for m in range(config.M))
 
 
+def unsmoothed_logw(phi, F, config: IMMCTMConfig) -> Tuple[torch.Tensor, ...]:
+    """Inference log-weights Σ_i ln ϕ from the point estimates, as
+    (R, V_m, K_m) tables: MMCTM's unsmoothed θ for the feature-factorized
+    model."""
+    return tuple(summed_Elnphi(tuple(torch.log(p) for p in phi[m]), F[m])
+                 for m in range(config.M))
+
+
 def reconstruct_theta(state: IMMCTMState, config: IMMCTMConfig) -> Tuple[torch.Tensor, ...]:
     """The θ of the last E-step, rebuilt from the (λ_pre, logw_pre) snapshot."""
     return theta_from(state.lam_pre, state.logw_pre, config)
 
 
-def e_step_moments(state: IMMCTMState, X, N, F, config: IMMCTMConfig):
+def e_step_moments(state: IMMCTMState, X, N, F, config: IMMCTMConfig, logw=None,
+                   want_scatter: bool = True):
     """Batched `fitdoc!` (src/IMMCTM.jl:430-435) computing only the θ moments
     the CAVI iteration consumes, through the shared ctm_base.theta_moments
-    and solve_eta. Returns (state, scatters tuple of (R, K_m, V_m))."""
-    logw = smoothed_logw(state, F, config)
-    sumtheta, scatters = theta_moments(state.lam, logw, X, config)
+    and solve_eta. θ takes the log-weights `logw` (None: the smoothed
+    Σ_i E[ln ϕ]). Returns (state, scatters tuple of (R, K_m, V_m), or None
+    without `want_scatter`)."""
+    if logw is None:
+        logw = smoothed_logw(state, F, config)
+    sumtheta, scatters = theta_moments(state.lam, logw, X, config, want_scatter)
     zeta, nu, lam = solve_eta(
         state.lam, state.nu, N, sumtheta, state.mu, state.invSigma, config
     )
@@ -210,6 +239,18 @@ def update_gamma(state: IMMCTMState, F, config: IMMCTMConfig, scatter) -> IMMCTM
         gamma=gamma,
         Elnphi=tuple(tuple(dirichlet_expectation(g, axis=-1) for g in gm) for gm in gamma),
     )
+
+
+def update_alpha(state: IMMCTMState, config: IMMCTMConfig) -> IMMCTMState:
+    """Symmetric Dirichlet MLE of α per modality and feature, on every lane
+    (src/IMMCTM.jl:225-244)."""
+    alpha = tuple(
+        torch.stack([maximize_alpha(state.alpha[m][:, i], state.Elnphi[m][i].sum(dim=(-2, -1)),
+                                    config.K[m], config.J[m][i])
+                     for i in range(config.I[m])], dim=-1)
+        for m in range(config.M)
+    )
+    return state._replace(alpha=alpha)
 
 
 def phi_point(gamma) -> Tuple[Tuple[torch.Tensor, ...], ...]:
@@ -235,6 +276,19 @@ def modality_loglikelihoods(X, lam, gamma, F, config: IMMCTMConfig) -> torch.Ten
     return torch.stack(
         [safe_xlogy(X[m], props[m] @ vocab_topic_probs(phi[m], F[m])).sum(dim=(-2, -1))
          / X[m].sum()
+         for m in range(config.M)],
+        dim=-1,
+    )
+
+
+def docmodality_loglikelihoods(X, lam, gamma, F, config: IMMCTMConfig) -> torch.Tensor:
+    """(R, D, M) per-document per-modality normalized log-likelihood
+    (src/IMMCTM.jl:362-386), batched; NaN for a document with no counts in
+    a modality (as mmctm.docmodality_loglikelihoods)."""
+    props = props_from_lam(lam, config)
+    phi = phi_point(gamma)
+    return torch.stack(
+        [safe_xlogy(X[m], props[m] @ vocab_topic_probs(phi[m], F[m])).sum(-1) / X[m].sum(-1)
          for m in range(config.M)],
         dim=-1,
     )
@@ -272,15 +326,17 @@ def calculate_elbo(state: IMMCTMState, X, N, F, config: IMMCTMConfig) -> torch.T
 # ---------------------------------------------------------------------------
 
 
-def fit_step_fn(X, N, F, config: IMMCTMConfig):
+def fit_step_fn(X, N, F, config: IMMCTMConfig, autoalpha: bool = False,
+                update_sigma: bool = True):
     """One CAVI iteration as a closure (src/IMMCTM.jl:441-451): batched
-    E-step (ζ/θ/ν/λ ∀d) → μ → Σ → γ → per-modality log-likelihoods."""
+    E-step (ζ/θ/ν/λ ∀d) → μ → Σ (if update_sigma) → γ → α (if autoalpha)
+    → per-modality log-likelihoods."""
 
     def step(s):
         s, scatters = e_step_moments(s, X, N, F, config)
-        s = s._replace(mu=update_mu_vec(s.lam))
-        Sigma, invSigma = update_Sigma_mats(s.lam, s.nu, s.mu, config.D)
-        s = update_gamma(s._replace(Sigma=Sigma, invSigma=invSigma), F, config, scatters)
+        s = update_gamma(update_mu_Sigma(s, config, update_sigma), F, config, scatters)
+        if autoalpha:
+            s = update_alpha(s, config)
         return s, modality_loglikelihoods(X, s.lam, s.gamma, F, config)
 
     return step
@@ -302,18 +358,66 @@ def finalize_fit(carry, X, N, F, config: IMMCTMConfig) -> IMMCTMFitResult:
 
 
 def fit(state: IMMCTMState, X, F, config: IMMCTMConfig, maxiter: int = 100,
-        tol: float = 1e-4, compact_schedule=(), progress=None) -> IMMCTMFitResult:
+        tol: float = 1e-4, compact_schedule=(), progress=None, verbose: bool = False,
+        autoalpha: bool = False, update_sigma: bool = True) -> IMMCTMFitResult:
     """Full IMMCTM CAVI over every lane of `state` (src/IMMCTM.jl:437-466),
     with TF32 off for all float32 products. X (dense (D, V_m)) and F (one-hot
     (V_m, J_mi)) are tensors on the state's device and dtype.
-    `compact_schedule` (any iterable of budgets) and `progress(done,
-    total)` are ctm_base.run_cavi's."""
+    `compact_schedule` (any iterable of budgets), `progress(done, total)`
+    and `verbose` are ctm_base.run_cavi's; `autoalpha` and `update_sigma`
+    fit_step_fn's."""
     X = tuple(X)
     with full_f32_matmuls():
         N = counts_per_doc(X)
-        carry = run_cavi(state, config, maxiter, tol, fit_step_fn(X, N, F, config),
-                         compact_schedule, progress)
+        step = fit_step_fn(X, N, F, config, autoalpha, update_sigma)
+        carry = run_cavi(state, config, maxiter, tol, step, compact_schedule, progress, verbose)
         return finalize_fit(carry, X, N, F, config)
+
+
+# ---------------------------------------------------------------------------
+# Inference with the topics frozen (src/IMMCTM.jl:468-545)
+# ---------------------------------------------------------------------------
+
+
+def frozen_topics(F) -> FrozenTopics:
+    """IMMCTM's part of the inference loops, with the one-hot features F of
+    the modalities the loop fits."""
+    return FrozenTopics(
+        e_step=lambda s, X, N, config, **kw: e_step_moments(s, X, N, F, config, **kw),
+        smoothed_logw=lambda state, config: smoothed_logw(state, F, config),
+        unsmoothed_logw=lambda gamma, config: unsmoothed_logw(phi_point(gamma), F, config),
+        lls=lambda gamma, X, config: (
+            lambda s: modality_loglikelihoods(X, s.lam, s.gamma, F, config)),
+        finalize=lambda carry, X, N, config: finalize_fit(carry, X, N, F, config),
+    )
+
+
+def transform_states(trained: IMMCTMState, state: IMMCTMState, Xnew, F, config: IMMCTMConfig,
+                     maxiter: int = 1000, tol: float = 1e-4, fit_gaussian: bool = False,
+                     verbose: bool = False) -> IMMCTMFitResult:
+    """`ctm_base.transform_states` for IMMCTM, θ from the frozen Σ_i ln ϕ
+    (the reference has no IMMCTM transform; the JAX package's extension)."""
+    return ctm_base.transform_states(frozen_topics(F), trained, state, Xnew, config, maxiter,
+                                     tol, fit_gaussian, verbose)
+
+
+def fit_heldout_states(trained: IMMCTMState, state: IMMCTMState, Xheldout, F,
+                       config: IMMCTMConfig, maxiter: int = 100, tol: float = 1e-4,
+                       verbose: bool = False) -> IMMCTMFitResult:
+    """`ctm_base.fit_heldout_states` for IMMCTM (src/IMMCTM.jl:468-497)."""
+    return ctm_base.fit_heldout_states(frozen_topics(F), trained, state, Xheldout, config,
+                                       maxiter, tol, verbose)
+
+
+def predict_modality_eta_states(trained: IMMCTMState, obs_state: IMMCTMState, Xobs, m: int,
+                                Fobs, config: IMMCTMConfig, obs_config: IMMCTMConfig,
+                                maxiter: int = 100, tol: float = 1e-4, verbose: bool = False):
+    """`ctm_base.predict_modality_eta_states` for IMMCTM
+    (src/IMMCTM.jl:499-545), with the observed modalities' one-hot
+    features `Fobs`. Returns (η (R, D, K_m), the fitted observed state,
+    converged (R,))."""
+    return ctm_base.predict_modality_eta_states(frozen_topics(Fobs), trained, obs_state, Xobs,
+                                                m, config, obs_config, maxiter, tol, verbose)
 
 
 # ---------------------------------------------------------------------------
@@ -451,19 +555,82 @@ class IMMCTM:
         return [[dense[m][d, doc[m][:, 0].astype(np.int64) - 1, :].T for m in range(self.M)]
                 for d, doc in enumerate(self.X)]
 
-    def fit(self, maxiter: int = 100, tol: float = 1e-4):
+    # the Julia field names
+    μ = mu
+    Σ = Sigma
+    invΣ = invSigma
+    α = alpha
+    γ = gamma
+    Elnϕ = Elnphi
+    ϕ = phi
+    λ = lam
+    ν = nu
+    ζ = zeta
+    θ = theta
+
+    def fit(self, maxiter: int = 100, tol: float = 1e-4, verbose: bool = True,
+            autoalpha: bool = False, update_sigma: bool = True, **kwargs):
         """`fit!` (src/IMMCTM.jl:437-466), resuming from the current state.
-        Returns the per-iteration list of per-modality log-likelihoods."""
-        result = fit(self.state, self.Xdense, self.F, self.config, maxiter=maxiter, tol=tol)
-        self.state = result.state
-        n = int(result.n_iters[0])
-        self.converged = bool(result.converged[0])
-        self.elbo = float(result.elbo[0])
-        self.ll = [float(v) for v in result.ll[0].cpu()]
+        Returns the per-iteration list of per-modality log-likelihoods.
+        `verbose` (the default) prints the resolved inner-solver budgets and
+        each iteration's lls. Accepts the Julia spellings autoα and updateΣ."""
+        autoalpha, update_sigma = _fit_options(self.config, verbose, autoalpha, update_sigma,
+                                               kwargs)
+        result = fit(self.state, self.Xdense, self.F, self.config, maxiter=maxiter, tol=tol,
+                     verbose=verbose, autoalpha=autoalpha, update_sigma=update_sigma)
+        n = _take_result(self, result)
         return [[float(v) for v in row] for row in result.ll_history[0, :n].cpu()]
+
+    fit_ = fit
 
     def __repr__(self):
         status = (
             f"fitted, ll={[round(v, 5) for v in self.ll]}" if self.ll is not None else "unfitted"
         )
         return f"IMMCTM(K={self.K}, D={self.D}, V={self.V}, {status})"
+
+
+def transform(model: IMMCTM, X, maxiter: int = 1000, tol: float = 1e-4,
+              fit_gaussian: bool = False, verbose: bool = False) -> IMMCTM:
+    """IMMCTM fold-in (the JAX package's extension; the reference has no
+    IMMCTM transform): a new fitted IMMCTM over X with the model's topics
+    frozen, on the model's device and dtype; unless `fit_gaussian` it keeps
+    the trained μ, Σ and Σ⁻¹."""
+    newmodel = IMMCTM(model.K, model.alpha, model.features, X, dtype=model.config.dtype,
+                      device=model.device)
+    result = transform_states(model.state, newmodel.state, newmodel.Xdense, newmodel.F,
+                              newmodel.config, maxiter=maxiter, tol=tol,
+                              fit_gaussian=fit_gaussian, verbose=verbose)
+    _take_result(newmodel, result)
+    if not fit_gaussian:
+        newmodel.state = newmodel.state._replace(
+            mu=model.state.mu, Sigma=model.state.Sigma, invSigma=model.state.invSigma
+        )
+    return newmodel
+
+
+def fit_heldout(Xheldout, model: IMMCTM, maxiter: int = 100, verbose: bool = False) -> IMMCTM:
+    """`fit_heldout(Xheldout, model)` (src/IMMCTM.jl:468-497), on the model's
+    device and dtype."""
+    heldout = IMMCTM(model.K, model.alpha, model.features, Xheldout, dtype=model.config.dtype,
+                     device=model.device)
+    _take_result(heldout, fit_heldout_states(model.state, heldout.state, heldout.Xdense,
+                                             heldout.F, heldout.config, maxiter=maxiter,
+                                             verbose=verbose))
+    return heldout
+
+
+def predict_modality_eta(Xobs, m: int, model: IMMCTM, maxiter: int = 100,
+                         verbose: bool = False):
+    """`predict_modality_η(Xobs, m, model)` (src/IMMCTM.jl:499-545): 1-based
+    `m`, Xobs[doc] the other modalities in their order; the observed fit
+    takes their one-hot features. One η array (length K[m]) per document."""
+    m0, obsM = _observed(model, m)
+    obs_model = IMMCTM([model.K[i] for i in obsM], [model.alpha[i] for i in obsM],
+                       [model.features[i] for i in obsM], Xobs, dtype=model.config.dtype,
+                       device=model.device)
+    eta, _, converged = predict_modality_eta_states(
+        model.state, obs_model.state, obs_model.Xdense, m0, obs_model.F, model.config,
+        obs_model.config, maxiter=maxiter, verbose=verbose,
+    )
+    return _eta_list(eta, converged)

@@ -13,21 +13,26 @@ of (D, V_m) tensors shared by all lanes. Nothing here trains by autograd.
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
+from ..ops.solvers import maximize_alpha
 from ..ops.special import dirichlet_expectation, logmvbeta, logmvbeta_symmetric, safe_xlogy, xlogx
 from ..utils.formatting import infer_vocab_size, sparse_to_dense
+from . import ctm_base
 from .ctm_base import (
     CTMBaseConfig,
+    FrozenTopics,
     carry_converged,
     check_device,
     counts_per_doc,
     elbo_eta_z_term_dict,
     full_f32_matmuls,
     props_from_lam,
+    resolved_budgets,
     run_cavi,
     solve_eta,
     theta_from,
@@ -42,21 +47,33 @@ __all__ = [
     "MMCTMState",
     "MMCTMFitResult",
     "MMCTM",
+    "CTM",
+    "transform",
+    "fit_heldout",
+    "predict_modality_eta",
     "counts_tensors",
     "init",
     "init_with_alpha",
+    "smoothed_logw",
+    "unsmoothed_logw",
     "e_step_moments",
     "update_mu",
     "update_Sigma",
     "update_gamma",
+    "update_alpha",
     "phi_point",
     "props_from",
     "modality_loglikelihoods",
+    "doc_modality_loglikelihood",
+    "docmodality_loglikelihoods",
     "elbo_terms",
     "calculate_elbo",
     "fit_step_fn",
     "finalize_fit",
     "fit",
+    "transform_states",
+    "fit_heldout_states",
+    "predict_modality_eta_states",
 ]
 
 
@@ -173,18 +190,28 @@ def smoothed_logw(state: MMCTMState) -> Tuple[torch.Tensor, ...]:
     return tuple(e.mT for e in state.Elnphi)
 
 
+def unsmoothed_logw(phi) -> Tuple[torch.Tensor, ...]:
+    """Inference log-weights ln ϕ from the point estimates (R, K_m, V_m), as
+    (R, V_m, K_m) tables (src/MMCTM.jl:496-509)."""
+    return tuple(torch.log(p).mT for p in phi)
+
+
 def reconstruct_theta(state: MMCTMState, config: MMCTMConfig) -> Tuple[torch.Tensor, ...]:
     """The θ of the last E-step, rebuilt from the (λ_pre, logw_pre) snapshot."""
     return theta_from(state.lam_pre, state.logw_pre, config)
 
 
-def e_step_moments(state: MMCTMState, X, N, config: MMCTMConfig):
+def e_step_moments(state: MMCTMState, X, N, config: MMCTMConfig, logw=None,
+                   want_scatter: bool = True):
     """Batched `fitdoc!` (src/MMCTM.jl:450-455) computing only the θ moments
-    the CAVI iteration consumes: sumθ for the λ solve and the γ scatter.
-    θ uses the pre-update λ, and both solvers the ζ from the start of the
+    the CAVI iteration consumes: sumθ for the λ solve and, when
+    `want_scatter`, the γ scatter (else None). θ uses the pre-update λ and
+    the log-weights `logw` (None: E[ln ϕ], as in a fit; the inference loops
+    pass their frozen tables), and both solvers the ζ from the start of the
     E-step, as in the reference. Returns (state, scatters)."""
-    logw = smoothed_logw(state)
-    sumtheta, scatters = theta_moments(state.lam, logw, X, config)
+    if logw is None:
+        logw = smoothed_logw(state)
+    sumtheta, scatters = theta_moments(state.lam, logw, X, config, want_scatter)
     zeta, nu, lam = solve_eta(
         state.lam, state.nu, N, sumtheta, state.mu, state.invSigma, config
     )
@@ -212,6 +239,17 @@ def update_gamma(state: MMCTMState, config: MMCTMConfig, scatter) -> MMCTMState:
     return state._replace(
         gamma=gamma, Elnphi=tuple(dirichlet_expectation(g, axis=-1) for g in gamma)
     )
+
+
+def update_alpha(state: MMCTMState, config: MMCTMConfig) -> MMCTMState:
+    """Per-modality symmetric Dirichlet MLE of α on every lane
+    (src/MMCTM.jl:252-269)."""
+    alpha = torch.stack(
+        [maximize_alpha(state.alpha[:, m], state.Elnphi[m].sum(dim=(-2, -1)), config.K[m],
+                        config.V[m]) for m in range(config.M)],
+        dim=-1,
+    )
+    return state._replace(alpha=alpha)
 
 
 props_from = props_from_lam
@@ -277,18 +315,41 @@ def modality_loglikelihoods(X, props, phi) -> torch.Tensor:
     )
 
 
+def doc_modality_loglikelihood(Xdm, props, phi) -> torch.Tensor:
+    """One document's log-likelihood in one modality over its count N
+    (src/MMCTM.jl:384-401): Xdm (V,), props (..., K), phi (..., K, V)."""
+    return safe_xlogy(Xdm, (props.unsqueeze(-2) @ phi).squeeze(-2)).sum(-1) / Xdm.sum()
+
+
+def docmodality_loglikelihoods(X, props, phi) -> torch.Tensor:
+    """(R, D, M) per-document per-modality normalized mixture
+    log-likelihood, batched (src/MMCTM.jl:384-401). A document with no
+    counts in a modality gets NaN there (0/0, the reference's division by
+    N_d = 0; `modality_loglikelihoods` skips such documents)."""
+    return torch.stack(
+        [safe_xlogy(X[m], props[m] @ phi[m]).sum(-1) / X[m].sum(-1) for m in range(len(X))],
+        dim=-1,
+    )
+
+
 # ---------------------------------------------------------------------------
 # Fit (src/MMCTM.jl:457-494)
 # ---------------------------------------------------------------------------
 
 
-def fit_step_fn(X, N, config: MMCTMConfig):
+def fit_step_fn(X, N, config: MMCTMConfig, autoalpha: bool = False, update_sigma: bool = True):
     """One CAVI iteration as a closure (src/MMCTM.jl:463-479): batched E-step
-    (ζ/θ/ν/λ ∀d) → μ → Σ → γ → per-modality log-likelihoods."""
+    (ζ/θ/ν/λ ∀d) → μ → Σ (if update_sigma) → γ → α (if autoalpha) →
+    per-modality log-likelihoods."""
 
     def step(s):
         s, scatters = e_step_moments(s, X, N, config)
-        s = update_gamma(update_Sigma(update_mu(s), config), config, scatters)
+        s = update_mu(s)
+        if update_sigma:
+            s = update_Sigma(s, config)
+        s = update_gamma(s, config, scatters)
+        if autoalpha:
+            s = update_alpha(s, config)
         return s, modality_loglikelihoods(X, props_from(s.lam, config), phi_point(s.gamma))
 
     return step
@@ -310,17 +371,66 @@ def finalize_fit(carry, X, N, config: MMCTMConfig) -> MMCTMFitResult:
 
 
 def fit(state: MMCTMState, X, config: MMCTMConfig, maxiter: int = 100,
-        tol: float = 1e-4, compact_schedule=(), progress=None) -> MMCTMFitResult:
+        tol: float = 1e-4, compact_schedule=(), progress=None, verbose: bool = False,
+        autoalpha: bool = False, update_sigma: bool = True) -> MMCTMFitResult:
     """Full MMCTM CAVI over every lane of `state` (src/MMCTM.jl:457-494),
     with TF32 off for all float32 products. X is a tuple of dense (D, V_m)
     tensors on the state's device and dtype. `compact_schedule` (any
-    iterable of budgets) and `progress(done, total)` are ctm_base.run_cavi's."""
+    iterable of budgets), `progress(done, total)` and `verbose` are
+    ctm_base.run_cavi's; `autoalpha` and `update_sigma` fit_step_fn's."""
     X = tuple(X)
     with full_f32_matmuls():
         N = counts_per_doc(X)
-        carry = run_cavi(state, config, maxiter, tol, fit_step_fn(X, N, config),
-                         compact_schedule, progress)
+        step = fit_step_fn(X, N, config, autoalpha, update_sigma)
+        carry = run_cavi(state, config, maxiter, tol, step, compact_schedule, progress, verbose)
         return finalize_fit(carry, X, N, config)
+
+
+# ---------------------------------------------------------------------------
+# Inference with the topics frozen (src/MMCTM.jl:496-634)
+# ---------------------------------------------------------------------------
+
+
+def _frozen_lls(gamma, X, config: MMCTMConfig):
+    """The lls of a state under the frozen topics γ, ϕ formed once."""
+    phi = phi_point(gamma)
+    return lambda s: modality_loglikelihoods(X, props_from(s.lam, config), phi)
+
+
+FROZEN_TOPICS = FrozenTopics(
+    e_step=e_step_moments,
+    smoothed_logw=lambda state, config: smoothed_logw(state),
+    unsmoothed_logw=lambda gamma, config: unsmoothed_logw(phi_point(gamma)),
+    lls=_frozen_lls,
+    finalize=finalize_fit,
+)
+
+
+def transform_states(trained: MMCTMState, state: MMCTMState, Xnew, config: MMCTMConfig,
+                     maxiter: int = 1000, tol: float = 1e-4, fit_gaussian: bool = False,
+                     verbose: bool = False) -> MMCTMFitResult:
+    """`ctm_base.transform_states` for MMCTM (src/MMCTM.jl:511-552). Xnew is
+    a tuple of dense (D, V_m) tensors on the state's device and dtype."""
+    return ctm_base.transform_states(FROZEN_TOPICS, trained, state, Xnew, config, maxiter, tol,
+                                     fit_gaussian, verbose)
+
+
+def fit_heldout_states(trained: MMCTMState, state: MMCTMState, Xheldout, config: MMCTMConfig,
+                       maxiter: int = 100, tol: float = 1e-4,
+                       verbose: bool = False) -> MMCTMFitResult:
+    """`ctm_base.fit_heldout_states` for MMCTM (src/MMCTM.jl:554-586)."""
+    return ctm_base.fit_heldout_states(FROZEN_TOPICS, trained, state, Xheldout, config, maxiter,
+                                       tol, verbose)
+
+
+def predict_modality_eta_states(trained: MMCTMState, obs_state: MMCTMState, Xobs, m: int,
+                                config: MMCTMConfig, obs_config: MMCTMConfig,
+                                maxiter: int = 100, tol: float = 1e-4, verbose: bool = False):
+    """`ctm_base.predict_modality_eta_states` for MMCTM
+    (src/MMCTM.jl:588-634): 0-based `m` is the held-out modality. Returns
+    (η (R, D, K_m), the fitted observed state, converged (R,))."""
+    return ctm_base.predict_modality_eta_states(FROZEN_TOPICS, trained, obs_state, Xobs, m,
+                                                config, obs_config, maxiter, tol, verbose)
 
 
 # ---------------------------------------------------------------------------
@@ -334,7 +444,8 @@ class MMCTM:
     is an (n, 2) 1-based (vocab_index, count) matrix. The state is one lane
     (R = 1) on `device`, the CUDA card unless the caller asks for the CPU
     (without a card a CUDA device raises); its γ comes from a CPU generator
-    seeded with `seed`."""
+    seeded with `seed`. The array fields come back as numpy arrays in the
+    reference's layouts, under their names and their Julia spellings."""
 
     def __init__(self, k, alpha, *args, init: str = "random", seed: int = 0,
                  dtype: torch.dtype = torch.float32, device="cuda"):
@@ -382,6 +493,12 @@ class MMCTM:
         return list(self.config.V)
 
     @property
+    def N(self):
+        """N[d][m]: document d's total count in modality m."""
+        return [[int(doc[m][:, 1].sum()) if len(doc[m]) else 0 for m in range(self.M)]
+                for doc in self.X]
+
+    @property
     def mu(self):
         return self.state.mu[0].cpu().numpy()
 
@@ -413,6 +530,10 @@ class MMCTM:
         return [list(g[0].cpu().numpy()) for g in self.state.gamma]
 
     @property
+    def Elnphi(self):
+        return [list(e[0].cpu().numpy()) for e in self.state.Elnphi]
+
+    @property
     def lam(self):
         return list(self.state.lam[0].cpu().numpy())
 
@@ -424,19 +545,151 @@ class MMCTM:
     def zeta(self):
         return list(self.state.zeta[0].cpu().numpy())
 
-    def fit(self, maxiter: int = 100, tol: float = 1e-4):
+    @property
+    def theta(self):
+        """θ[d][m]: (K_m, n_dm) responsibilities over the document's observed
+        terms (reference layout), the last E-step's, rebuilt from the carried
+        (λ_pre, logw_pre) snapshot."""
+        dense = [t[0].cpu().numpy() for t in reconstruct_theta(self.state, self.config)]
+        return [[dense[m][d, doc[m][:, 0].astype(np.int64) - 1, :].T for m in range(self.M)]
+                for d, doc in enumerate(self.X)]
+
+    # the Julia field names
+    μ = mu
+    Σ = Sigma
+    invΣ = invSigma
+    α = alpha
+    ϕ = phi
+    γ = gamma
+    Elnϕ = Elnphi
+    λ = lam
+    ν = nu
+    ζ = zeta
+    θ = theta
+
+    def fit(self, maxiter: int = 100, tol: float = 1e-4, verbose: bool = True,
+            autoalpha: bool = False, update_sigma: bool = True, **kwargs):
         """`fit!` (src/MMCTM.jl:457-494), resuming from the current state.
-        Returns the per-iteration list of per-modality log-likelihoods."""
-        result = fit(self.state, self.Xdense, self.config, maxiter=maxiter, tol=tol)
-        self.state = result.state
-        n = int(result.n_iters[0])
-        self.converged = bool(result.converged[0])
-        self.elbo = float(result.elbo[0])
-        self.ll = [float(v) for v in result.ll[0].cpu()]
+        Returns the per-iteration list of per-modality log-likelihoods.
+        `verbose` (the default, as in the reference) prints the inner-solver
+        budgets the fit resolved and each iteration's lls. Accepts the Julia
+        keyword spellings autoα and updateΣ."""
+        autoalpha, update_sigma = _fit_options(self.config, verbose, autoalpha, update_sigma,
+                                               kwargs)
+        result = fit(self.state, self.Xdense, self.config, maxiter=maxiter, tol=tol,
+                     verbose=verbose, autoalpha=autoalpha, update_sigma=update_sigma)
+        n = _take_result(self, result)
         return [[float(v) for v in row] for row in result.ll_history[0, :n].cpu()]
+
+    fit_ = fit
 
     def __repr__(self):
         status = (
             f"fitted, ll={[round(v, 5) for v in self.ll]}" if self.ll is not None else "unfitted"
         )
         return f"MMCTM(K={self.K}, D={self.D}, V={self.V}, {status})"
+
+
+def _fit_options(config, verbose, autoalpha, update_sigma, kwargs):
+    """A wrapper fit's (autoalpha, update_sigma), the Julia spellings autoα
+    and updateΣ in `kwargs` taking precedence; any other keyword raises.
+    `verbose` prints the inner-solver budgets the fit resolves (float32
+    fits take the warm-start caps)."""
+    autoalpha = kwargs.pop("autoα", autoalpha)
+    update_sigma = kwargs.pop("updateΣ", update_sigma)
+    if kwargs:
+        raise TypeError(f"unexpected kwargs: {sorted(kwargs)}")
+    if verbose:
+        print(f"inner-solver budgets: {resolved_budgets(config)}")
+    return autoalpha, update_sigma
+
+
+def _take_result(model, result) -> int:
+    """Lane 0 of a fit result into a wrapper: state, converged, ELBO and the
+    final lls. Returns the lane's iteration count."""
+    model.state = result.state
+    model.converged = bool(result.converged[0])
+    model.elbo = float(result.elbo[0])
+    model.ll = [float(v) for v in result.ll[0].cpu()]
+    return int(result.n_iters[0])
+
+
+class CTM(MMCTM):
+    """Single-modality MMCTM, the classic correlated topic model
+    (reference README.md:67-73): ``CTM(k, α, X)`` or ``CTM(k, α, V, X)``
+    with X from `format_counts_ctm`."""
+
+    def __init__(self, k: int, alpha: float, *args, **kwargs):
+        if len(args) == 2:
+            V, X = args
+            V = [V] if isinstance(V, int) else list(V)
+            super().__init__([k], [alpha], V, X, **kwargs)
+        elif len(args) == 1:
+            super().__init__([k], [alpha], args[0], **kwargs)
+        else:
+            raise TypeError("CTM(k, alpha, [V,] X) with X from format_counts_ctm")
+
+
+def transform(model: MMCTM, X, maxiter: int = 1000, tol: float = 1e-4,
+              fit_gaussian: bool = False, verbose: bool = False) -> MMCTM:
+    """`transform(model, X)` (src/MMCTM.jl:511-552): a new fitted MMCTM over
+    the documents X with the model's topics frozen, on the model's device
+    and dtype. As in the JAX package, tol defaults to 1e-4 (the reference's
+    typo is 1e4) and, unless `fit_gaussian`, the new model keeps the
+    trained μ, Σ and Σ⁻¹ (test/mmctm.jl:390-404)."""
+    newmodel = MMCTM(model.K, model.alpha, model.V, X, dtype=model.config.dtype,
+                     device=model.device)
+    result = transform_states(model.state, newmodel.state, newmodel.Xdense, newmodel.config,
+                              maxiter=maxiter, tol=tol, fit_gaussian=fit_gaussian,
+                              verbose=verbose)
+    _take_result(newmodel, result)
+    if not fit_gaussian:
+        newmodel.state = newmodel.state._replace(
+            mu=model.state.mu, Sigma=model.state.Sigma, invSigma=model.state.invSigma
+        )
+    return newmodel
+
+
+def fit_heldout(Xheldout, model: MMCTM, maxiter: int = 100, verbose: bool = False) -> MMCTM:
+    """`fit_heldout(Xheldout, model)` (src/MMCTM.jl:554-586): a new MMCTM
+    over the held-out documents with the model's global posterior, its lls
+    the held-out per-word log-likelihoods; on the model's device and dtype."""
+    heldout = MMCTM(model.K, model.alpha, model.V, Xheldout, dtype=model.config.dtype,
+                    device=model.device)
+    _take_result(heldout, fit_heldout_states(model.state, heldout.state, heldout.Xdense,
+                                             heldout.config, maxiter=maxiter, verbose=verbose))
+    return heldout
+
+
+def _observed(model, m: int):
+    """The 0-based held-out modality and the observed ones of a 1-based `m`."""
+    if not 1 <= m <= model.M:
+        raise ValueError(f"m must be a 1-based modality index in 1..{model.M}, got {m}")
+    if model.M < 2:
+        raise ValueError("predict_modality_eta needs at least two modalities")
+    return m - 1, [i for i in range(model.M) if i != m - 1]
+
+
+def _eta_list(eta, converged):
+    """η of lane 0 as one array per document, with the reference's warning
+    when the observed fit did not converge."""
+    if not bool(converged[0]):
+        warnings.warn("model not converged.")
+    eta = eta[0].cpu().numpy()
+    return [eta[d] for d in range(eta.shape[0])]
+
+
+def predict_modality_eta(Xobs, m: int, model: MMCTM, maxiter: int = 100,
+                         verbose: bool = False):
+    """`predict_modality_η(Xobs, m, model)` (src/MMCTM.jl:588-634): `m` is
+    the 1-based modality to predict, Xobs[doc] holds the other modalities
+    in their order. Returns one η array (length K[m]) per document."""
+    m0, obsM = _observed(model, m)
+    obs_model = MMCTM([model.K[i] for i in obsM], [model.alpha[i] for i in obsM],
+                      [model.V[i] for i in obsM], Xobs, dtype=model.config.dtype,
+                      device=model.device)
+    eta, _, converged = predict_modality_eta_states(
+        model.state, obs_model.state, obs_model.Xdense, m0, model.config, obs_model.config,
+        maxiter=maxiter, verbose=verbose,
+    )
+    return _eta_list(eta, converged)

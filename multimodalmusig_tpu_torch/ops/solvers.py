@@ -8,7 +8,9 @@ objectives src/common.jl:11-36) with fixed-iteration batched methods:
     against (Σ⁻¹ + diag(w)), with a branch-free candidate-step line search
     (over-steps 8, 4, 2, then 1 .. 2⁻¹², then 0) and trust-region polish;
   * ν: the objective is separable per coordinate, so a contractive
-    fixed-point sweep plus Newton polish, elementwise.
+    fixed-point sweep plus Newton polish, elementwise;
+  * α (autoα, src/MMCTM.jl:252-269): Newton on log α with the same
+    candidate-step search, then Newton polish in α-space.
 
 This is the plain path: every dtype on the CPU, float64 on the GPU, and the
 oracle that the CUDA kernel (ops/lambda_kernel.py) is held against. All
@@ -31,7 +33,11 @@ __all__ = [
     "lambda_grad",
     "maximize_lambda",
     "maximize_nu",
+    "alpha_objective",
+    "alpha_grad",
+    "maximize_alpha",
     "NU_LOWER_BOUND",
+    "ALPHA_LOWER_BOUND",
     "LAMBDA_POLISH_ITERS",
     "NU_FP_ITERS",
     "CG_ITER_F32_CAP",
@@ -63,8 +69,9 @@ EXP_CLIP = 60.0
 # ν Newton polish rounds after the fixed-point sweeps.
 NU_POLISH_ITERS = 4
 
-# reference: src/MMCTM.jl:158 `lower_bounds!(opt, 1e-7)`
+# reference: src/MMCTM.jl:158 and :254 `lower_bounds!(opt, 1e-7)`
 NU_LOWER_BOUND = 1e-7
+ALPHA_LOWER_BOUND = 1e-7
 
 
 def lambda_objective(lam, nu, Ndivzeta, sumtheta, mu, invSigma):
@@ -203,3 +210,62 @@ def maximize_nu(nu0, lam, Ndivzeta, invSigma_diag, n_iter: int = NU_FP_ITERS):
         step = torch.clamp(nu - g / hess, min=NU_LOWER_BOUND)
         nu = torch.where(torch.isfinite(step), step, nu)
     return nu
+
+
+# ---------------------------------------------------------------------------
+# α objective (src/common.jl:38-46): the symmetric Dirichlet MLE
+# ---------------------------------------------------------------------------
+
+
+def alpha_objective(alpha, sum_Elnphi, K, V):
+    """K·(lgamma(Vα) - V·lgamma(α)) + α·ΣElnϕ (src/common.jl:38-46)."""
+    return K * (torch.lgamma(V * alpha) - V * torch.lgamma(alpha)) + alpha * sum_Elnphi
+
+
+def alpha_grad(alpha, sum_Elnphi, K, V):
+    """K·V·(digamma(Vα) - digamma(α)) + ΣElnϕ."""
+    return K * V * (torch.digamma(V * alpha) - torch.digamma(alpha)) + sum_Elnphi
+
+
+def _alpha_hess(alpha, K, V):
+    """d²/dα² of the objective: K·V²·ψ₁(Vα) - K·V·ψ₁(α)."""
+    return (K * V * V * torch.special.polygamma(1, V * alpha)
+            - K * V * torch.special.polygamma(1, alpha))
+
+
+def maximize_alpha(alpha0, sum_Elnphi, K: int, V: int, n_iter: int = 30):
+    """Newton for the symmetric Dirichlet hyperparameter MLE, elementwise
+    over any batch shape (one α per restart lane): replaces the 1-dim NLopt
+    solve of src/MMCTM.jl:252-269 / src/IMMCTM.jl:225-244, as the JAX
+    package's maximize_alpha does.
+
+    Newton runs on u = log α, so α ≥ ALPHA_LOWER_BOUND (src/MMCTM.jl:254)
+    holds by construction. Each step takes the best of the candidates
+    u + s·δ over the line-search scales (over-steps 8, 4, 2, then 1 ..
+    2^-(N_BACKTRACK-1), then 0: the first of equal values wins), with δ the
+    log-space Newton step where that Hessian is negative and sign(g) where
+    it is not; then NU_POLISH_ITERS Newton steps in α-space, where the
+    objective is concave. No branch reads the data on the host."""
+    # made on the device: a copy from the host would sync
+    kw = dict(dtype=alpha0.dtype, device=alpha0.device)
+    scales = torch.cat([2.0 ** torch.arange(3, 0, -1, **kw), 2.0 ** -torch.arange(N_BACKTRACK, **kw),
+                        torch.zeros(1, **kw)])
+    u = torch.log(torch.clamp(alpha0, min=ALPHA_LOWER_BOUND))
+    S = sum_Elnphi.unsqueeze(-1)
+    for _ in range(n_iter):
+        a = torch.exp(u)
+        g_a = alpha_grad(a, sum_Elnphi, K, V)
+        g_u = g_a * a
+        h_u = _alpha_hess(a, K, V) * a * a + g_a * a
+        delta = torch.where(h_u < 0, -g_u / h_u, torch.sign(g_u))
+        cand = u.unsqueeze(-1) + scales * delta.unsqueeze(-1)
+        f = alpha_objective(torch.exp(cand), S, K, V)
+        f = torch.where(torch.isfinite(f), f, -torch.inf)
+        u = torch.gather(cand, -1, f.argmax(dim=-1, keepdim=True)).squeeze(-1)
+    for _ in range(NU_POLISH_ITERS):
+        a = torch.exp(u)
+        g_a = alpha_grad(a, sum_Elnphi, K, V)
+        h_a = _alpha_hess(a, K, V)
+        step = torch.where(h_a < 0, torch.log(torch.clamp(a - g_a / h_a, min=ALPHA_LOWER_BOUND)), u)
+        u = torch.where(torch.isfinite(step), step, u)
+    return torch.clamp(torch.exp(u), min=ALPHA_LOWER_BOUND)

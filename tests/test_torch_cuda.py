@@ -1,7 +1,8 @@
 """The PyTorch port on a CUDA card: the η, λ and θ kernels against their
-plain versions, the dispatch rules, and short MMCTM and IMMCTM fits, the
-compacted restart fit and the two-stage fit on the card against the same
-fits in float64 on the CPU.
+plain versions (at the fits' shapes and at the inference and K-selection
+shapes), the dispatch rules, and short MMCTM and IMMCTM fits, the compacted
+restart fit, the two-stage fit and the inference loops on the card against
+the same runs in float64 on the CPU.
 
 Every test is marked `cuda` and skips without a card. The file imports
 neither JAX nor the shared conftest fixtures, so it runs on a machine with
@@ -476,3 +477,123 @@ def test_two_stage_fit_on_the_card_matches_the_cpu_in_float64(cuda):
         picks.append((info["stage1_winners"], best.ll[0].cpu().double().numpy()))
     np.testing.assert_array_equal(picks[0][0], picks[1][0])
     np.testing.assert_allclose(picks[0][1], picks[1][1], rtol=2e-3)
+
+
+@pytest.mark.parametrize("R, D, K", [
+    (1, 560, (7,)),  # predict_modality_eta on BRCA: one observed modality, R = 1
+    (100, 560, (7,)),  # one modality (a CTM) on restart batches
+    (1, 112, (7, 7)),  # fit_heldout of the 112 held-out documents: two blocks
+    (1, 9, (3,)),
+    (100, 448, (5, 5)),  # K selection's MK 10: stage 1 on the 448 training documents
+    (1, 112, (5, 5)),  # and its held-out fit
+    (100, 448, (9, 9)),  # K selection's MK 18
+    (1, 112, (9, 9)),
+])
+def test_eta_kernel_at_the_inference_shapes(cuda, R, D, K):
+    """M = 1 (ζ one masked sum, N of shape (D, 1)), R = 1 at small D and the
+    K selection's MK 10 and 18, at the tolerances of
+    test_eta_kernel_matches_plain."""
+    args = _eta_problem(R * D + 5 * sum(K), R, D, K, cuda)
+    before = ek.LAUNCHES
+    got = ek.estep_eta_fused(*args, K, **CAVI)
+    want = ek.estep_eta_fused_plain(*args, K, **CAVI)
+    torch.cuda.synchronize()
+    assert ek.LAUNCHES == before + 1 and got[0].shape == (R, D, len(K))
+    assert all(torch.isfinite(g).all() for g in got)
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-6)
+    assert float((got[2] - want[2]).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize("R, D, V, K", [(1, 560, 96, 9), (100, 448, 48, 5), (2, 112, 96, 9)])
+def test_theta_kernel_at_the_k_selection_shapes(cuda, R, D, V, K):
+    """K = 9 (the 16-wide instantiation) and K = 5, with log-weights near -30
+    on every fifth (rare) term in all topics but the first, as a fitted ln ϕ
+    has them: the topic that owns a rare term dominates its cells."""
+    lam, logw, X = _theta_inputs(R + D + V + K, R, D, V, K, cuda)
+    logw[:, ::5, 1:] -= 26.0
+    got = tk.theta_moments_fused(lam, logw, X)
+    again = tk.theta_moments_fused(lam, logw, X)
+    want = tk.theta_moments_fused_plain(lam, logw, X)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a) and torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=1e-4)
+
+
+def mmctm_state_to(state, device, dtype=torch.float32):
+    """An MMCTM state's tensors on `device` in `dtype`."""
+    return type(state)(*(tuple(t.to(device, dtype) for t in x) if isinstance(x, tuple)
+                         else x.to(device, dtype) for x in state))
+
+
+def _trained_model():
+    """A CPU float64 MMCTM fit of the 24 Poisson documents, 30 iterations."""
+    X = _poisson_docs()
+    docs = [[mt.make_count_matrix(X[m][d].astype(np.int64)) for m in range(2)]
+            for d in range(24)]
+    model = mt.MMCTM([3, 2], [0.1, 0.1], [10, 8], docs, dtype=torch.float64, device="cpu")
+    model.fit(maxiter=30, tol=0.0, verbose=False)
+    return model, docs
+
+
+def test_inference_on_the_card_matches_the_cpu_in_float64(cuda):
+    """30 iterations (tol 0) of each inference loop from one trained state:
+    float32 on the card (one η launch per iteration, one θ launch per
+    observed modality) against float64 on the CPU, with the same solver
+    budgets, at chip_smoke.py's tolerances."""
+    import dataclasses
+
+    from chip_smoke import INFER_ETA_ATOL, INFER_LL_RTOL, INFER_PROPS_ATOL
+    from multimodalmusig_tpu_torch.models import mmctm
+
+    model, docs = _trained_model()
+    test = docs[:8]
+    budgets = dict(lambda_n_iter=3, lambda_cg_iter=4, lambda_polish_iter=1, nu_n_iter=4)
+    out = []
+    for dtype, device in ((torch.float32, cuda), (torch.float64, "cpu")):
+        trained = mmctm_state_to(model.state, device, dtype)
+        full = dataclasses.replace(model.config, dtype=dtype, **budgets)
+        runs = {}
+        before = (ek.LAUNCHES, tk.LAUNCHES)
+        h = mt.MMCTM(model.K, model.alpha, model.V, test, dtype=dtype, device=device)
+        r = mmctm.fit_heldout_states(trained, h.state, h.Xdense,
+                                     dataclasses.replace(h.config, **budgets), maxiter=30, tol=0.0)
+        runs["heldout"] = (torch.cat(mmctm.props_from(r.state.lam, full), -1), r.ll_history)
+        for fg in (False, True):
+            n = mt.MMCTM(model.K, model.alpha, model.V, docs, dtype=dtype, device=device)
+            r = mmctm.transform_states(trained, n.state, n.Xdense,
+                                       dataclasses.replace(n.config, **budgets), maxiter=30,
+                                       tol=0.0, fit_gaussian=fg)
+            runs[f"transform {fg}"] = (torch.cat(mmctm.props_from(r.state.lam, full), -1),
+                                       r.ll_history)
+        o = mt.MMCTM([3], [0.1], [10], [[doc[0]] for doc in test], dtype=dtype, device=device)
+        eta, _, _ = mmctm.predict_modality_eta_states(
+            trained, o.state, o.Xdense, 1, full, dataclasses.replace(o.config, **budgets),
+            maxiter=30, tol=0.0)
+        runs["predict"] = (eta, None)
+        if device == cuda:  # 4 loops of 30 iterations: 2 + 2 + 2 + 1 θ launches each
+            assert (ek.LAUNCHES - before[0], tk.LAUNCHES - before[1]) == (120, 210)
+        out.append(runs)
+    for name, (a, la) in out[0].items():
+        b, lb = out[1][name]
+        assert torch.isfinite(a).all(), name
+        atol = INFER_ETA_ATOL if la is None else INFER_PROPS_ATOL
+        assert float((a.cpu().double() - b).abs().max()) <= atol, name
+        if la is not None:
+            np.testing.assert_allclose(la.cpu().double().numpy(), lb.numpy(), rtol=INFER_LL_RTOL)
+
+
+def test_inference_wrappers_run_on_the_models_card(cuda):
+    """transform, fit_heldout and predict_modality_eta on a model held on the
+    card: the new models lie there, and the kernels ran."""
+    model, docs = _trained_model()
+    card = mt.MMCTM(model.K, model.alpha, model.V, docs, device=cuda)
+    card.state = mmctm_state_to(model.state, cuda)
+    before = ek.LAUNCHES
+    new = mt.transform(card, docs, fit_gaussian=True)
+    heldout = mt.fit_heldout(docs[:8], card)
+    eta = mt.predict_modality_eta([[doc[1]] for doc in docs[:8]], 1, card)
+    assert new.device.type == cuda.type and heldout.state.lam.device.type == cuda.type
+    assert np.isfinite(new.ll).all() and np.isfinite(heldout.ll).all()
+    assert np.isfinite(np.stack(eta)).all() and ek.LAUNCHES - before >= 33

@@ -60,6 +60,7 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "multimodalmusig_tpu_torch.ops.theta_kernel",
             "multimodalmusig_tpu_torch.ops.flags",
             "multimodalmusig_tpu_torch.utils.io",
+            "multimodalmusig_tpu_torch.model_selection",
             "multimodalmusig_tpu_torch.cli",
             "multimodalmusig_tpu_torch.profile_step"} <= set(names)
     assert jax_modules == []
@@ -78,6 +79,12 @@ ENTRY_POINTS = [
     ("two_stage_fit", lambda: mt.two_stage_fit(0, _X, _CFG, [0.1, 0.1], restarts=2, maxiter=2)),
     ("MMCTM", lambda: mt.MMCTM([1, 1], [0.1, 0.1], _DOCS)),
     ("IMMCTM", lambda: mt.IMMCTM([1, 1], [0.1, 0.1], _FEATURES, _DOCS)),
+    ("heldout_ll_curve", lambda: mt.heldout_ll_curve([(1, 1)], _DOCS, _DOCS, [0.1, 0.1],
+                                                     restarts=2, maxiter=2)),
+    ("select_k_mmctm", lambda: mt.select_k_mmctm([(1, 1)], _DOCS, [0.1, 0.1], restarts=1,
+                                                 maxiter=2)),
+    ("mmctm_from_state", lambda: mt.mmctm_from_state(_state_fields(), _DOCS)),
+    ("immctm_from_state", lambda: mt.immctm_from_state(_immctm_fields(), _FEATURES, _DOCS)),
 ]
 _X = [np.ones((3, 2)), np.ones((3, 2))]
 _CFG = mmctm.MMCTMConfig(K=(1, 1), V=(2, 2), D=3)
