@@ -34,8 +34,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
      (100, 560, 96, 7) and (100, 560, 48, 7), at R = 1 and at the ragged
      (3, 33, 128, 11), (2, 8, 5, 2) and (7, 101, 96, 7), and at the K
      selection's (1, 560, 96, 9) and (100, 448, 48, 5) with log-weights near
-     -30 on rare terms, with bit-identical repeat launches; prints both
-     times at the (100, ...) shapes;
+     -30 on rare terms, and at (100, 560, 96, 7) with LDA's logits (digammas
+     of γ = α + counts and of λ = η + counts, down to about -17 and -22),
+     with bit-identical repeat launches; prints both times at the (100, ...)
+     shapes;
   6. main path: the best-of-100 MMCTM K=(7, 7), α=0.1 restart fit on the
      bundled BRCA-EU SNV+SV counts (D=560), float32, tol 1e-5, maxiter 1000,
      through `fit_restarts(...)` on the card, warm, then timed in turns on
@@ -93,7 +95,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
      restarts=100, maxiter=1000)` on the card, warm and then timed; prints
      the curve, the chosen K and the wall; every held-out ll finite, one η
      and two θ launches per CAVI iteration;
- 14. θ launches: one θ call at each BRCA shape runs exactly one device
+ 14. LDA and ILDA: `fit_lda_restarts(7, 0.1, 0.1, docs_snv, restarts=100,
+     maxiter=1000, tol=1e-5)` on the SNV counts alone, uncut and with
+     `compact_schedule="auto"`, the same for `fit_ilda_restarts` with the
+     SNV terms factored into substitution × context (J = (6, 16),
+     tools/families_bench.py:66-71), and an R=1000 LDA "auto" arm, each warm
+     and then timed; prints each arm's wall, CAVI iterations,
+     lane-iterations, boundaries and peak device memory. Gates: two θ
+     launches per CAVI iteration (no η, no λ), at least 99% finite lanes,
+     the selected ll no more than LL_SLACK below the JAX package's, and a
+     short card fit of each family against float64 on the CPU; then, on the
+     448 / 112 split, `fit_heldout` and `transform` of an R=100 model of
+     each family, warm and then timed: one θ launch per CAVI iteration and
+     30 iterations of each loop against float64 on the CPU; and an LDA and
+     an ILDA checkpoint round trip on the card;
+ 15. θ launches: one θ call at each BRCA shape runs exactly one device
      kernel (torch.profiler), checked after the timed paths.
 The last two lines of standard output are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
@@ -135,6 +151,18 @@ JAX_CPU_BEST_IMMCTM_LL = (-3.955171585083008, -3.0439767837524414)
 #   fit_mmctm_restarts([7, 7], [0.1, 0.1], docs, restarts=16,
 #                      dtype=jnp.float32)   # multimodalmusig_tpu.parallel.restarts
 JAX_CPU_TWO_STAGE_LL = (-3.9388527870178223, -3.034494638442993)
+# The selected ll of the JAX package's best-of-16 LDA and ILDA fits of the
+# BRCA-EU SNV counts on the CPU, float32 (16/16 lanes finite in each; the
+# ILDA features as `brca_features` gives them for SNV, J = (6, 16)):
+#   fit_lda_restarts(7, 0.1, 0.1, docs_snv, restarts=16, maxiter=1000, tol=1e-5,
+#                    dtype=jnp.float32)   # multimodalmusig_tpu.parallel.restarts
+#   fit_ilda_restarts(7, 0.1, 0.1, feats_snv, docs_snv, restarts=16, maxiter=1000,
+#                     tol=1e-5, dtype=jnp.float32)
+JAX_CPU_LDA_LL = -3.9380016326904297
+JAX_CPU_ILDA_LL = -3.956483840942383
+# (family, restarts, compact_schedule) of the LDA and ILDA phase, in turns
+LDA_ARMS = (("LDA", 100, None), ("LDA", 100, "auto"), ("ILDA", 100, None),
+            ("ILDA", 100, "auto"), ("LDA", 1000, "auto"))
 ETA_RTOL, ETA_ATOL = 2e-5, 2e-6
 # The held-out ll per modality of the JAX package's K=(7, 7) model on the
 # same split, on the CPU, float32 (seeds 1 and 2 gave (-4.186100006103516,
@@ -460,24 +488,47 @@ def eta_phase(ek):
     return max_err, timings[((7, 7), True)]
 
 
+def lda_logits(gen, R, D, V, K, X):
+    """LDA's θ-kernel inputs: E[ln θ] and E[ln β], the digammas of γ = α +
+    counts (each document's counts split over the topics by weights u^8, u
+    uniform, so most topics get almost none) and of λ = η + counts (each
+    term's counts split alike), α = η = 0.1, as an LDA fit has them."""
+    import torch
+
+    def split(totals, *shape):
+        w = torch.rand(*shape, generator=gen) ** 8
+        return 0.1 + totals * w / w.sum(dim=-1, keepdim=True)
+
+    gamma = split(X.sum(dim=1)[None, :, None], R, D, K)
+    lam = split(X.sum(dim=0)[None, :, None], R, V, K)
+    dg = torch.special.digamma
+    return dg(gamma) - dg(gamma.sum(dim=-1, keepdim=True)), dg(lam) - dg(lam.sum(dim=-2,
+                                                                                keepdim=True))
+
+
 def theta_phase(tk):
     import torch
 
     gen = torch.Generator().manual_seed(1)
     max_err = 0.0
     timings = {}
-    # (R, D, V, K, rare terms), the last two the K selection's: K = 9 (the
-    # 16-wide instantiation) and K = 5
-    for R, D, V, K, rare in ((RESTARTS, 560, 96, 7, False), (RESTARTS, 560, 48, 7, False),
-                             (3, 33, 128, 11, False), (2, 8, 5, 2, False),
-                             (1, 560, 96, 7, False), (7, 101, 96, 7, False),
-                             (1, 560, 96, 9, True), (RESTARTS, 448, 48, 5, True)):
+    # (R, D, V, K, logits): the K selection's two with rare terms, K = 9 (the
+    # 16-wide instantiation) and K = 5; the LDA and ILDA fits' with LDA's
+    for R, D, V, K, logits in ((RESTARTS, 560, 96, 7, "ctm"), (RESTARTS, 560, 48, 7, "ctm"),
+                               (3, 33, 128, 11, "ctm"), (2, 8, 5, 2, "ctm"),
+                               (1, 560, 96, 7, "ctm"), (7, 101, 96, 7, "ctm"),
+                               (1, 560, 96, 9, "rare"), (RESTARTS, 448, 48, 5, "rare"),
+                               (RESTARTS, 560, 96, 7, "lda")):
         # the inputs of tests/test_pallas_kernels.py, per restart lane
         lam = 2.0 * torch.randn(R, D, K, generator=gen)
         logw = torch.randn(R, V, K, generator=gen) - 4.0
-        if rare:  # a rare term: log ϕ about -30 in all topics but the one that owns it
+        if logits == "rare":  # log ϕ about -30 in all topics but the one that owns it
             logw[:, ::5, 1:] -= 26.0
         X = torch.randint(0, 30, (D, V), generator=gen).float()
+        if logits == "lda":
+            lam, logw = lda_logits(gen, R, D, V, K, X)
+            print(f"θ kernel LDA logits: E[ln θ] down to {float(lam.min()):.2f}, E[ln β] down "
+                  f"to {float(logw.min()):.2f}")
         args = [t.to("cuda") for t in (lam, logw, X)]
         got = tk.theta_moments_fused(*args)
         again = tk.theta_moments_fused(*args)
@@ -486,26 +537,26 @@ def theta_phase(tk):
         for name, g, a, w in zip(("sumθ", "scatter"), got, again, want):
             err = float((g - w).abs().max())
             excess = float(((g - w).abs() - (THETA_ATOL + THETA_RTOL * w.abs())).max())
-            print(f"θ kernel vs plain (R, D, V, K)=({R}, {D}, {V}, {K}) {name}: "
+            print(f"θ kernel vs plain (R, D, V, K)=({R}, {D}, {V}, {K}), {logits} logits, {name}: "
                   f"max|kernel - plain| = {err:.3e}, repeat launch bit-identical: "
                   f"{bool(torch.equal(g, a))}")
             if not torch.isfinite(g).all():
-                fail(f"θ kernel {name} not finite at {(R, D, V, K)}")
+                fail(f"θ kernel {name} not finite at {(R, D, V, K)}, {logits} logits")
             if excess > 0:
                 fail(f"θ kernel {name} disagrees with its plain version beyond rtol "
-                     f"{THETA_RTOL}, atol {THETA_ATOL} at {(R, D, V, K)}")
+                     f"{THETA_RTOL}, atol {THETA_ATOL} at {(R, D, V, K)}, {logits} logits")
             if not torch.equal(g, a):
                 fail(f"two θ kernel launches on the same inputs differ at {(R, D, V, K)}")
             max_err = max(max_err, err)
         if R == RESTARTS:
             ms = cuda_ms(lambda: tk.theta_moments_fused(*args))
             plain_ms = cuda_ms(lambda: tk.theta_moments_fused_plain(*args))
-            timings[(V, K)] = (ms, plain_ms)
+            timings[(V, K, logits)] = (ms, plain_ms)
             bound_ms, bound_by = theta_bound(R, D, V, K)
-            print(f"θ time at ({R}, {D}, {V}, {K}): kernel {ms:.4f} ms, plain PyTorch "
-                  f"{plain_ms:.4f} ms (median of 20 CUDA-event timings); bound {bound_ms:.6f} ms "
-                  f"({bound_by})")
-    return max_err, timings[(96, 7)]
+            print(f"θ time at ({R}, {D}, {V}, {K}), {logits} logits: kernel {ms:.4f} ms, plain "
+                  f"PyTorch {plain_ms:.4f} ms (median of 20 CUDA-event timings); bound "
+                  f"{bound_ms:.6f} ms ({bound_by})")
+    return max_err, timings[(96, 7, "ctm")]
 
 
 def theta_launch_check(tk):
@@ -843,9 +894,11 @@ def counting_fits():
     calls; boundaries are calls - loops) and `loop_s` (the seconds of those
     calls, each ended by a synchronize: its caller reads the carry on the
     host right after). Wraps the step function `ctm_base.run_cavi_from` is
-    given, `ctm_base.run_cavi_from` and `mmctm.run_cavi`."""
+    given, `ctm_base.run_cavi_from`, `mmctm.run_cavi` and `lda.run_cavi`
+    (the LDA and ILDA fits' loop)."""
     import torch
     from multimodalmusig_tpu_torch.models import ctm_base
+    from multimodalmusig_tpu_torch.models import lda as lda_mod
     from multimodalmusig_tpu_torch.models import mmctm as mm
 
     count = dict.fromkeys(("steps", "lane_iters", "loops", "calls", "loop_s"), 0)
@@ -858,7 +911,7 @@ def counting_fits():
     def counting_run_from(carry, maxiter, tol, step_fn, *a, **k):
         def step(state):
             count["steps"] += 1
-            count["lane_iters"] += state.lam.shape[0]
+            count["lane_iters"] += ctm_base.lanes_of(state)[0]
             return step_fn(state)
         count["calls"] += 1
         t0 = time.perf_counter()
@@ -868,10 +921,12 @@ def counting_fits():
         return out
 
     mm.run_cavi, ctm_base.run_cavi_from = counting_run, counting_run_from
+    lda_mod.run_cavi = counting_run
     try:
         yield count
     finally:
         mm.run_cavi, ctm_base.run_cavi_from = run, run_from
+        lda_mod.run_cavi = run
 
 
 def check_fused_launches(label, launches, steps):
@@ -1156,6 +1211,14 @@ def _sub_model(model, modalities, X, dtype, device):
                [third[i] for i in modalities], X, dtype=dtype, device=device)
 
 
+def cast_state(x, dtype, device):
+    """A (nested) state's tensors on `device` in `dtype`."""
+    if isinstance(x, tuple):
+        parts = [cast_state(y, dtype, device) for y in x]
+        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+    return x.to(device=device, dtype=dtype)
+
+
 def inference_reference_check(label, model, test, docs):
     """30 iterations (tol 0) of each inference loop from `model`'s trained
     state: float32 on the card against float64 on the CPU, both at the f32
@@ -1174,14 +1237,8 @@ def inference_reference_check(label, model, test, docs):
         """Every document's proportions, the modalities side by side."""
         return torch.cat(mm.props_from(result.state.lam, model.config), dim=-1)[0]
 
-    def cast(x, dtype, device):
-        if isinstance(x, tuple):
-            parts = [cast(y, dtype, device) for y in x]
-            return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
-        return x.to(device=device, dtype=dtype)
-
     def runs(dtype, device):
-        trained = cast(model.state, dtype, device)
+        trained = cast_state(model.state, dtype, device)
         full_cfg = dataclasses.replace(model.config, dtype=dtype, **CAVI_BUDGETS)
         out = {}
 
@@ -1332,6 +1389,203 @@ def k_selection_phase(mt, kernels, docs):
     return launches
 
 
+def lda_short_fit(mt, X_snv, features=None):
+    """A short LDA fit (ILDA with `features`) of the SNV counts, 2 lanes x
+    10 iterations from SEED, for `reference_phase`."""
+    import torch
+    from multimodalmusig_tpu_torch.models import ilda, lda
+
+    def fit(dtype, device):
+        gen = torch.Generator().manual_seed(SEED)
+        if features is None:
+            config = lda.LDAConfig(K=7, V=96, D=560, alpha=0.1, eta=0.1, dtype=dtype)
+            state = lda.init(gen, config, restarts=2, device=device)
+            return mt.fit_lda_restarts_from_states(state, X_snv, config, maxiter=10,
+                                                   tol=0.0).ll_history
+        J = tuple(int(v) for v in features.max(axis=0))
+        config = ilda.ILDAConfig(K=7, V=96, D=560, J=J, alpha=0.1, eta=(0.1, 0.1), dtype=dtype)
+        state = ilda.init(gen, config, restarts=2, device=device)
+        F = ilda.feature_onehots(features, J, dtype, device)
+        return mt.fit_ilda_restarts_from_states(state, X_snv, F, config, maxiter=10,
+                                                tol=0.0).ll_history
+    return fit
+
+
+def lda_fit(mt, family, docs, features, **kw):
+    """fit_lda_restarts or fit_ilda_restarts of `docs` at K = 7, α = η = 0.1."""
+    if family == "LDA":
+        return mt.fit_lda_restarts(7, 0.1, 0.1, docs, **kw)
+    return mt.fit_ilda_restarts(7, 0.1, 0.1, features, docs, **kw)
+
+
+def launches_of(kernels):
+    ek, lk, tk = kernels
+    return {"estep_eta": ek.LAUNCHES, "lambda_newton": lk.LAUNCHES, "theta_moments": tk.LAUNCHES}
+
+
+def lda_phase(mt, kernels, docs, features):
+    """The LDA_ARMS, warm and then timed, in turns, with their gates.
+    Returns the timed runs' launches."""
+    import numpy as np
+    import torch
+
+    def run(family, R, cut):
+        kw = dict(restarts=R, maxiter=MAXITER, tol=TOL)
+        if cut is not None:
+            kw["compact_schedule"] = cut
+        return lda_fit(mt, family, docs, features, **kw)
+
+    total = {"estep_eta": 0, "lambda_newton": 0, "theta_moments": 0}
+    with counting_fits() as count:
+        for family, R, cut in LDA_ARMS:
+            t0 = time.perf_counter()
+            run(family, R, cut)
+            print(f"{family} R={R} {cut or 'uncut'} warm-up run: {time.perf_counter() - t0:.3f} s")
+        for family, R, cut in LDA_ARMS:
+            torch.cuda.synchronize()
+            reset_counts(kernels)
+            count.update(dict.fromkeys(count, 0))
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model = run(family, R, cut)
+            wall = time.perf_counter() - t0
+            launches = launches_of(kernels)
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            res = model.restart_result
+            ll = res.ll.cpu().double().numpy()
+            iters = res.n_iters.cpu().numpy()
+            label = f"{family} R={R} {cut or 'uncut'}"
+            ref = JAX_CPU_LDA_LL if family == "LDA" else JAX_CPU_ILDA_LL
+            print(f"{label}: BRCA-EU SNV K=7 f32 tol={TOL} on {model.device}: wall {wall:.4f} s "
+                  f"(fit, f64 re-score and selection), CAVI iterations {count['steps']}, "
+                  f"lane-iterations {count['lane_iters']}, boundaries "
+                  f"{count['calls'] - count['loops']}, peak device memory {peak:.1f} MiB; "
+                  f"iterations median {float(np.median(iters)):.1f} max {int(iters.max())}, "
+                  f"finite lanes {int(np.isfinite(ll).sum())}/{R}, converged "
+                  f"{int(res.converged.sum())}/{R}; selected ll {model.ll} (JAX CPU "
+                  f"best-of-16 {ref}); kernel launches {launches}")
+            if cut == "auto":
+                info = model.compact_info
+                print(f"{label}: pilot P={info['pilot_restarts']}, boundary "
+                      f"{info['boundary_s'] * 1e3:.4f} ms, {info['lane_iters_per_s']:.0f} "
+                      f"lane-iters/s, derived schedule {info['schedule']}, schedule_memo_hit "
+                      f"{info['schedule_memo_hit']}")
+            want = {"estep_eta": 0, "lambda_newton": 0, "theta_moments": 2 * count["steps"]}
+            if count["steps"] <= 0 or launches != want:
+                fail(f"{label} did not launch the θ kernel twice per CAVI iteration: {launches}, "
+                     f"{count['steps']} iterations")
+            if np.isfinite(ll).sum() < 0.99 * R:
+                fail(f"{label}: only {int(np.isfinite(ll).sum())}/{R} lanes finite")
+            if not (np.isfinite(model.ll) and model.ll >= ref - LL_SLACK):
+                fail(f"{label}: selected ll {model.ll} worse than the JAX value {ref} by more "
+                     f"than {LL_SLACK}")
+            total = {k: total[k] + launches[k] for k in total}
+    return total
+
+
+def lda_inference_reference_check(label, model, test, docs):
+    """30 iterations (tol 0) of `fit_heldout` and `transform` from `model`'s
+    trained state: float32 on the card against float64 on the CPU. Compares
+    θ and the per-iteration lls."""
+    import numpy as np
+    import torch
+    from multimodalmusig_tpu_torch.models import ilda, lda
+
+    mod, extra = (ilda, (model.features,)) if isinstance(model, ilda.ILDA) else (lda, (model.V,))
+
+    def runs(dtype, device):
+        trained = cast_state(model.state, dtype, device)
+        out = {}
+        for name, X in (("fit_heldout", test), ("transform", docs)):
+            w = type(model)(model.K, model.alpha, model.eta, *extra, X, dtype=dtype,
+                            device=device)
+            F = (w.F,) if mod is ilda else ()
+            if name == "fit_heldout":
+                r = mod.fit_heldout_states(trained, w.state, w.Xdense, *F, w.config, maxiter=30,
+                                           tol=0.0)
+                theta = lda.theta_point(r.state)
+            else:
+                theta, r = mod.transform_states(trained, w.state, w.Xdense, *F, w.config,
+                                                maxiter=30, tol=0.0)
+            out[name] = (theta[0].cpu().double().numpy(), r.ll_history[0].cpu().double().numpy())
+        return out
+
+    got, want = runs(torch.float32, "cuda"), runs(torch.float64, "cpu")
+    for name in want:
+        (a, la), (b, lb) = got[name], want[name]
+        err = float(np.max(np.abs(a - b)))
+        rel = float(np.max(np.abs(la - lb) / np.abs(lb)))
+        print(f"{label} reference check, {name}: 30 iterations, f32 on the card vs f64 on the "
+              f"CPU: max |Δ θ| {err:.3e}, max relative ll difference {rel:.3e}")
+        if not (np.isfinite(a).all() and err <= INFER_PROPS_ATOL and rel <= INFER_LL_RTOL):
+            fail(f"{label} {name}: the card run disagrees with the f64 CPU run (θ {err:.3e} > "
+                 f"{INFER_PROPS_ATOL} or ll {rel:.3e} > {INFER_LL_RTOL})")
+
+
+def lda_inference_phase(mt, kernels, docs, features):
+    """For each family, an R=100 model of the 448 training documents, then
+    `fit_heldout` of the 112 and `transform` of the 560, warm and then
+    timed, one θ launch per CAVI iteration; the card-vs-CPU check; and a
+    checkpoint round trip on the card. Returns the timed calls' launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    train, test = mt.train_test_split_docs(docs, 0.2, seed=0)
+    total = {"estep_eta": 0, "lambda_newton": 0, "theta_moments": 0}
+    for family in ("LDA", "ILDA"):
+        t0 = time.perf_counter()
+        kw = dict(V=96) if family == "LDA" else {}
+        model = lda_fit(mt, family, train, features, restarts=RESTARTS, **kw)
+        print(f"{family} inference: {len(train)} training and {len(test)} held-out documents; "
+              f"fit_{family.lower()}_restarts R={RESTARTS} on the training split: "
+              f"{time.perf_counter() - t0:.3f} s, ll {model.ll}")
+        calls = (("fit_heldout(test, model)", lambda: mt.fit_heldout(test, model)),
+                 ("transform(model, docs)", lambda: mt.transform(model, docs)))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # a fold-in that stops at maxiter warns
+            for _, call in calls:
+                call()
+            for name, call in calls:
+                torch.cuda.synchronize()
+                reset_counts(kernels)
+                with counting_fits() as count:
+                    t0 = time.perf_counter()
+                    out = call()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                launches = launches_of(kernels)
+                n = count["steps"]
+                finite = (np.isfinite(out).all() if isinstance(out, np.ndarray)
+                          else np.isfinite(out.ll) and np.isfinite(out.elbo))
+                summary = (f"θ {out.shape}" if isinstance(out, np.ndarray)
+                           else f"ll {out.ll}, converged {out.converged}")
+                print(f"{family} inference: {name} on {model.device}: wall {wall:.4f} s, {n} CAVI "
+                      f"iterations, {1000 * wall / max(n, 1):.4f} ms per CAVI iteration; the loop "
+                      f"alone {1000 * count['loop_s']:.4f} ms; {summary}; kernel launches "
+                      f"{launches}")
+                if not finite:
+                    fail(f"{family} inference: {name} gave a non-finite output")
+                if n <= 0 or launches != {"estep_eta": 0, "lambda_newton": 0, "theta_moments": n}:
+                    fail(f"{family} inference: {name} did not launch the θ kernel once per CAVI "
+                         f"iteration: {launches}, {n} iterations")
+                total = {k: total[k] + launches[k] for k in total}
+        lda_inference_reference_check(f"{family} inference", model, test, docs)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "model.npz")
+            mt.save_model(path, model)
+            loaded = mt.load_model(path)
+        same = all(torch.equal(a, b) for a, b in zip(tensors(loaded.state), tensors(model.state)))
+        again = mt.calculate_loglikelihood(loaded)
+        print(f"{family} checkpoint: load_model on {loaded.device}: ll {loaded.ll}, state tensors "
+              f"equal: {same}, ll recomputed from the loaded state {again}")
+        if (loaded.device.type != "cuda" or type(loaded) is not type(model)
+                or loaded.ll != model.ll or not same or abs(again - model.ll) > 1e-6 * abs(model.ll)):
+            fail(f"the {family} checkpoint does not give back the fitted model on the card")
+    return total
+
+
 def main():
     import torch
 
@@ -1366,8 +1620,11 @@ def main():
     features = brca_features(*terms)
     reference_phase("MMCTM", mmctm_short_fit(mt, X))
     reference_phase("IMMCTM", immctm_short_fit(mt, X, features))
+    reference_phase("LDA", lda_short_fit(mt, X[0]))
+    reference_phase("ILDA", lda_short_fit(mt, X[0], features[0]))
     sync_probe(mt, X)
     docs = [[mt.make_count_matrix(X[m][d]) for m in range(2)] for d in range(X[0].shape[0])]
+    docs_snv = [doc[0] for doc in docs]
     immctm_launches, immctm_model = immctm_phase(mt, kernels, X, features)
     paths = {
         "main path (fused and split)": main_path_phase(mt, kernels, X),
@@ -1382,6 +1639,8 @@ def main():
                                              mt.train_test_split_docs(docs, 0.2, seed=0)[1],
                                              docs)[0],
         "K selection": k_selection_phase(mt, kernels, docs),
+        "LDA and ILDA": lda_phase(mt, kernels, docs_snv, features[0]),
+        "inference, LDA and ILDA": lda_inference_phase(mt, kernels, docs_snv, features[0]),
     }
     cli_subprocess_phase()
     theta_launch_check(tk)

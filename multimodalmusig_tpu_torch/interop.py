@@ -1,12 +1,13 @@
-"""Moving MMCTM and IMMCTM states from the JAX package into this one.
+"""Moving states of every family from the JAX package into this one.
 
 `jax.random` and torch generators never draw the same numbers, so the
 parity tests hand the JAX package's initial state to this package through
-`state_from_numpy` / `immctm_state_from_numpy` instead of re-seeding, and a
-trained state into the wrappers through `mmctm_from_state` /
-`immctm_from_state`, so both packages run inference on one trained model.
-The functions take plain arrays (they import neither JAX nor the JAX
-package).
+`state_from_numpy` / `immctm_state_from_numpy` / `lda_state_from_numpy` /
+`ilda_state_from_numpy` instead of re-seeding, and a trained state into the
+wrappers through `mmctm_from_state` / `immctm_from_state` /
+`lda_from_state` / `ilda_from_state`, so both packages run inference on one
+trained model. The functions take plain arrays (they import neither JAX nor
+the JAX package).
 """
 
 from __future__ import annotations
@@ -14,23 +15,31 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.ctm_base import check_device
+from .models.ctm_base import check_device, lanes_of
+from .models.ilda import ILDA, ILDAState
 from .models.immctm import IMMCTM, IMMCTMState
+from .models.lda import LDA, LDAState
 from .models.mmctm import MMCTM, MMCTMState
 
-__all__ = ["state_from_numpy", "immctm_state_from_numpy", "mmctm_from_state",
-           "immctm_from_state"]
+__all__ = ["state_from_numpy", "immctm_state_from_numpy", "lda_state_from_numpy",
+           "ilda_state_from_numpy", "mmctm_from_state", "immctm_from_state", "lda_from_state",
+           "ilda_from_state"]
 
 # Tuple depth of each nested field (absent: a plain array).
 _MMCTM_DEPTHS = {"gamma": 1, "Elnphi": 1, "logw_pre": 1}
 _IMMCTM_DEPTHS = {"alpha": 1, "gamma": 2, "Elnphi": 2, "logw_pre": 1}
+_ILDA_DEPTHS = {"lam": 1, "Elnbeta": 1}
 
 
 def _from_numpy(cls, depths, fields, device, dtype):
     device = check_device(device)
     if hasattr(fields, "_asdict"):
         fields = fields._asdict()
-    batched = np.asarray(fields["mu"]).ndim == 2
+    # γ is (K_m, V_m) / (K_m, J_mi) / (D, K) per lane in every family
+    gamma = fields["gamma"]
+    for _ in range(depths.get("gamma", 0)):
+        gamma = gamma[0]
+    batched = np.ndim(gamma) == 3
 
     def convert(a, depth):
         if depth:
@@ -61,9 +70,25 @@ def immctm_state_from_numpy(fields, device="cuda",
     return _from_numpy(IMMCTMState, _IMMCTM_DEPTHS, fields, device, dtype)
 
 
+def lda_state_from_numpy(fields, device="cuda", dtype: torch.dtype = torch.float64) -> LDAState:
+    """An LDAState of this package from arrays under the JAX package's
+    LDAState field names (lam, Elnbeta, gamma, Elntheta, Elntheta_pre,
+    logw_pre), a mapping or the JAX NamedTuple itself, unbatched (γ is
+    (D, K)) or with a leading restart dimension R, as `state_from_numpy`."""
+    return _from_numpy(LDAState, {}, fields, device, dtype)
+
+
+def ilda_state_from_numpy(fields, device="cuda", dtype: torch.dtype = torch.float64) -> ILDAState:
+    """An ILDAState of this package from arrays under the JAX package's
+    ILDAState field names (λ and Elnβ tuples over the features), unbatched
+    or with a leading restart dimension R, as `state_from_numpy`."""
+    return _from_numpy(ILDAState, _ILDA_DEPTHS, fields, device, dtype)
+
+
 def _one_lane(state):
-    if state.lam.shape[0] != 1:
-        raise ValueError(f"a wrapper holds one lane, the state has {state.lam.shape[0]}")
+    R = lanes_of(state)[0]
+    if R != 1:
+        raise ValueError(f"a wrapper holds one lane, the state has {R}")
     return state
 
 
@@ -90,5 +115,32 @@ def immctm_from_state(fields, features, X, device="cuda",
     K = [gm[0].shape[-2] for gm in state.gamma]
     model = IMMCTM(K, [a[0].tolist() for a in state.alpha], features, X, dtype=dtype,
                    device=device)
+    model.state = state
+    return model
+
+
+def lda_from_state(fields, alpha, eta, X, device="cuda",
+                   dtype: torch.dtype = torch.float64) -> LDA:
+    """An `LDA` wrapper over the documents X ((n, 2) 1-based (vocab_index,
+    count) matrices) with the hyperparameters α and η, holding a trained
+    state given as `lda_state_from_numpy` takes it (one lane); K and V come
+    from the state's λ. On the CUDA card unless the caller asks for the
+    CPU."""
+    state = _one_lane(lda_state_from_numpy(fields, device, dtype))
+    V, K = state.lam.shape[-2:]
+    model = LDA(K, alpha, eta, V, X, dtype=dtype, device=device)
+    model.state = state
+    return model
+
+
+def ilda_from_state(fields, alpha, eta, features, X, device="cuda",
+                    dtype: torch.dtype = torch.float64) -> ILDA:
+    """An `ILDA` wrapper over the documents X with the (V, I) 1-based
+    feature table `features` and the hyperparameters α and η (a scalar or
+    one per feature), holding a trained state given as
+    `ilda_state_from_numpy` takes it (one lane); K comes from the state. On
+    the CUDA card unless the caller asks for the CPU."""
+    state = _one_lane(ilda_state_from_numpy(fields, device, dtype))
+    model = ILDA(state.gamma.shape[-1], alpha, eta, features, X, dtype=dtype, device=device)
     model.state = state
     return model

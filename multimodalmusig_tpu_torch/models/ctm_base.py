@@ -32,6 +32,7 @@ __all__ = [
     "full_f32_matmuls",
     "counts_per_doc",
     "calculate_Ndivzeta",
+    "theta_moments_one",
     "theta_moments",
     "theta_from",
     "update_zeta",
@@ -44,6 +45,7 @@ __all__ = [
     "update_Sigma_mats",
     "spd_inverse",
     "props_from_lam",
+    "lanes_of",
     "make_cavi_carry",
     "run_cavi_from",
     "run_cavi",
@@ -82,6 +84,11 @@ class CTMBaseConfig:
     @property
     def M(self) -> int:
         return len(self.K)
+
+    @property
+    def ll_shape(self) -> Tuple[int, ...]:
+        """The shape of one lane's ll: one value per modality."""
+        return (self.M,)
 
     @property
     def MK(self) -> int:
@@ -151,43 +158,51 @@ def _theta_route(device_type: str, dtype: torch.dtype, V: int, K: int) -> str:
     return "factorized"
 
 
-def theta_moments(lam, logw, X, config, want_scatter: bool = True):
-    """Both count-weighted θ moments without materializing θ: (sumθ
-    (R, D, MK), scatters tuple of (R, K_m, V_m), or None when
-    `want_scatter` is False, as in the inference loops, which keep the
-    topics frozen). The "kernel" route computes the scatter either way, as
-    the TPU kernel does, and drops it; the "factorized" route skips its
-    matmul.
-
-    Per modality, `_theta_route` picks the schedule:
+def theta_moments_one(lam_block, logw, X, want_scatter: bool = True):
+    """One modality's count-weighted θ moments without materializing θ:
+    θ[r,d,v,:] = softmax(lam_block[r,d,:] + logw[r,v,:]) for lam_block
+    (R, D, K), logw (R, V, K) and X (D, V) shared by the lanes ->
+    (sumθ (R, D, K), scatter (R, K, V), or None when `want_scatter` is
+    False). `_theta_route` picks the schedule:
       * "kernel": the fused CUDA kernel, which forms each cell's softmax in
         registers with the joint max of its (d, v) logits, as the TPU kernel
         does (tools/pallas_experiments/theta_kernel.py). That closes the
         factorized schedule's f32 underflow gap (JAX ctm_base.py:152-165): a
         cell whose every topic sits > ~88 nats below a_d + b_v keeps finite
         moments instead of stopping its lane as NaN. No BRCA result changes;
-        spreads there are tens of nats.
+        spreads there are tens of nats. It computes the scatter either way,
+        as the TPU kernel does, and drops it when not wanted;
       * "factorized": θ[d,v,k] = softmax_k(λ_dk + w_vk) factors exactly: with
         A = exp(λ_block − max_k λ_block) and B = exp(w − max_k w),
         Z = A Bᵀ (D, V), R = X / Z, sumθ = A ⊙ (R B) and
-        scatter = (B ⊙ (Rᵀ A))ᵀ — three batched matmuls per modality
-        (ctm_base.py:132-202 of the JAX package documents the math and its
-        f32 underflow gap, which fails safe: the lane's ll goes non-finite
-        and the lane stops)."""
+        scatter = (B ⊙ (Rᵀ A))ᵀ — three batched matmuls, the last skipped
+        without `want_scatter` (ctm_base.py:132-202 of the JAX package
+        documents the math and its f32 underflow gap, which fails safe: the
+        lane's ll goes non-finite and the lane stops).
+    The route is a shape rule, not an error path: a kernel that fails to
+    build or launch raises. The LDA and ILDA E-steps call this with
+    (E[ln θ], the topic log-weights)."""
+    if _theta_route(lam_block.device.type, lam_block.dtype, X.shape[-1],
+                    lam_block.shape[-1]) == "kernel":
+        sumtheta, scatter = theta_kernel.theta_moments_fused(lam_block, logw, X)
+        return sumtheta, scatter if want_scatter else None
+    A = torch.exp(lam_block - lam_block.amax(dim=-1, keepdim=True))     # (R, D, K)
+    B = torch.exp(logw - logw.amax(dim=-1, keepdim=True))               # (R, V, K)
+    Rm = X / (A @ B.mT)                                                 # (R, D, V)
+    return A * (Rm @ B), (B * (Rm.mT @ A)).mT if want_scatter else None
+
+
+def theta_moments(lam, logw, X, config, want_scatter: bool = True):
+    """Both count-weighted θ moments of every modality, `theta_moments_one`
+    per modality block of λ: (sumθ (R, D, MK), scatters tuple of
+    (R, K_m, V_m), or None when `want_scatter` is False, as in the inference
+    loops, which keep the topics frozen)."""
     sum_parts, scatters = [], []
     for m in range(config.M):
-        lam_m = config.block(lam, m)
-        if _theta_route(lam.device.type, lam.dtype, X[m].shape[-1], lam_m.shape[-1]) == "kernel":
-            sumtheta_m, scatter_m = theta_kernel.theta_moments_fused(lam_m, logw[m], X[m])
-            sum_parts.append(sumtheta_m)
-            scatters.append(scatter_m)
-            continue
-        A = torch.exp(lam_m - lam_m.amax(dim=-1, keepdim=True))            # (R, D, K)
-        B = torch.exp(logw[m] - logw[m].amax(dim=-1, keepdim=True))        # (R, V, K)
-        Rm = X[m] / (A @ B.mT)                                             # (R, D, V)
-        sum_parts.append(A * (Rm @ B))
-        if want_scatter:
-            scatters.append((B * (Rm.mT @ A)).mT)
+        sumtheta_m, scatter_m = theta_moments_one(config.block(lam, m), logw[m], X[m],
+                                                  want_scatter)
+        sum_parts.append(sumtheta_m)
+        scatters.append(scatter_m)
     return torch.cat(sum_parts, dim=-1), tuple(scatters) if want_scatter else None
 
 
@@ -359,34 +374,51 @@ def _select_lanes(keep: torch.Tensor, new, old):
     return torch.where(keep.view(-1, *([1] * (new.dim() - 1))), new, old)
 
 
+def lanes_of(state) -> Tuple[int, torch.device]:
+    """(lanes R, device) of a batched state of any family, read from its γ
+    (a tensor, or a nested tuple of them, each with the lanes first)."""
+    gamma = state.gamma
+    while isinstance(gamma, tuple):
+        gamma = gamma[0]
+    return gamma.shape[0], gamma.device
+
+
 def make_cavi_carry(state, config, maxiter: int):
     """A fresh CAVI carry for every lane of `state`: (state, ll_buf
-    (R, maxiter, M) of zeros, n_iters (R,) of zeros, done (R,) all False).
-    `done` is a termination flag: true on convergence or when the lane's ll
-    went non-finite; `carry_converged` tells the two apart."""
-    R = state.lam.shape[0]
-    device = state.lam.device
+    (R, maxiter, *config.ll_shape) of zeros — (R, maxiter, M) for the CTM
+    families, (R, maxiter) for LDA and ILDA — n_iters (R,) of zeros, done
+    (R,) all False). `done` is a termination flag: true on convergence or
+    when the lane's ll went non-finite; `carry_converged` tells the two
+    apart."""
+    R, device = lanes_of(state)
     return (
         state,
-        torch.zeros((R, maxiter, config.M), dtype=config.dtype, device=device),
+        torch.zeros((R, maxiter, *config.ll_shape), dtype=config.dtype, device=device),
         torch.zeros(R, dtype=torch.int64, device=device),
         torch.zeros(R, dtype=torch.bool, device=device),
     )
 
 
+def _per_lane(t: torch.Tensor) -> torch.Tensor:
+    """An (R, ...) ll as (R, width): one row per lane."""
+    return t.reshape(t.shape[0], -1)
+
+
 def run_cavi_from(carry, maxiter: int, tol: float, step_fn, max_new_iters=None,
-                  verbose: bool = False):
+                  verbose: bool = False, verbose_label: str = "Log-likelihoods"):
     """Resume the CAVI loop from `carry` for up to `max_new_iters` more
     iterations (None: up to maxiter in all), with the reference's
-    convergence rule (relative Δ of the (M,) ll vector < tol after iteration
-    10; src/common.jl:48-56), per restart lane.
+    convergence rule (relative Δ of the lane's ll, the (M,) vector or LDA's
+    scalar, < tol after iteration 10; src/common.jl:48-56), per restart
+    lane.
 
     `verbose` prints each iteration's lls while a lane still runs, as
-    "<iteration>\tLog-likelihoods: <lls>" (one lane's (M,) vector at R = 1,
-    the (R, M) array else), the line of the JAX package's loop. That reads
-    the lls and `done` on the host every iteration, so a verbose loop also
-    stops as soon as every lane is done; without `verbose` the loop makes
-    no read but the periodic `done.all()`.
+    "<iteration>\t<verbose_label>: <lls>" (one lane's lls at R = 1, the
+    array of every lane else), the line of the JAX package's loop, which
+    labels it "Log-likelihoods" for the CTM families and "Log-likelihood"
+    for LDA and ILDA. That reads the lls and `done` on the host every
+    iteration, so a verbose loop also stops as soon as every lane is done;
+    without `verbose` the loop makes no read but the periodic `done.all()`.
 
     Every lane steps every iteration; a finished lane is frozen with
     torch.where, exactly as the vmapped `lax.while_loop` of the JAX package
@@ -410,17 +442,17 @@ def run_cavi_from(carry, maxiter: int, tol: float, step_fn, max_new_iters=None,
         new_state, ll_i = step_fn(state)
         active = ~done
         state = _select_lanes(active, new_state, state)
-        ll_buf[:, it] = torch.where(active[:, None], ll_i, ll_buf[:, it])
+        ll_buf[:, it] = _select_lanes(active, ll_i, ll_buf[:, it])
         n_iters = n_iters + active
-        stop = ~torch.isfinite(ll_i).all(dim=-1)
+        stop = ~torch.isfinite(_per_lane(ll_i)).all(dim=-1)
         if it + 1 > MIN_ITERS_BEFORE_CONVERGENCE:
             # ll_buf[:, -1] at it = 0 wraps, as in the JAX loop
-            stop = stop | (relative_change(ll_buf[:, it - 1], ll_i) < tol)
+            stop = stop | (relative_change(_per_lane(ll_buf[:, it - 1]), _per_lane(ll_i)) < tol)
         done = done | (active & stop)
         if verbose:
             if bool(active.any()):
                 lls = ll_i[0] if ll_i.shape[0] == 1 else ll_i
-                print(f"{it + 1}\tLog-likelihoods: {lls.cpu().numpy()}")
+                print(f"{it + 1}\t{verbose_label}: {lls.cpu().numpy()}")
             if bool(done.all()):
                 break
         elif (it + 1) % DONE_CHECK_EVERY == 0 and bool(done.all()):
@@ -446,9 +478,10 @@ def _cat_lanes(trees):
 
 
 def run_cavi(state, config, maxiter: int, tol: float, step_fn, compact_schedule=(),
-             progress=None, verbose: bool = False):
+             progress=None, verbose: bool = False, verbose_label: str = "Log-likelihoods"):
     """The whole CAVI loop over every lane of `state`, from a fresh carry.
-    Returns (state, ll_buf (R, maxiter, M), n_iters (R,), done (R,)).
+    Returns (state, ll_buf (R, maxiter, *config.ll_shape), n_iters (R,),
+    done (R,)).
 
     `compact_schedule=(c1, c2, ...)` is straggler compaction (restarts.py:
     67-204 and 1088-1187 of the JAX package): every lane runs c1
@@ -468,13 +501,14 @@ def run_cavi(state, config, maxiter: int, tol: float, step_fn, compact_schedule=
     `progress(done, total)` is called at every boundary and once at the
     end, with the number of finished lanes (converged, non-finite or at
     maxiter) out of R; an uncut fit calls it once, with (R, R). `verbose`
-    is `run_cavi_from`'s."""
+    and `verbose_label` are `run_cavi_from`'s."""
     carry = make_cavi_carry(state, config, maxiter)
-    R, device = state.lam.shape[0], state.lam.device
+    R, device = lanes_of(state)
+    loud = dict(verbose=verbose, verbose_label=verbose_label)
     budgets = (int(c) for c in (() if compact_schedule is None else compact_schedule))
     order = np.arange(R)
     groups, group_orders = [], []
-    carry = run_cavi_from(carry, maxiter, tol, step_fn, next(budgets, None), verbose=verbose)
+    carry = run_cavi_from(carry, maxiter, tol, step_fn, next(budgets, None), **loud)
     while True:
         it, done = (t.cpu().numpy() for t in (carry[2], carry[3]))
         done = done | (it >= maxiter)
@@ -491,7 +525,7 @@ def run_cavi(state, config, maxiter: int, tol: float, step_fn, compact_schedule=
             group_orders.append(order[done_pos])
             carry = _index_lanes(carry, torch.as_tensor(active_pos, device=device))
             order = order[active_pos]
-        carry = run_cavi_from(carry, maxiter, tol, step_fn, budget, verbose=verbose)
+        carry = run_cavi_from(carry, maxiter, tol, step_fn, budget, **loud)
     if len(groups) == 1:  # no lane left the batch: restart order already
         return groups[0]
     inv = np.argsort(np.concatenate(group_orders))
@@ -501,7 +535,7 @@ def run_cavi(state, config, maxiter: int, tol: float, step_fn, compact_schedule=
 def carry_converged(ll_buf, n_iters, done):
     """True convergence for reporting: terminated AND the final ll finite."""
     last = ll_buf[torch.arange(ll_buf.shape[0], device=ll_buf.device), n_iters - 1]
-    return done & torch.isfinite(last).all(dim=-1)
+    return done & torch.isfinite(_per_lane(last)).all(dim=-1)
 
 
 def elbo_eta_z_term_dict(lam, nu, zeta, mu, invSigma, sumtheta, N, config):

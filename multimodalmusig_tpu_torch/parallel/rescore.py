@@ -5,9 +5,10 @@ float32 drift apart by rounding over hundreds of iterations, while the
 winner margins of a best-of-N selection are far smaller, so selection reads
 exact float64 re-scores of each lane's final state instead of the in-fit
 float32 ll. Here the re-score runs in torch.float64 on the device that
-holds the lanes, and only the (R, M) scores need to leave it. The
-shortlist is a copy of the JAX package's NumPy one; the pickers that read
-the scores are parallel/restarts.py's torch ones, on the same device.
+holds the lanes, and only the scores ((R, M), or (R,) for LDA and ILDA)
+need to leave it. The shortlist is a copy of the JAX package's NumPy one;
+the pickers that read the scores are parallel/restarts.py's torch ones, on
+the same device.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from ..ops.special import safe_xlogy
 __all__ = [
     "rescore_mmctm_f64",
     "rescore_immctm_f64",
+    "rescore_lda_f64",
+    "rescore_ilda_f64",
     "shortlist_lanes",
     "SHORTLIST_WINDOW",
     "LANE_CHUNK",
@@ -37,6 +40,13 @@ SHORTLIST_WINDOW = 1e-2
 LANE_CHUNK = 64
 
 
+def _lanes(t, lanes):
+    """Rows `lanes` of a lane-first tensor (all of them for None)."""
+    if lanes is None:
+        return t
+    return t.index_select(0, torch.as_tensor(np.asarray(lanes, dtype=np.int64), device=t.device))
+
+
 def rescore_mmctm_f64(lam, gamma, X, config, lanes: Optional[np.ndarray] = None) -> torch.Tensor:
     """Exact float64 per-modality log-likelihoods of batched MMCTM final
     states (mmctm.modality_loglikelihoods, src/MMCTM.jl:384-448): props =
@@ -47,14 +57,11 @@ def rescore_mmctm_f64(lam, gamma, X, config, lanes: Optional[np.ndarray] = None)
     matrix follow its order); None scores every lane. Dead lanes (NaN
     states) come back NaN, and the pickers mask them."""
     device = lam.device
-    if lanes is not None:
-        idx = torch.as_tensor(np.asarray(lanes, dtype=np.int64), device=device)
-        lam = lam.index_select(0, idx)
-        gamma = tuple(g.index_select(0, idx) for g in gamma)
+    lam = _lanes(lam, lanes)
     out = []
     for m in range(config.M):
         Xm = torch.as_tensor(X[m]).to(device=device, dtype=torch.float64)
-        g = gamma[m].to(torch.float64)
+        g = _lanes(gamma[m], lanes).to(torch.float64)
         phi = g / g.sum(dim=-1, keepdim=True)                                   # (R, K, V)
         scores = []
         for lo in range(0, lam.shape[0], LANE_CHUNK):
@@ -88,6 +95,45 @@ def rescore_immctm_f64(lam, gamma, X, F, config) -> torch.Tensor:
         P = props @ torch.exp(logB)                                     # (R, D, V)
         out.append(safe_xlogy(Xm, P).sum(dim=(-2, -1)) / Xm.sum())
     return torch.stack(out, dim=-1)
+
+
+def _mixture_lls(theta, word_probs, X) -> torch.Tensor:
+    """(R,) Σ xlogy(X, θ·p(v|k)ᵀ) / ΣX in float64, LANE_CHUNK lanes at a
+    time: θ (R, D, K), word_probs (R, V, K), X (D, V)."""
+    Xm = torch.as_tensor(X).to(device=theta.device, dtype=torch.float64)
+    return torch.cat([
+        safe_xlogy(Xm, theta[lo:lo + LANE_CHUNK] @ word_probs[lo:lo + LANE_CHUNK].mT)
+        .sum(dim=(-2, -1)) / Xm.sum()
+        for lo in range(0, theta.shape[0], LANE_CHUNK)
+    ])
+
+
+def rescore_lda_f64(gamma, lam, X, lanes: Optional[np.ndarray] = None) -> torch.Tensor:
+    """Exact float64 log-likelihoods (R,) of batched LDA final states
+    (lda.loglikelihood, src/LDA.jl:174-190): θ = γ normalized over topics,
+    β = λ normalized over the vocabulary, ll = Σ xlogy(X, θβᵀ) / ΣX.
+    `gamma` is (R, D, K) and `lam` (R, V, K), on any device; the scores are
+    computed there. `lanes` restricts to a subset, in its order. Dead lanes
+    (NaN states) come back NaN."""
+    g = _lanes(gamma, lanes).to(torch.float64)
+    lam = _lanes(lam, lanes).to(torch.float64)
+    return _mixture_lls(g / g.sum(dim=-1, keepdim=True), lam / lam.sum(dim=-2, keepdim=True), X)
+
+
+def rescore_ilda_f64(gamma, lam, X, F, lanes: Optional[np.ndarray] = None) -> torch.Tensor:
+    """Exact float64 log-likelihoods (R,) of batched ILDA final states
+    (ilda.loglikelihood, src/ILDA.jl:209-236): p(v|k) = Π_i β_i[F_i[v], k]
+    with β_i = λ_i normalized over its values. `gamma` is (R, D, K), `lam`
+    a tuple over the features of (R, J_i, K) and F the one-hot features
+    (V, J_i) (models/ilda.feature_onehots). As `rescore_lda_f64`
+    otherwise."""
+    g = _lanes(gamma, lanes).to(torch.float64)
+    logB = 0.0
+    for l, Fi in zip(lam, F):
+        l = _lanes(l, lanes).to(torch.float64)
+        value = torch.as_tensor(Fi, device=l.device).argmax(dim=1)     # (V,) value of v
+        logB = logB + torch.log(l / l.sum(dim=-2, keepdim=True))[:, value, :]
+    return _mixture_lls(g / g.sum(dim=-1, keepdim=True), torch.exp(logB), X)
 
 
 def shortlist_lanes(ll_f32, window: float = SHORTLIST_WINDOW) -> np.ndarray:

@@ -1,14 +1,15 @@
 """Best-of-N restart fitting, with restarts as a leading tensor dimension.
 
-Counterpart of multimodalmusig_tpu/parallel/restarts.py (MMCTM and IMMCTM),
-which replaced the reference's `Distributed.pmap` restart fan-out
+Counterpart of multimodalmusig_tpu/parallel/restarts.py, which replaced the reference's `Distributed.pmap` restart fan-out
 (scripts/run_mmctm.jl:99-161) by a `vmap` axis. Here every state tensor
 carries the R lanes as its first dimension and one host loop drives them
 all (models/ctm_base.run_cavi_from); finished lanes are frozen, so each
 lane's trajectory is that of its own single fit.
 
-The MMCTM path is the reference CLI's two-stage protocol
-(`fit_mmctm_restarts`, run_mmctm.jl:163-180):
+LDA and ILDA restarts (`fit_lda_restarts`, `fit_ilda_restarts`) keep the
+lane with the best final ll, read from float64 re-scores; IMMCTM restarts
+the least mean dense rank of |ll|. The MMCTM path is the reference CLI's
+two-stage protocol (`fit_mmctm_restarts`, run_mmctm.jl:163-180):
   1. R random inits fit at tol 1e-4 (`fit_restarts`, optionally with
      straggler compaction); per modality, the lane with the best
      log-likelihood wins (run_mmctm.jl:86-97), read from exact float64
@@ -44,11 +45,21 @@ import numpy as np
 import torch
 
 from ..models import ctm_base
+from ..models import ilda as ilda_mod
 from ..models import immctm as immctm_mod
+from ..models import lda as lda_mod
 from ..models import mmctm as mmctm_mod
+from ..models.ilda import ILDA, ILDAConfig, ILDAFitResult, ILDAState
 from ..models.immctm import IMMCTM, IMMCTMConfig, IMMCTMFitResult, IMMCTMState
+from ..models.lda import LDA, LDAConfig, LDAFitResult, LDAState
 from ..models.mmctm import MMCTM, MMCTMConfig, MMCTMFitResult, MMCTMState
-from .rescore import rescore_immctm_f64, rescore_mmctm_f64, shortlist_lanes
+from .rescore import (
+    rescore_ilda_f64,
+    rescore_immctm_f64,
+    rescore_lda_f64,
+    rescore_mmctm_f64,
+    shortlist_lanes,
+)
 
 __all__ = [
     "dense_rank",
@@ -68,6 +79,10 @@ __all__ = [
     "fit_mmctm_restarts",
     "fit_immctm_restarts_from_states",
     "fit_immctm_restarts",
+    "fit_lda_restarts_from_states",
+    "fit_lda_restarts",
+    "fit_ilda_restarts_from_states",
+    "fit_ilda_restarts",
 ]
 
 
@@ -336,7 +351,7 @@ def _fit_auto(state, fit_fn, maxiter: int, pilot_restarts: int = 64, max_boundar
     Nothing is fit twice, and lane i of the result is lane i of `state`'s
     fit. Below 8 lanes it is one uncut fit. `fit_fn(state, schedule,
     progress)` fits a batched state. Returns (result, info)."""
-    R = int(state.lam.shape[0])
+    R, device = ctm_base.lanes_of(state)
     if R < 8:
         result = fit_fn(state, None, progress)
         iters = result.n_iters.cpu().numpy()
@@ -352,7 +367,6 @@ def _fit_auto(state, fit_fn, maxiter: int, pilot_restarts: int = 64, max_boundar
             "note": "too few restarts to split; single unchunked fit",
         }
     P = max(2, min(int(pilot_restarts), R // 2))
-    device = state.lam.device
     lanes = torch.arange(R, device=device)
     _sync(device)
     t0 = time.perf_counter()
@@ -763,3 +777,136 @@ def fit_immctm_restarts(k, alpha, features, X, restarts: int = 100, maxiter: int
     model.ll = [float(v) for v in sel.ll[0].cpu()]
     model.restart_result = result
     return model
+
+
+# ---------------------------------------------------------------------------
+# LDA and ILDA restarts (restarts.py:1496-1682 of the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def _best_scalar_ll_lane(result, rescore_fn, rescore_f64: bool) -> int:
+    """The lane with the best final ll, for the families with one ll per
+    lane (restarts.py:1513-1526 of the JAX package): read from exact
+    float64 re-scores of the shortlisted lanes (`rescore_fn(lanes)` returns
+    their (n,) scores; rescore.shortlist_lanes) unless `rescore_f64` is
+    False, then from the in-fit lls. Non-finite lanes are masked either
+    way."""
+    ll = result.ll.detach().to("cpu", torch.float64).numpy()
+    if not rescore_f64:
+        return int(np.argmax(np.where(np.isfinite(ll), ll, -np.inf)))
+    cand = shortlist_lanes(ll)
+    ll64 = rescore_fn(cand).cpu().numpy()
+    return int(cand[int(np.argmax(np.where(np.isfinite(ll64), ll64, -np.inf)))])
+
+
+def _fit_scalar_family(model, state, fit_fn, rescore_fn, maxiter: int, chunk_iters,
+                       compact_schedule, rescore_f64: bool, pilot_restarts: int):
+    """Fit every lane of the batched `state` with `fit_fn(state, schedule,
+    progress)` (uncut, cut by `chunk_iters` or a `compact_schedule` tuple,
+    or "auto" as `_fit_auto`, which records its derivation as
+    `model.compact_info`), pick a lane by `_best_scalar_ll_lane` with
+    `rescore_fn(state, lanes)`, and put it into the wrapper `model`, whose
+    `restart_result` is the batched result of all lanes."""
+    if _is_auto(compact_schedule, chunk_iters):
+        with ctm_base.full_f32_matmuls():
+            result, model.compact_info = _fit_auto(state, fit_fn, maxiter, pilot_restarts)
+    else:
+        result = fit_fn(state, _resolve_schedule(chunk_iters, compact_schedule), None)
+    best = _best_scalar_ll_lane(result, lambda lanes: rescore_fn(result.state, lanes),
+                                rescore_f64)
+    lda_mod.take_result(model, lane(result, best))
+    model.restart_result = result
+    return model
+
+
+def fit_lda_restarts_from_states(state: LDAState, X, config: LDAConfig, maxiter: int = 1000,
+                                 tol: float = 1e-4,
+                                 compact_schedule: Optional[Sequence[int]] = None,
+                                 progress=None) -> LDAFitResult:
+    """Fit every lane of a batched initial LDA `state` (from `lda.init`, or
+    injected by `interop.lda_state_from_numpy`). X, the dense (D, V) counts,
+    is moved to the state's device and dtype. `compact_schedule` (any
+    iterable of budgets) and `progress` as in `fit_restarts`."""
+    schedule = _resolve_schedule(None, compact_schedule)
+    X = lda_mod.counts_tensor(X, config, ctm_base.lanes_of(state)[1])
+    return lda_mod.fit(state, X, config, maxiter=maxiter, tol=tol, compact_schedule=schedule,
+                       progress=progress)
+
+
+def fit_lda_restarts(k, alpha, eta, X, V=None, restarts: int = 100, maxiter: int = 1000,
+                     tol: float = 1e-4, seed: int = 147959412,
+                     dtype: torch.dtype = torch.float32, device="cuda",
+                     chunk_iters: Optional[int] = None,
+                     compact_schedule: Union[Sequence[int], str, None] = None,
+                     rescore_f64: bool = True, pilot_restarts: int = 64) -> LDA:
+    """Best-of-N LDA fitting (the JAX package's fit_lda_restarts,
+    restarts.py:1529-1605, but for `devices`): `restarts` lanes initialized
+    from a CPU generator seeded with `seed`, fit as one batch on `device`
+    (the CUDA card unless the caller asks for the CPU), then the lane with
+    the best final ll, read from exact float64 re-scores of the shortlisted
+    lanes by default. The arguments before `restarts` are the `LDA`
+    wrapper's. `chunk_iters` and a `compact_schedule` tuple cut the fit as
+    in `fit_restarts`; `compact_schedule="auto"` derives the schedule from a
+    pilot of the first `pilot_restarts` lanes, as `fit_restarts_auto` does,
+    and records the derivation as `model.compact_info`. Returns that wrapper
+    holding the selected lane; its `restart_result` is the batched
+    LDAFitResult of all lanes."""
+    args = (k, alpha, eta) + (() if V is None else (V,)) + (X,)
+    model = LDA(*args, dtype=dtype, device=device)
+    cfg = model.config
+    state = lda_mod.init(torch.Generator().manual_seed(int(seed)), cfg, restarts=restarts,
+                         device=model.device)
+
+    def fit_fn(st, schedule, progress):
+        return lda_mod.fit(st, model.Xdense, cfg, maxiter=maxiter, tol=tol,
+                           compact_schedule=schedule, progress=progress)
+
+    def rescore(st, lanes):
+        return rescore_lda_f64(st.gamma, st.lam, model.Xdense, lanes)
+
+    return _fit_scalar_family(model, state, fit_fn, rescore, maxiter, chunk_iters,
+                              compact_schedule, rescore_f64, pilot_restarts)
+
+
+def fit_ilda_restarts_from_states(state: ILDAState, X, F, config: ILDAConfig,
+                                  maxiter: int = 1000, tol: float = 1e-4,
+                                  compact_schedule: Optional[Sequence[int]] = None,
+                                  progress=None) -> ILDAFitResult:
+    """Fit every lane of a batched initial ILDA `state` (from `ilda.init`,
+    or injected by `interop.ilda_state_from_numpy`). X (dense (D, V)
+    counts) and F (one-hot (V, J_i) features) are moved to the state's
+    device and dtype. `compact_schedule` and `progress` as in
+    `fit_restarts`."""
+    schedule = _resolve_schedule(None, compact_schedule)
+    device = ctm_base.lanes_of(state)[1]
+    X = lda_mod.counts_tensor(X, config, device)
+    F = tuple(torch.as_tensor(f).to(device=device, dtype=config.dtype) for f in F)
+    return ilda_mod.fit(state, X, F, config, maxiter=maxiter, tol=tol, compact_schedule=schedule,
+                        progress=progress)
+
+
+def fit_ilda_restarts(k, alpha, eta, features, X, restarts: int = 100, maxiter: int = 1000,
+                      tol: float = 1e-4, seed: int = 147959412,
+                      dtype: torch.dtype = torch.float32, device="cuda",
+                      chunk_iters: Optional[int] = None,
+                      compact_schedule: Union[Sequence[int], str, None] = None,
+                      rescore_f64: bool = True, pilot_restarts: int = 64) -> ILDA:
+    """Best-of-N ILDA fitting (the JAX package's fit_ilda_restarts,
+    restarts.py:1608-1682, but for `devices`), as `fit_lda_restarts`; the
+    arguments before `restarts` are the `ILDA` wrapper's. Returns that
+    wrapper holding the selected lane; its `restart_result` is the batched
+    fit result of all lanes."""
+    model = ILDA(k, alpha, eta, features, X, dtype=dtype, device=device)
+    cfg = model.config
+    state = ilda_mod.init(torch.Generator().manual_seed(int(seed)), cfg, restarts=restarts,
+                          device=model.device)
+
+    def fit_fn(st, schedule, progress):
+        return ilda_mod.fit(st, model.Xdense, model.F, cfg, maxiter=maxiter, tol=tol,
+                            compact_schedule=schedule, progress=progress)
+
+    def rescore(st, lanes):
+        return rescore_ilda_f64(st.gamma, st.lam, model.Xdense, model.F, lanes)
+
+    return _fit_scalar_family(model, state, fit_fn, rescore, maxiter, chunk_iters,
+                              compact_schedule, rescore_f64, pilot_restarts)

@@ -3,19 +3,20 @@
 Counterpart of multimodalmusig_tpu/utils/io.py, in its file format, so
 either package loads the other's checkpoints:
 
-  * `save_model` / `load_model`: an `MMCTM` or `IMMCTM` wrapper (constructor
-    arguments, sparse counts, the whole variational state and the fit's
-    outcome) as one .npz; a loaded model resumes its fit where it stopped
-    (the reference's warm start, src/MMCTM.jl:514-520);
+  * `save_model` / `load_model`: an `LDA`, `ILDA`, `MMCTM` or `IMMCTM`
+    wrapper (constructor arguments, sparse counts, the whole variational
+    state and the fit's outcome) as one .npz; a loaded model resumes its fit
+    where it stopped (the reference's warm start, src/MMCTM.jl:514-520);
   * `cov2cor` and `write_mean/cov/cor/sigs/props`: the reference CLI's TSV
     outputs (scripts/run_mmctm.jl:184-240, 272-290), written with numpy and
     `csv` (the JAX package's writers use pandas).
 
 The .npz keys are `state.<field>[.<m>[.<i>]]` (one-lane state tensors
 without their lane dimension, as the JAX package's states have none),
-`X.<d>.<m>` (document d's (n, 2) counts of modality m), `features.<m>`
-(IMMCTM) and `__meta__`, a JSON blob {"kind", "dtype" (a numpy name),
-"ctor", "n_docs", "n_modalities", "fitted"}.
+`X.<d>.<m>` (document d's (n, 2) counts of modality m; `X.<d>` for LDA and
+ILDA), `features.<m>` (IMMCTM) or `features` (ILDA) and `__meta__`, a JSON
+blob {"kind", "dtype" (a numpy name), "ctor", "n_docs", "n_modalities" (the
+CTM families), "fitted"}.
 """
 
 from __future__ import annotations
@@ -27,7 +28,9 @@ from typing import List
 import numpy as np
 import torch
 
+from ..models.ilda import ILDA
 from ..models.immctm import IMMCTM
+from ..models.lda import LDA
 from ..models.mmctm import MMCTM
 
 __all__ = [
@@ -40,8 +43,6 @@ __all__ = [
     "write_sigs",
     "write_props",
 ]
-
-_NOT_PORTED = "LDA and ILDA checkpoints wait for their port (ROADMAP A7)"
 
 
 def _flatten_state(state, prefix: str, out: dict):
@@ -73,53 +74,64 @@ def _unflatten_into(template, prefix: str, arrays: dict, dtype, device):
 
 
 def save_model(path: str, model) -> None:
-    """Checkpoint an `MMCTM` or `IMMCTM` wrapper to .npz, in the JAX
-    package's format: what it takes to rebuild the model and resume its
-    fit. Any other type raises TypeError."""
+    """Checkpoint an `LDA`, `ILDA`, `MMCTM` or `IMMCTM` wrapper to .npz, in
+    the JAX package's format: what it takes to rebuild the model and resume
+    its fit. Any other type raises TypeError."""
+    arrays: dict = {}
     if isinstance(model, IMMCTM):
         kind = "IMMCTM"
         ctor = {"k": model.K, "alpha": model.alpha}
+        for m, f in enumerate(model.features):
+            arrays[f"features.{m}"] = f
     elif isinstance(model, MMCTM):
         kind = "MMCTM"
         ctor = {"k": model.K, "alpha": model.alpha, "V": model.V}
+    elif isinstance(model, ILDA):
+        kind = "ILDA"
+        ctor = {"k": model.K, "alpha": model.alpha, "eta": model.eta}
+        arrays["features"] = model.features
+    elif isinstance(model, LDA):
+        kind = "LDA"
+        ctor = {"k": model.K, "alpha": model.alpha, "eta": model.eta, "V": model.V}
     else:
-        raise TypeError(f"cannot checkpoint {type(model)!r}: this package checkpoints MMCTM "
-                        f"and IMMCTM; {_NOT_PORTED}")
-    arrays: dict = {}
+        raise TypeError(f"cannot checkpoint {type(model)!r}")
     _flatten_state(model.state, "state.", arrays)
-    if kind == "IMMCTM":
-        for m, f in enumerate(model.features):
-            arrays[f"features.{m}"] = f
-    for d, doc in enumerate(model.X):
-        for m in range(model.M):
-            arrays[f"X.{d}.{m}"] = np.asarray(doc[m])
-    meta = {
-        "kind": kind,
-        "dtype": str(model.config.dtype).removeprefix("torch."),
-        "ctor": ctor,
-        "n_docs": len(model.X),
-        "n_modalities": model.M,
-        "fitted": {"converged": bool(model.converged), "elbo": model.elbo, "ll": model.ll},
-    }
+    meta = {"kind": kind, "dtype": str(model.config.dtype).removeprefix("torch."), "ctor": ctor,
+            "n_docs": len(model.X)}
+    if kind in ("LDA", "ILDA"):
+        for d, doc in enumerate(model.X):
+            arrays[f"X.{d}"] = np.asarray(doc)
+    else:
+        meta["n_modalities"] = model.M
+        for d, doc in enumerate(model.X):
+            for m in range(model.M):
+                arrays[f"X.{d}.{m}"] = np.asarray(doc[m])
+    meta["fitted"] = {"converged": bool(model.converged), "elbo": model.elbo, "ll": model.ll}
     arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
     np.savez_compressed(path, **arrays)
 
 
 def load_model(path: str, device="cuda"):
-    """Rebuild an `MMCTM` or `IMMCTM` wrapper from a checkpoint of either
-    package, on `device`: the CUDA card unless the caller asks for the CPU
-    (without a card a CUDA device raises). LDA and ILDA checkpoints raise
-    TypeError."""
+    """Rebuild an `LDA`, `ILDA`, `MMCTM` or `IMMCTM` wrapper from a
+    checkpoint of either package, on `device`: the CUDA card unless the
+    caller asks for the CPU (without a card a CUDA device raises)."""
     with np.load(path, allow_pickle=False) as data:
         arrays = {k: data[k] for k in data.files}
     meta = json.loads(bytes(arrays.pop("__meta__")).decode())
     kind, ctor = meta["kind"], meta["ctor"]
     dtype = getattr(torch, meta["dtype"])
     if kind in ("LDA", "ILDA"):
-        raise TypeError(f"{path} holds an {kind} model: {_NOT_PORTED}")
-    X = [[arrays[f"X.{d}.{m}"] for m in range(meta["n_modalities"])]
-         for d in range(meta["n_docs"])]
-    if kind == "MMCTM":
+        X = [arrays[f"X.{d}"] for d in range(meta["n_docs"])]
+    else:
+        X = [[arrays[f"X.{d}.{m}"] for m in range(meta["n_modalities"])]
+             for d in range(meta["n_docs"])]
+    if kind == "LDA":
+        model = LDA(ctor["k"], ctor["alpha"], ctor["eta"], ctor["V"], X, dtype=dtype,
+                    device=device)
+    elif kind == "ILDA":
+        model = ILDA(ctor["k"], ctor["alpha"], ctor["eta"], arrays["features"], X, dtype=dtype,
+                     device=device)
+    elif kind == "MMCTM":
         model = MMCTM(ctor["k"], ctor["alpha"], ctor["V"], X, dtype=dtype, device=device)
     elif kind == "IMMCTM":
         features = [arrays[f"features.{m}"] for m in range(meta["n_modalities"])]

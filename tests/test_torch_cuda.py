@@ -2,7 +2,9 @@
 plain versions (at the fits' shapes and at the inference and K-selection
 shapes), the dispatch rules, and short MMCTM and IMMCTM fits, the compacted
 restart fit, the two-stage fit and the inference loops on the card against
-the same runs in float64 on the CPU.
+the same runs in float64 on the CPU; LDA and ILDA steps through the θ kernel
+against the factorized schedule, their launches per iteration, and their
+restart fits.
 
 Every test is marked `cuda` and skips without a card. The file imports
 neither JAX nor the shared conftest fixtures, so it runs on a machine with
@@ -597,3 +599,88 @@ def test_inference_wrappers_run_on_the_models_card(cuda):
     assert new.device.type == cuda.type and heldout.state.lam.device.type == cuda.type
     assert np.isfinite(new.ll).all() and np.isfinite(heldout.ll).all()
     assert np.isfinite(np.stack(eta)).all() and ek.LAUNCHES - before >= 33
+
+
+def _lda_problem(n_docs=60):
+    """The first `n_docs` BRCA-EU SNV documents (V = 96), and the
+    substitution × context features of their terms (J = (6, 16)) as
+    chip_smoke.py derives them."""
+    from chip_smoke import brca_features, load_brca
+
+    X, terms = load_brca()
+    return ([mt.make_count_matrix(X[0][d]) for d in range(n_docs)],
+            brca_features(*terms)[0])
+
+
+@pytest.mark.parametrize("family", ["LDA", "ILDA"])
+def test_lda_step_on_the_card_matches_the_plain_route(cuda, family, monkeypatch):
+    """One CAVI step of 7 restart lanes (K = 7) 15 iterations into a fit, in
+    float32 on the card: through the θ kernel (two launches) against the
+    factorized schedule on the card, at the θ kernel's tolerance."""
+    from multimodalmusig_tpu_torch.models import ilda, lda
+
+    docs, feats = _lda_problem()
+    if family == "LDA":
+        model = mt.LDA(7, 0.1, 0.1, docs, device=cuda)
+        cfg, step = model.config, lda.fit_step_fn(model.Xdense, model.config)
+        state = lda.init(torch.Generator().manual_seed(2), cfg, restarts=7, device=cuda)
+        state = lda.fit(state, model.Xdense, cfg, maxiter=15, tol=0.0).state
+    else:
+        model = mt.ILDA(7, 0.1, 0.1, feats, docs, device=cuda)
+        cfg, step = model.config, ilda.fit_step_fn(model.Xdense, model.F, model.config)
+        state = ilda.init(torch.Generator().manual_seed(2), cfg, restarts=7, device=cuda)
+        state = ilda.fit(state, model.Xdense, model.F, cfg, maxiter=15, tol=0.0).state
+    before = tk.LAUNCHES
+    with ctm_base.full_f32_matmuls():
+        got_state, got_ll = step(state)
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES - before == 2
+        monkeypatch.setattr(ctm_base, "_theta_route", lambda *a: "factorized")
+        want_state, want_ll = step(state)
+    assert tk.LAUNCHES - before == 2
+    torch.testing.assert_close(got_state.gamma, want_state.gamma, rtol=2e-5, atol=1e-4)
+    for g, w in zip(*((s.lam if isinstance(s.lam, tuple) else (s.lam,))
+                      for s in (got_state, want_state))):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=1e-4)
+    torch.testing.assert_close(got_ll, want_ll, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("family", ["LDA", "ILDA"])
+def test_lda_loops_launch_the_theta_kernel_per_iteration(cuda, family):
+    """A fit launches the θ kernel twice per CAVI iteration (γ's moments,
+    then λ's); transform and fit_heldout once per iteration (γ's only). The
+    card fit agrees with float64 on the CPU from the same seed."""
+    docs, feats = _lda_problem()
+    args = (7, 0.1, 0.1) + ((feats,) if family == "ILDA" else ()) + (docs,)
+    cls = mt.LDA if family == "LDA" else mt.ILDA
+    model = cls(*args, device=cuda)
+    before = tk.LAUNCHES
+    history = model.fit(maxiter=12, tol=0.0, verbose=False)
+    assert tk.LAUNCHES - before == 24 and len(history) == 12
+    cpu = cls(*args, dtype=torch.float64, device="cpu")
+    np.testing.assert_allclose(history, cpu.fit(maxiter=12, tol=0.0, verbose=False), rtol=1e-4)
+    before = tk.LAUNCHES
+    theta = mt.transform(model, docs[:20], maxiter=10, tol=0.0)
+    assert tk.LAUNCHES - before == 10 and theta.shape == (7, 20) and np.isfinite(theta).all()
+    before = tk.LAUNCHES
+    heldout = mt.fit_heldout(docs[20:], model, maxiter=9)  # no convergence test before 10
+    assert tk.LAUNCHES - before == 9 and heldout.state.gamma.device.type == "cuda"
+    assert np.isfinite(heldout.ll) and np.isfinite(heldout.elbo)
+
+
+@pytest.mark.parametrize("family", ["LDA", "ILDA"])
+def test_lda_restarts_on_the_card_pick_a_finite_lane(cuda, family):
+    """The best-of-8 restart fit on the card, uncut and auto-compacted: two
+    θ launches per iteration of the longest lane at least, every lane and
+    the pick finite (the pick read from f64 re-scores on the card)."""
+    docs, feats = _lda_problem()
+    fit = mt.fit_lda_restarts if family == "LDA" else mt.fit_ilda_restarts
+    args = (7, 0.1, 0.1) + ((feats,) if family == "ILDA" else ()) + (docs,)
+    before = tk.LAUNCHES
+    model = fit(*args, restarts=8, maxiter=60, tol=1e-4)
+    res = model.restart_result
+    assert tk.LAUNCHES - before >= 2 * int(res.n_iters.max())
+    assert model.device.type == "cuda" and np.isfinite(model.ll)
+    assert torch.isfinite(res.ll).all()
+    auto = fit(*args, restarts=8, maxiter=60, tol=1e-4, compact_schedule="auto")
+    assert auto.compact_info["pilot_restarts"] == 4 and np.isfinite(auto.ll)

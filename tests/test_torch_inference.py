@@ -275,6 +275,10 @@ def test_docmodality_loglikelihoods_functions_match_jax(trained):
 
 
 def test_lda_and_ilda_models_raise_naming_their_port():
+    """The dispatch takes this package's models: a JAX package model raises
+    the reference's TypeError, naming its type; the port's LDA and ILDA
+    have no predict_modality_eta and no per-modality lls, as in the JAX
+    dispatch."""
     lda = jmm.LDA(2, 0.1, 0.1, [np.array([[1, 2], [3, 1]])])
     ilda = jmm.ILDA(2, 0.1, [0.1, 0.1], np.array([[1, 1], [2, 1], [1, 2]]),
                     [np.array([[1, 2], [3, 1]])])
@@ -282,9 +286,19 @@ def test_lda_and_ilda_models_raise_naming_their_port():
         for call in (lambda: mt.transform(model, []), lambda: mt.fit_heldout([], model),
                      lambda: mt.predict_modality_eta([], 1, model),
                      lambda: mt.calculate_elbo(model),
+                     lambda: mt.calculate_loglikelihood(model),
                      lambda: mt.calculate_loglikelihoods(model),
                      lambda: mt.calculate_docmodality_loglikelihoods(model)):
-            with pytest.raises(TypeError, match="ROADMAP A7"):
+            with pytest.raises(TypeError, match=f"for <class '{type(model).__module__}"):
+                call()
+    port = (mt.LDA(2, 0.1, 0.1, [np.array([[1, 2], [3, 1]])], device="cpu"),
+            mt.ILDA(2, 0.1, [0.1, 0.1], np.array([[1, 1], [2, 1], [1, 2]]),
+                    [np.array([[1, 2], [3, 1]])], device="cpu"))
+    for model in port:
+        for call in (lambda: mt.predict_modality_eta([], 1, model),
+                     lambda: mt.calculate_loglikelihoods(model),
+                     lambda: mt.calculate_docmodality_loglikelihoods(model)):
+            with pytest.raises(TypeError, match=type(model).__name__):
                 call()
     with pytest.raises(TypeError, match="no transform"):
         mt.transform(object(), [])

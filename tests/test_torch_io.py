@@ -132,11 +132,17 @@ def test_float32_checkpoint_keeps_its_dtype(tmp_path):
                     [np.array([[1, 5], [2, 8]]), np.array([[1, 2], [2, 5]])]),
 ], ids=["LDA", "ILDA"])
 def test_lda_and_ilda_checkpoints_wait_for_their_port(tmp_path, make):
+    """The port has LDA and ILDA now: a JAX checkpoint of either loads as
+    the port's model with the same state (tests/test_torch_lda.py and
+    tests/test_torch_ilda.py hold the cross-loads of fitted models); any
+    other object still cannot be checkpointed."""
     path = str(tmp_path / "model.npz")
-    jio.save_model(path, make())
-    with pytest.raises(TypeError, match="ROADMAP A7"):
-        mt.load_model(path, device="cpu")
-    with pytest.raises(TypeError, match="ROADMAP A7"):
+    jm = make()
+    jio.save_model(path, jm)
+    pm = mt.load_model(path, device="cpu")
+    assert type(pm).__name__ == type(jm).__name__ and pm.device.type == "cpu"
+    _assert_same_state(pm.state, jm.state)
+    with pytest.raises(TypeError, match="cannot checkpoint"):
         mt.save_model(path, object())
 
 

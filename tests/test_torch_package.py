@@ -24,7 +24,7 @@ from multimodalmusig_tpu.utils.hermetic import scrubbed_env
 
 import multimodalmusig_tpu_torch as mt
 from multimodalmusig_tpu_torch import interop
-from multimodalmusig_tpu_torch.models import ctm_base, immctm, mmctm
+from multimodalmusig_tpu_torch.models import ctm_base, ilda, immctm, lda, mmctm
 from multimodalmusig_tpu_torch.ops import convergence, flags, solvers
 from multimodalmusig_tpu_torch.utils import data, fast_tsv, formatting
 
@@ -55,7 +55,9 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         capture_output=True, text=True, timeout=120, check=True,
     )
     names, jax_modules = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert {"multimodalmusig_tpu_torch.ops.estep_kernel",
+    assert {"multimodalmusig_tpu_torch.models.lda",
+            "multimodalmusig_tpu_torch.models.ilda",
+            "multimodalmusig_tpu_torch.ops.estep_kernel",
             "multimodalmusig_tpu_torch.ops.lambda_kernel",
             "multimodalmusig_tpu_torch.ops.theta_kernel",
             "multimodalmusig_tpu_torch.ops.flags",
@@ -85,11 +87,39 @@ ENTRY_POINTS = [
                                                  maxiter=2)),
     ("mmctm_from_state", lambda: mt.mmctm_from_state(_state_fields(), _DOCS)),
     ("immctm_from_state", lambda: mt.immctm_from_state(_immctm_fields(), _FEATURES, _DOCS)),
+    ("LDA", lambda: mt.LDA(2, 0.1, 0.1, _LDA_DOCS)),
+    ("ILDA", lambda: mt.ILDA(2, 0.1, 0.1, _FEATURES[0], _LDA_DOCS)),
+    ("fit_lda_restarts", lambda: mt.fit_lda_restarts(2, 0.1, 0.1, _LDA_DOCS, restarts=2,
+                                                     maxiter=2)),
+    ("fit_ilda_restarts", lambda: mt.fit_ilda_restarts(2, 0.1, 0.1, _FEATURES[0], _LDA_DOCS,
+                                                       restarts=2, maxiter=2)),
+    ("lda_from_state", lambda: mt.lda_from_state(_fields(_lda_state()), 0.1, 0.1, _LDA_DOCS)),
+    ("ilda_from_state", lambda: mt.ilda_from_state(_fields(_ilda_state()), 0.1, 0.1,
+                                                   _FEATURES[0], _LDA_DOCS)),
 ]
 _X = [np.ones((3, 2)), np.ones((3, 2))]
 _CFG = mmctm.MMCTMConfig(K=(1, 1), V=(2, 2), D=3)
 _DOCS = [[np.array([[1, 2], [2, 1]]), np.array([[2, 3]])] for _ in range(3)]
 _FEATURES = [np.array([[1, 1], [2, 1]]), np.array([[1, 1], [1, 2]])]
+_LDA_DOCS = [np.array([[1, 2], [2, 1]]) for _ in range(3)]
+_LDA_CFG = lda.LDAConfig(K=2, V=2, D=3, alpha=0.1, eta=0.1)
+_ILDA_CFG = ilda.ILDAConfig(K=2, V=2, D=3, J=(2, 1), alpha=0.1, eta=(0.1, 0.1))
+
+
+def _fields(state):
+    """A one-lane state as plain arrays (tuples kept), as the JAX package
+    hands it."""
+    def arrays(v):
+        return tuple(arrays(x) for x in v) if isinstance(v, tuple) else v.numpy()
+    return {k: arrays(v) for k, v in state._asdict().items()}
+
+
+def _lda_state():
+    return lda.init(torch.Generator().manual_seed(0), _LDA_CFG, device="cpu")
+
+
+def _ilda_state():
+    return ilda.init(torch.Generator().manual_seed(0), _ILDA_CFG, device="cpu")
 
 
 @pytest.mark.parametrize("name, call", ENTRY_POINTS, ids=[e[0] for e in ENTRY_POINTS])
@@ -136,6 +166,11 @@ STATE_CONSTRUCTORS = [
         torch.Generator().manual_seed(0), _immctm_config(), [[0.1, 0.1]] * 2, **kw)),
     ("state_from_numpy", lambda **kw: mt.state_from_numpy(_state_fields(), **kw)),
     ("immctm_state_from_numpy", lambda **kw: mt.immctm_state_from_numpy(_immctm_fields(), **kw)),
+    ("lda.init", lambda **kw: lda.init(torch.Generator().manual_seed(0), _LDA_CFG, **kw)),
+    ("ilda.init", lambda **kw: ilda.init(torch.Generator().manual_seed(0), _ILDA_CFG, **kw)),
+    ("lda_state_from_numpy", lambda **kw: mt.lda_state_from_numpy(_fields(_lda_state()), **kw)),
+    ("ilda_state_from_numpy", lambda **kw: mt.ilda_state_from_numpy(_fields(_ilda_state()),
+                                                                    **kw)),
 ]
 
 
@@ -149,13 +184,36 @@ def test_state_constructors_default_to_the_card_and_never_fall_back(monkeypatch,
 
     fn = {"mmctm.init": mmctm.init, "init_with_alpha": mt.init_with_alpha,
           "immctm.init": immctm.init, "state_from_numpy": interop.state_from_numpy,
-          "immctm_state_from_numpy": interop.immctm_state_from_numpy}[name]
+          "immctm_state_from_numpy": interop.immctm_state_from_numpy, "lda.init": lda.init,
+          "ilda.init": ilda.init, "lda_state_from_numpy": interop.lda_state_from_numpy,
+          "ilda_state_from_numpy": interop.ilda_state_from_numpy}[name]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         make()
     state = make(device="cpu")
-    assert state.lam.device.type == "cpu" and state.invSigma.device.type == "cpu"
+
+    def leaves(v):
+        return [t for x in v for t in leaves(x)] if isinstance(v, tuple) else [v]
+    assert all(t.device.type == "cpu" for t in leaves(state))
+
+
+@pytest.mark.parametrize("kind", ["LDA", "ILDA", "MMCTM"])
+def test_load_model_defaults_to_the_card_and_never_falls_back(monkeypatch, tmp_path, kind):
+    """A checkpoint loads onto the card unless the caller asks for the CPU;
+    with no card, a load without a device raises, naming device="cpu"."""
+    import inspect
+
+    assert inspect.signature(mt.load_model).parameters["device"].default == "cuda"
+    model = {"LDA": lambda: mt.LDA(2, 0.1, 0.1, _LDA_DOCS, device="cpu"),
+             "ILDA": lambda: mt.ILDA(2, 0.1, 0.1, _FEATURES[0], _LDA_DOCS, device="cpu"),
+             "MMCTM": lambda: mt.MMCTM([1, 1], [0.1, 0.1], _DOCS, device="cpu")}[kind]()
+    path = str(tmp_path / "model.npz")
+    mt.save_model(path, model)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        mt.load_model(path)
+    assert type(mt.load_model(path, device="cpu")) is type(model)
 
 
 def test_fit_of_a_default_state_runs_where_the_state_lies(monkeypatch):
