@@ -110,7 +110,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
      30 iterations of each loop against float64 on the CPU; and an LDA and
      an ILDA checkpoint round trip on the card;
  15. θ launches: one θ call at each BRCA shape runs exactly one device
-     kernel (torch.profiler), checked after the timed paths.
+     kernel (torch.profiler), checked after the timed paths;
+ 16. multi-device (parallel/sharding.py; ranks are processes of their own,
+     which this process's profiler does not slow): on the BRCA-EU counts,
+     f32, tol 1e-5, (a) `shmap_fit_restarts(SEED, X, config, [0.1, 0.1],
+     restarts=100)` on two ranks sharing the card (gloo) and on one rank
+     (NCCL); (b) `fit_immctm_restarts`, `fit_lda_restarts` and
+     `fit_ilda_restarts` with phase 8's and phase 14's arguments and
+     `devices=[cuda:0, cuda:0]`; (c) `sharded_data_parallel_fit` over
+     `make_mesh(1, 2, [cuda:0, cuda:0])` (280 documents a rank) of one
+     seeded init, and the same init fit by one rank (mesh (1, 1));
+     (d) `sharded_fit_restarts(make_mesh(2, 1, [cuda:0, cuda:0]), ...)` at
+     R=100. Prints each arm's backend, ranks per card, the ranks' start-up
+     and the fit's seconds. Gates: phase 6's and phase 14's ll gates; the
+     pick within LL_SLACK of the same fit in this process; on every rank one
+     η and two θ launches per CAVI iteration of its loop (LDA and ILDA two
+     θ, no η); for (c), the first 30 iterations' lls within DP_LL_RTOL of
+     the one-process fit, and every rank stopping at the same iteration.
 The last two lines of standard output are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
 """
@@ -189,6 +205,12 @@ COMPACTION_ARMS = ((100, dict(compact_schedule=(178,))), (100, "auto"),
                    (1000, "auto"), (1000, {}))
 # restarts of the CLI phase: the CLI's default
 CLI_RESTARTS = 1000
+# The data-parallel fit's first 30 iterations against the one-process fit
+# from the same init, f32 on the card: the largest relative |Δ| of the lls,
+# 3× the largest seen on an H100 (3.05e-7 over two ranks, 1.2e-7 on one;
+# PERF.md §6)
+DP_LL_RTOL = 9.2e-7
+DP_ITERS = 30
 # The card's published peaks (H100 SXM, 700 W): memory rate and float32
 # rate outside the tensor cores, for the kernels' bounds.
 PEAK_BYTES_PER_S = 3.35e12
@@ -590,6 +612,157 @@ def theta_launch_check(tk):
             break
     if len(names) != len(calls) or not all("theta_moments_kernel" in n for n in names):
         fail(f"two θ calls ran {len(names)} device kernels, not one each: {names}")
+
+
+def rank_launch_gate(label, info, iters_per_rank, eta):
+    """Each rank's launches: one η (if `eta`) and two θ launches per CAVI
+    iteration of its loop, which ends at loop_iterations of its slowest
+    lane; no λ launch. Returns the launches summed over the ranks."""
+    for r, (launches, max_iters) in enumerate(zip(info["launches"], iters_per_rank)):
+        n = loop_iterations(max_iters)
+        want = {"estep_eta": n if eta else 0, "lambda_newton": 0, "theta_moments": 2 * n}
+        if launches != want:
+            fail(f"{label}: rank {r} launched {launches}, not {want} for its {n} CAVI "
+                 f"iterations")
+    return {k: sum(lc[k] for lc in info["launches"]) for k in info["launches"][0]}
+
+
+def rank_line(label, wall, info):
+    split = info["startup_split"]
+    print(f"{label}: backend {info['backend']}, ranks {info['ranks']}, "
+          f"{info['ranks_per_device']} a card: wall {wall:.4f} s = ranks' start-up "
+          f"{info['startup_s']:.4f} s (the largest over the ranks of: interpreter and imports "
+          f"{split['imports']:.4f}, CUDA context, handles and kernel load {split['device']:.4f}, "
+          f"process group with the wait for the other ranks {split['group']:.4f}) + fit "
+          f"{info['fit_s']:.4f} s + gather; "
+          f"launches per rank {info['launches']}")
+
+
+def slices(n_iters, ranks):
+    """The iteration count of each rank's slowest lane: the lanes padded to a
+    multiple of the ranks by cycling them, in contiguous slices
+    (parallel/_ranks.py `lane_slices`)."""
+    import numpy as np
+
+    n_iters = np.asarray(n_iters)
+    padded = n_iters[np.arange(-(-len(n_iters) // ranks) * ranks) % len(n_iters)]
+    return [int(part.max()) for part in padded.reshape(ranks, -1)]
+
+
+def multi_device_phase(mt, X, docs, docs_snv, features):
+    """Phase 16: the restart fan-out, the family fan-outs, the data-parallel
+    fit and the mesh, each on ranks that share the card (and the fan-out on
+    one NCCL rank), against the same fits in this process. Returns the
+    launches summed over every rank."""
+    import numpy as np
+    import torch
+    from multimodalmusig_tpu_torch.models import mmctm as mm
+    from multimodalmusig_tpu_torch.parallel import sharding
+
+    two = ["cuda:0", "cuda:0"]
+    config = mt.MMCTMConfig(K=(7, 7), V=(96, 48), D=560, dtype=torch.float32)
+    kw = dict(restarts=RESTARTS, maxiter=MAXITER, tol=TOL)
+    total = {"estep_eta": 0, "lambda_newton": 0, "theta_moments": 0}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    def timed(fn):
+        info = {}
+        t0 = time.perf_counter()
+        out = fn(info)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, info
+
+    # (a) the MMCTM restart fan-out
+    one = mt.fit_restarts(SEED, X, config, [0.1, 0.1], **kw)
+    one_best = np.max(np.where(np.isfinite(one.ll.cpu().numpy()), one.ll.cpu().numpy(), -np.inf),
+                      axis=0)
+    for devices in (two, ["cuda:0"]):
+        res, wall, info = timed(lambda i: sharding.shmap_fit_restarts(
+            SEED, X, config, [0.1, 0.1], devices=devices, run_info=i, **kw))
+        label = f"multi-device (a): shmap_fit_restarts R={RESTARTS} on {devices}"
+        rank_line(label, wall, info)
+        ll = res.ll.cpu().double().numpy()
+        ll_gates(label, ll, JAX_CPU_BEST_LL)
+        best = np.max(np.where(np.isfinite(ll), ll, -np.inf), axis=0)
+        print(f"{label}: best ll per modality {best.tolist()}, one process {one_best.tolist()}; "
+              f"iterations max {int(res.n_iters.max())}")
+        if not np.all(np.abs(best - one_best) <= LL_SLACK):
+            fail(f"{label}: best ll {best.tolist()} is not within {LL_SLACK} of the one-process "
+                 f"fit's {one_best.tolist()}")
+        add(rank_launch_gate(label, info, slices(res.n_iters.cpu(), len(devices)), eta=True))
+
+    # (b) the family fan-outs, with phase 8's and phase 14's arguments
+    fits = (
+        ("IMMCTM", lambda **k: mt.fit_immctm_restarts([7, 7], [0.1, 0.1], features, docs,
+                                                      **kw, **k), True),
+        ("LDA", lambda **k: mt.fit_lda_restarts(7, 0.1, 0.1, docs_snv, **kw, **k), False),
+        ("ILDA", lambda **k: mt.fit_ilda_restarts(7, 0.1, 0.1, features[0], docs_snv, **kw, **k),
+         False),
+    )
+    for family, fit, eta in fits:
+        single = fit()
+        model, wall, _ = timed(lambda i: fit(devices=two))
+        info = model.rank_info
+        label = f"multi-device (b): fit_{family.lower()}_restarts R={RESTARTS} on {two}"
+        rank_line(label, wall, info)
+        ll = model.restart_result.ll.cpu().double().numpy()
+        picked, ref = np.atleast_1d(model.ll), np.atleast_1d(single.ll)
+        print(f"{label}: selected ll {picked.tolist()}, one process {ref.tolist()}")
+        if family == "IMMCTM":
+            ll_gates(label, ll, JAX_CPU_BEST_IMMCTM_LL)
+        else:
+            jax_ll = JAX_CPU_LDA_LL if family == "LDA" else JAX_CPU_ILDA_LL
+            if np.isfinite(ll).sum() < 0.99 * len(ll) or not picked[0] >= jax_ll - LL_SLACK:
+                fail(f"{label}: {int(np.isfinite(ll).sum())} finite lanes, selected ll "
+                     f"{picked[0]} against the JAX value {jax_ll}")
+        if not (np.isfinite(picked).all() and np.all(np.abs(picked - ref) <= LL_SLACK)):
+            fail(f"{label}: the pick {picked.tolist()} is not within {LL_SLACK} of the "
+                 f"one-process pick {ref.tolist()}")
+        add(rank_launch_gate(label, info, slices(model.restart_result.n_iters.cpu(), 2), eta))
+
+    # (c) the data-parallel fit of one init, and the same init on one rank
+    Xt = mm.counts_tensors(X, config, "cuda")
+    state = mm.init_with_alpha(torch.Generator().manual_seed(SEED), config, Xt, [0.1, 0.1],
+                               device="cuda")
+    single = mm.fit(state, Xt, config, maxiter=MAXITER, tol=TOL)
+    for devices in (two, ["cuda:0"]):
+        res, wall, info = timed(lambda i: sharding.sharded_data_parallel_fit(
+            sharding.make_mesh(1, len(devices), devices), state, X, config, maxiter=MAXITER,
+            tol=TOL, run_info=i))
+        label = (f"multi-device (c): sharded_data_parallel_fit over {len(devices)} data "
+                 f"rank(s) on {devices}, {560 // len(devices)} documents a rank")
+        rank_line(label, wall, info)
+        n, n1 = int(res.n_iters[0]), int(single.n_iters[0])
+        got, want = (r.ll_history[0, :DP_ITERS].cpu().double().numpy() for r in (res, single))
+        rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        print(f"{label}: {n} iterations (one process {n1}), final ll {res.ll[0].tolist()} (one "
+              f"process {single.ll[0].tolist()}), elbo {float(res.elbo[0])} ({float(single.elbo[0])}); "
+              f"first {DP_ITERS} iterations' lls against the one-process fit: max relative "
+              f"difference {rel:.3e}")
+        if not (torch.isfinite(res.ll).all() and rel <= DP_LL_RTOL
+                and np.all(np.abs(res.ll[0].cpu().numpy() - single.ll[0].cpu().numpy())
+                           <= LL_SLACK)):
+            fail(f"{label}: the fit disagrees with the one-process fit (relative {rel:.3e} > "
+                 f"{DP_LL_RTOL}, or final lls more than {LL_SLACK} apart)")
+        add(rank_launch_gate(label, info, [n] * len(devices), eta=True))
+
+    # (d) the restart x data mesh, two restart rows
+    mesh = sharding.make_mesh(2, 1, two)
+    res, wall, info = timed(lambda i: sharding.sharded_fit_restarts(
+        mesh, SEED, X, config, [0.1, 0.1], run_info=i, **kw))
+    label = f"multi-device (d): sharded_fit_restarts on a mesh {mesh.shape} of {two}"
+    rank_line(label, wall, info)
+    ll = res.ll.cpu().double().numpy()
+    ll_gates(label, ll, JAX_CPU_BEST_LL)
+    best = np.max(np.where(np.isfinite(ll), ll, -np.inf), axis=0)
+    if not np.all(np.abs(best - one_best) <= LL_SLACK):
+        fail(f"{label}: best ll {best.tolist()} is not within {LL_SLACK} of the one-process "
+             f"fit's {one_best.tolist()}")
+    add(rank_launch_gate(label, info, slices(res.n_iters.cpu(), 2), eta=True))
+    return total
 
 
 def load_brca():
@@ -1644,6 +1817,7 @@ def main():
     }
     cli_subprocess_phase()
     theta_launch_check(tk)
+    paths["multi-device"] = multi_device_phase(mt, X, docs, docs_snv, features)
     launches = {k: sum(p[k] for p in paths.values()) for k in ("estep_eta", "lambda_newton",
                                                                 "theta_moments")}
     print(f"kernel launches on the driven paths: {paths}")

@@ -4,6 +4,15 @@ Counterpart of multimodalmusig_tpu/models/ctm_base.py. Restarts are a
 written-out leading dimension R instead of a `vmap`: λ/ν are (R, D, MK),
 ζ (R, D, M), μ (R, MK), Σ/Σ⁻¹ (R, MK, MK); the counts X (a tuple of
 (D, V_m)) and N (D, M) are shared by every lane.
+
+The functions that sum over the documents take an optional `reduce`, the
+hook of a data-parallel fit (parallel/sharding.py `DocSum`), where each
+process holds a slice of the documents and the config's D is the global
+count: `reduce(tensors)` returns each tensor summed over every slice, the
+same on every process, and `reduce.agree(done)` returns the first
+process's flags, so that every process stops at the same iteration. With
+no hook each of them computes exactly what it computed before the hook
+existed.
 """
 
 from __future__ import annotations
@@ -332,9 +341,14 @@ def check_device(device) -> torch.device:
     return device
 
 
-def update_mu_vec(lam: torch.Tensor) -> torch.Tensor:
-    """μ = mean_d λ_d (src/MMCTM.jl:200-202): (R, D, MK) -> (R, MK)."""
-    return lam.mean(dim=-2)
+def update_mu_vec(lam: torch.Tensor, reduce=None, D: Optional[int] = None) -> torch.Tensor:
+    """μ = mean_d λ_d (src/MMCTM.jl:200-202): (R, D, MK) -> (R, MK). With
+    `reduce`, λ holds this process's documents and μ is their reduced sum
+    over the global document count D."""
+    if reduce is None:
+        return lam.mean(dim=-2)
+    (total,) = reduce([lam.sum(dim=-2)])  # D-reduction: μ's sum over documents
+    return total / D
 
 
 def spd_inverse(Sigma: torch.Tensor) -> torch.Tensor:
@@ -353,10 +367,15 @@ def spd_inverse(Sigma: torch.Tensor) -> torch.Tensor:
     return torch.where((info != 0)[..., None, None], torch.nan, inv)
 
 
-def update_Sigma_mats(lam, nu, mu, D):
-    """Σ = (Σ_d diag(ν_d) + (λ_d-μ)(λ_d-μ)ᵀ)/D and Σ⁻¹ (src/MMCTM.jl:204-212)."""
+def update_Sigma_mats(lam, nu, mu, D, reduce=None):
+    """Σ = (Σ_d diag(ν_d) + (λ_d-μ)(λ_d-μ)ᵀ)/D and Σ⁻¹ (src/MMCTM.jl:204-212).
+    With `reduce`, the sum over this process's documents is reduced before
+    the division by the global D; every process then inverts the same Σ."""
     E = lam - mu.unsqueeze(-2)
-    Sigma = (torch.diag_embed(nu.sum(dim=-2)) + E.mT @ E) / D
+    scatter = torch.diag_embed(nu.sum(dim=-2)) + E.mT @ E
+    if reduce is not None:
+        (scatter,) = reduce([scatter])  # D-reduction: Σ's sum over documents
+    Sigma = scatter / D
     return Sigma, spd_inverse(Sigma)
 
 
@@ -405,7 +424,7 @@ def _per_lane(t: torch.Tensor) -> torch.Tensor:
 
 
 def run_cavi_from(carry, maxiter: int, tol: float, step_fn, max_new_iters=None,
-                  verbose: bool = False, verbose_label: str = "Log-likelihoods"):
+                  verbose: bool = False, verbose_label: str = "Log-likelihoods", reduce=None):
     """Resume the CAVI loop from `carry` for up to `max_new_iters` more
     iterations (None: up to maxiter in all), with the reference's
     convergence rule (relative Δ of the lane's ll, the (M,) vector or LDA's
@@ -431,7 +450,9 @@ def run_cavi_from(carry, maxiter: int, tol: float, step_fn, max_new_iters=None,
     The lanes still running must share one iteration count, as they do in a
     fresh carry and in the survivors of a compaction boundary (which all ran
     the whole phase); reading it is this call's one device→host sync before
-    the loop. Returns the new carry."""
+    the loop. With `reduce` (a data-parallel fit's hook) the loop stops on
+    the first process's `done`, so no process leaves a collective that the
+    others still enter. Returns the new carry."""
     state, ll_buf, n_iters, done = carry
     running = n_iters[~done].unique().tolist()
     if len(running) > 1:
@@ -453,9 +474,11 @@ def run_cavi_from(carry, maxiter: int, tol: float, step_fn, max_new_iters=None,
             if bool(active.any()):
                 lls = ll_i[0] if ll_i.shape[0] == 1 else ll_i
                 print(f"{it + 1}\t{verbose_label}: {lls.cpu().numpy()}")
-            if bool(done.all()):
-                break
-        elif (it + 1) % DONE_CHECK_EVERY == 0 and bool(done.all()):
+        elif (it + 1) % DONE_CHECK_EVERY != 0:
+            continue
+        if reduce is not None:
+            done = reduce.agree(done)
+        if bool(done.all()):
             break
     return state, ll_buf, n_iters, done
 
@@ -478,7 +501,8 @@ def _cat_lanes(trees):
 
 
 def run_cavi(state, config, maxiter: int, tol: float, step_fn, compact_schedule=(),
-             progress=None, verbose: bool = False, verbose_label: str = "Log-likelihoods"):
+             progress=None, verbose: bool = False, verbose_label: str = "Log-likelihoods",
+             reduce=None):
     """The whole CAVI loop over every lane of `state`, from a fresh carry.
     Returns (state, ll_buf (R, maxiter, *config.ll_shape), n_iters (R,),
     done (R,)).
@@ -500,11 +524,11 @@ def run_cavi(state, config, maxiter: int, tol: float, step_fn, compact_schedule=
 
     `progress(done, total)` is called at every boundary and once at the
     end, with the number of finished lanes (converged, non-finite or at
-    maxiter) out of R; an uncut fit calls it once, with (R, R). `verbose`
-    and `verbose_label` are `run_cavi_from`'s."""
+    maxiter) out of R; an uncut fit calls it once, with (R, R). `verbose`,
+    `verbose_label` and `reduce` are `run_cavi_from`'s."""
     carry = make_cavi_carry(state, config, maxiter)
     R, device = lanes_of(state)
-    loud = dict(verbose=verbose, verbose_label=verbose_label)
+    loud = dict(verbose=verbose, verbose_label=verbose_label, reduce=reduce)
     budgets = (int(c) for c in (() if compact_schedule is None else compact_schedule))
     order = np.arange(R)
     groups, group_orders = [], []
@@ -538,9 +562,10 @@ def carry_converged(ll_buf, n_iters, done):
     return done & torch.isfinite(_per_lane(last)).all(dim=-1)
 
 
-def elbo_eta_z_term_dict(lam, nu, zeta, mu, invSigma, sumtheta, N, config):
+def elbo_eta_z_term_dict(lam, nu, zeta, mu, invSigma, sumtheta, N, config, reduce=None):
     """The logistic-normal ELBO pieces {ElnPeta, ElnPZ, ElnQeta}, each (R,)
-    (src/MMCTM.jl:286-318, 354-360)."""
+    (src/MMCTM.jl:286-318, 354-360). With `reduce`, the document sums of
+    this process's documents are reduced; D is the config's global count."""
     D, MK = config.D, config.MK
     log2pi = math.log(2 * math.pi)
     Ediff = lam - mu.unsqueeze(-2)
@@ -548,7 +573,6 @@ def elbo_eta_z_term_dict(lam, nu, zeta, mu, invSigma, sumtheta, N, config):
     logdet = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
     quad = (Ediff * (Ediff @ invSigma)).sum(dim=(-2, -1))
     trace = (nu * torch.diagonal(invSigma, dim1=-2, dim2=-1).unsqueeze(-2)).sum(dim=(-2, -1))
-    ElnPeta = 0.5 * (D * logdet - D * MK * log2pi - trace - quad)
 
     Eeta = torch.exp(lam + 0.5 * nu)
     Ndivzeta = calculate_Ndivzeta(N, zeta, config)
@@ -557,7 +581,13 @@ def elbo_eta_z_term_dict(lam, nu, zeta, mu, invSigma, sumtheta, N, config):
         - ((Ndivzeta * Eeta).sum(dim=(-2, -1)) - N.sum())
         - (N * torch.log(zeta)).sum(dim=(-2, -1))
     )
-    ElnQeta = -0.5 * (torch.log(nu).sum(dim=(-2, -1)) + D * MK * (log2pi + 1.0))
+    lognu = torch.log(nu).sum(dim=(-2, -1))
+    if reduce is not None:
+        # D-reductions: the quadratic and trace terms, ElnPZ (N.sum() in it)
+        # and Σ log ν
+        quad, trace, ElnPZ, lognu = reduce([quad, trace, ElnPZ, lognu])
+    ElnPeta = 0.5 * (D * logdet - D * MK * log2pi - trace - quad)
+    ElnQeta = -0.5 * (lognu + D * MK * (log2pi + 1.0))
     return {"ElnPeta": ElnPeta, "ElnPZ": ElnPZ, "ElnQeta": ElnQeta}
 
 

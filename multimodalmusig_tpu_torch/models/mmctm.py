@@ -9,6 +9,9 @@ Every state tensor carries a leading restart dimension R (a single model is
 R = 1): μ (R, MK), Σ/Σ⁻¹ (R, MK, MK), α (R, M), γ/Elnϕ tuples of
 (R, K_m, V_m), λ/ν (R, D, MK), ζ (R, D, M). The dense counts X are a tuple
 of (D, V_m) tensors shared by all lanes. Nothing here trains by autograd.
+
+The fit's document sums take ctm_base's optional `reduce` hook, with which
+parallel/sharding.py fits one model over documents split between processes.
 """
 
 from __future__ import annotations
@@ -221,20 +224,24 @@ def e_step_moments(state: MMCTMState, X, N, config: MMCTMConfig, logw=None,
     )
 
 
-def update_mu(state: MMCTMState) -> MMCTMState:
-    """μ = mean_d λ_d (src/MMCTM.jl:200-202)."""
-    return state._replace(mu=update_mu_vec(state.lam))
+def update_mu(state: MMCTMState, config: MMCTMConfig = None, reduce=None) -> MMCTMState:
+    """μ = mean_d λ_d (src/MMCTM.jl:200-202); with `reduce` (ctm_base), over
+    the config's global D."""
+    return state._replace(mu=update_mu_vec(state.lam, reduce, None if config is None else config.D))
 
 
-def update_Sigma(state: MMCTMState, config: MMCTMConfig) -> MMCTMState:
+def update_Sigma(state: MMCTMState, config: MMCTMConfig, reduce=None) -> MMCTMState:
     """Σ = (Σ_d diag(ν_d) + (λ_d-μ)(λ_d-μ)ᵀ) / D, then Σ⁻¹ (src/MMCTM.jl:204-212)."""
-    Sigma, invSigma = update_Sigma_mats(state.lam, state.nu, state.mu, config.D)
+    Sigma, invSigma = update_Sigma_mats(state.lam, state.nu, state.mu, config.D, reduce)
     return state._replace(Sigma=Sigma, invSigma=invSigma)
 
 
-def update_gamma(state: MMCTMState, config: MMCTMConfig, scatter) -> MMCTMState:
+def update_gamma(state: MMCTMState, config: MMCTMConfig, scatter, reduce=None) -> MMCTMState:
     """γ_m[k,v] = α_m + Σ_d X_m[d,v]·θ_m[d,v,k] from the E-step's (R, K_m, V_m)
-    `scatter`, then E[ln ϕ] (src/MMCTM.jl:224-250, 214-222)."""
+    `scatter`, then E[ln ϕ] (src/MMCTM.jl:224-250, 214-222). With `reduce`,
+    the scatters of this process's documents are reduced first."""
+    if reduce is not None:
+        scatter = reduce(list(scatter))  # D-reduction: the γ scatter
     gamma = tuple(state.alpha[:, m, None, None] + scatter[m] for m in range(config.M))
     return state._replace(
         gamma=gamma, Elnphi=tuple(dirichlet_expectation(g, axis=-1) for g in gamma)
@@ -265,16 +272,17 @@ def phi_point(gamma) -> Tuple[torch.Tensor, ...]:
 # ---------------------------------------------------------------------------
 
 
-def elbo_terms(state: MMCTMState, X, N, config: MMCTMConfig) -> dict:
+def elbo_terms(state: MMCTMState, X, N, config: MMCTMConfig, reduce=None) -> dict:
     """The 7 named ELBO terms of src/MMCTM.jl:271-370, each (R,):
     {ElnPphi, ElnPeta, ElnPZ, ElnPX, ElnQphi, ElnQeta, ElnQZ}. Uses the last
-    E-step's θ (reconstructed from the carried snapshot)."""
+    E-step's θ (reconstructed from the carried snapshot). With `reduce`
+    (ctm_base), the document sums are reduced over every process."""
     theta = reconstruct_theta(state, config)
     sumtheta = torch.cat(
         [torch.einsum("dv,rdvk->rdk", X[m], theta[m]) for m in range(config.M)], dim=-1
     )
     terms = elbo_eta_z_term_dict(
-        state.lam, state.nu, state.zeta, state.mu, state.invSigma, sumtheta, N, config
+        state.lam, state.nu, state.zeta, state.mu, state.invSigma, sumtheta, N, config, reduce
     )
     ElnPphi = ElnPX = ElnQphi = ElnQZ = 0.0
     for m in range(config.M):
@@ -285,6 +293,8 @@ def elbo_terms(state: MMCTMState, X, N, config: MMCTMConfig) -> dict:
         ElnQphi = ElnQphi - logmvbeta(state.gamma[m], axis=-1).sum(-1)
         ElnQphi = ElnQphi + ((state.gamma[m] - 1.0) * state.Elnphi[m]).sum(dim=(-2, -1))
         ElnQZ = ElnQZ + torch.einsum("dv,rdvk->r", X[m], xlogx(theta[m]))
+    if reduce is not None:
+        ElnPX, ElnQZ = reduce([ElnPX, ElnQZ])  # D-reductions: E[ln p(X)] and E[ln q(Z)]
     return {
         "ElnPphi": ElnPphi,
         "ElnPeta": terms["ElnPeta"],
@@ -296,23 +306,30 @@ def elbo_terms(state: MMCTMState, X, N, config: MMCTMConfig) -> dict:
     }
 
 
-def calculate_elbo(state: MMCTMState, X, N, config: MMCTMConfig) -> torch.Tensor:
+def calculate_elbo(state: MMCTMState, X, N, config: MMCTMConfig, reduce=None) -> torch.Tensor:
     """The 7-term ELBO with the Blei-Lafferty ζ bound (src/MMCTM.jl:271-382), (R,)."""
-    t = elbo_terms(state, X, N, config)
+    t = elbo_terms(state, X, N, config, reduce)
     return (
         t["ElnPphi"] + t["ElnPeta"] + t["ElnPZ"] + t["ElnPX"]
         - t["ElnQphi"] - t["ElnQeta"] - t["ElnQZ"]
     )
 
 
-def modality_loglikelihoods(X, props, phi) -> torch.Tensor:
+def modality_loglikelihoods(X, props, phi, reduce=None) -> torch.Tensor:
     """(R, M) per-modality per-word mixture log-likelihood:
-    Σ_d Σ_v X·log(Σ_k props·ϕ) / Σ_d N_d (src/MMCTM.jl:384-448)."""
-    return torch.stack(
-        [safe_xlogy(X[m], props[m] @ phi[m]).sum(dim=(-2, -1)) / X[m].sum()
-         for m in range(len(X))],
-        dim=-1,
-    )
+    Σ_d Σ_v X·log(Σ_k props·ϕ) / Σ_d N_d (src/MMCTM.jl:384-448). With
+    `reduce` (ctm_base), both sums are reduced over every process's
+    documents."""
+    if reduce is None:
+        return torch.stack(
+            [safe_xlogy(X[m], props[m] @ phi[m]).sum(dim=(-2, -1)) / X[m].sum()
+             for m in range(len(X))],
+            dim=-1,
+        )
+    M = len(X)
+    sums = reduce([safe_xlogy(X[m], props[m] @ phi[m]).sum(dim=(-2, -1)) for m in range(M)]
+                  + [X[m].sum() for m in range(M)])  # D-reductions: the lls and the counts
+    return torch.stack([sums[m] / sums[M + m] for m in range(M)], dim=-1)
 
 
 def doc_modality_loglikelihood(Xdm, props, phi) -> torch.Tensor:
@@ -337,27 +354,31 @@ def docmodality_loglikelihoods(X, props, phi) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def fit_step_fn(X, N, config: MMCTMConfig, autoalpha: bool = False, update_sigma: bool = True):
+def fit_step_fn(X, N, config: MMCTMConfig, autoalpha: bool = False, update_sigma: bool = True,
+                reduce=None):
     """One CAVI iteration as a closure (src/MMCTM.jl:463-479): batched E-step
     (ζ/θ/ν/λ ∀d) → μ → Σ (if update_sigma) → γ → α (if autoalpha) →
-    per-modality log-likelihoods."""
+    per-modality log-likelihoods. With `reduce` (ctm_base), X and N hold
+    this process's documents, the E-step runs on them alone, and μ, Σ, the
+    γ scatter and the lls reduce their document sums."""
 
     def step(s):
         s, scatters = e_step_moments(s, X, N, config)
-        s = update_mu(s)
+        s = update_mu(s, config, reduce)
         if update_sigma:
-            s = update_Sigma(s, config)
-        s = update_gamma(s, config, scatters)
+            s = update_Sigma(s, config, reduce)
+        s = update_gamma(s, config, scatters, reduce)
         if autoalpha:
             s = update_alpha(s, config)
-        return s, modality_loglikelihoods(X, props_from(s.lam, config), phi_point(s.gamma))
+        return s, modality_loglikelihoods(X, props_from(s.lam, config), phi_point(s.gamma),
+                                          reduce)
 
     return step
 
 
-def finalize_fit(carry, X, N, config: MMCTMConfig) -> MMCTMFitResult:
+def finalize_fit(carry, X, N, config: MMCTMConfig, reduce=None) -> MMCTMFitResult:
     """A finished CAVI carry as an MMCTMFitResult (final ELBO as at
-    src/MMCTM.jl:490)."""
+    src/MMCTM.jl:490; with `reduce`, over every process's documents)."""
     state, ll_buf, n_iters, done = carry
     lanes = torch.arange(ll_buf.shape[0], device=ll_buf.device)
     return MMCTMFitResult(
@@ -365,25 +386,28 @@ def finalize_fit(carry, X, N, config: MMCTMConfig) -> MMCTMFitResult:
         ll_history=ll_buf,
         n_iters=n_iters,
         converged=carry_converged(ll_buf, n_iters, done),
-        elbo=calculate_elbo(state, X, N, config),
+        elbo=calculate_elbo(state, X, N, config, reduce),
         ll=ll_buf[lanes, n_iters - 1],
     )
 
 
 def fit(state: MMCTMState, X, config: MMCTMConfig, maxiter: int = 100,
         tol: float = 1e-4, compact_schedule=(), progress=None, verbose: bool = False,
-        autoalpha: bool = False, update_sigma: bool = True) -> MMCTMFitResult:
+        autoalpha: bool = False, update_sigma: bool = True, reduce=None) -> MMCTMFitResult:
     """Full MMCTM CAVI over every lane of `state` (src/MMCTM.jl:457-494),
     with TF32 off for all float32 products. X is a tuple of dense (D, V_m)
     tensors on the state's device and dtype. `compact_schedule` (any
     iterable of budgets), `progress(done, total)` and `verbose` are
-    ctm_base.run_cavi's; `autoalpha` and `update_sigma` fit_step_fn's."""
+    ctm_base.run_cavi's; `autoalpha` and `update_sigma` fit_step_fn's.
+    `reduce` is ctm_base's data-parallel hook (parallel/sharding.py): the
+    state's document fields and X then hold this process's documents."""
     X = tuple(X)
     with full_f32_matmuls():
         N = counts_per_doc(X)
-        step = fit_step_fn(X, N, config, autoalpha, update_sigma)
-        carry = run_cavi(state, config, maxiter, tol, step, compact_schedule, progress, verbose)
-        return finalize_fit(carry, X, N, config)
+        step = fit_step_fn(X, N, config, autoalpha, update_sigma, reduce)
+        carry = run_cavi(state, config, maxiter, tol, step, compact_schedule, progress, verbose,
+                         reduce=reduce)
+        return finalize_fit(carry, X, N, config, reduce)
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,11 @@ puts one every chunk_iters iterations, `compact_schedule=(c1, c2, ...)` at
 the given budgets, and `compact_schedule="auto"` derives the budgets from a
 timed pilot of the first lanes (`fit_restarts_auto`). At each boundary the
 finished lanes leave the batch and `progress` hears how many have finished.
+
+`devices=` on the IMMCTM, LDA and ILDA fitters fans the lanes out over one
+process per device instead (parallel/_ranks.py `fit_lanes`; MMCTM's fan-out
+is parallel/sharding.py's `shmap_fit_restarts`), uncut, so it excludes
+`chunk_iters` and `compact_schedule`.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from ..models.ilda import ILDA, ILDAConfig, ILDAFitResult, ILDAState
 from ..models.immctm import IMMCTM, IMMCTMConfig, IMMCTMFitResult, IMMCTMState
 from ..models.lda import LDA, LDAConfig, LDAFitResult, LDAState
 from ..models.mmctm import MMCTM, MMCTMConfig, MMCTMFitResult, MMCTMState
+from . import _ranks
 from .rescore import (
     rescore_ilda_f64,
     rescore_immctm_f64,
@@ -238,6 +244,29 @@ def _is_auto(compact_schedule, chunk_iters) -> bool:
     if chunk_iters is not None:
         raise ValueError("chunk_iters and compact_schedule='auto' are mutually exclusive")
     return True
+
+
+def _check_devices(devices, chunk_iters, compact_schedule):
+    """`devices` (the restart fan-out) excludes host-driven compaction
+    (restarts.py:1572-1577 of the JAX package)."""
+    if devices is not None and (chunk_iters is not None or compact_schedule):
+        raise ValueError(
+            "devices (the shard_map restart fan-out) is incompatible "
+            "with chunk_iters/compact_schedule (host-driven compaction)"
+        )
+
+
+def _fan_out(fit_from_states, state, args: tuple, maxiter: int, tol: float, devices,
+             progress, run_info):
+    """`fit_from_states(state, *args, maxiter=, tol=)` with the lanes fanned
+    out over `devices` (_ranks.fit_lanes); `progress` hears (R, R) at the
+    end, as after an uncut fit."""
+    result = _ranks.fit_lanes(fit_from_states, state, args, dict(maxiter=maxiter, tol=tol),
+                              devices, run_info)
+    if progress is not None:
+        R = ctm_base.lanes_of(state)[0]
+        progress(R, R)
+    return result
 
 
 def _sync(device: torch.device):
@@ -718,12 +747,20 @@ def fit_mmctm_restarts(k: Sequence[int], alpha: Sequence[float], X,
 def fit_immctm_restarts_from_states(state: IMMCTMState, X, F, config: IMMCTMConfig,
                                     maxiter: int = 1000, tol: float = 1e-4,
                                     compact_schedule: Optional[Sequence[int]] = None,
-                                    progress=None) -> IMMCTMFitResult:
+                                    progress=None, devices: Optional[Sequence] = None,
+                                    run_info: Optional[dict] = None) -> IMMCTMFitResult:
     """Fit every lane of a batched initial IMMCTM `state` (from
     `immctm.init`, or injected by `interop.immctm_state_from_numpy`). X (dense
     (D, V_m) counts) and F (one-hot (V_m, J_mi) features) are moved to the
     state's device and dtype. `compact_schedule` (any iterable of budgets)
-    and `progress` as in `fit_restarts`."""
+    and `progress` as in `fit_restarts`. `devices` fans the lanes out over
+    one process per device, each fitting its slice uncut (`_fan_out`; the
+    result comes back on the state's device, `run_info` receives the ranks'
+    backend, timings and launches)."""
+    if devices is not None:
+        _check_devices(devices, None, compact_schedule)
+        return _fan_out(fit_immctm_restarts_from_states, state, (X, F, config), maxiter, tol,
+                        devices, progress, run_info)
     schedule = _resolve_schedule(None, compact_schedule)
     device = state.lam.device
     X = mmctm_mod.counts_tensors(X, config, device)
@@ -738,9 +775,10 @@ def fit_immctm_restarts(k, alpha, features, X, restarts: int = 100, maxiter: int
                         dtype: torch.dtype = torch.float32, device="cuda",
                         rescore_f64: bool = True, chunk_iters: Optional[int] = None,
                         compact_schedule: Union[Sequence[int], str, None] = None,
-                        pilot_restarts: int = 64) -> IMMCTM:
+                        pilot_restarts: int = 64,
+                        devices: Optional[Sequence] = None) -> IMMCTM:
     """Best-of-N IMMCTM fitting (the JAX package's fit_immctm_restarts,
-    restarts.py:1685-1762, but for `devices`): `restarts` lanes initialized
+    restarts.py:1685-1762): `restarts` lanes initialized
     from a CPU generator seeded with `seed`, fit as one batch on `device`
     (the CUDA card unless the caller asks for the CPU), then one lane
     selected by the minimum mean dense rank of |ll| across modalities
@@ -750,8 +788,12 @@ def fit_immctm_restarts(k, alpha, features, X, restarts: int = 100, maxiter: int
     the fit as in `fit_restarts`; `compact_schedule="auto"` derives the
     schedule from a pilot of the first `pilot_restarts` lanes, as
     `fit_restarts_auto` does, and records the derivation as
-    `model.compact_info`. Returns that wrapper holding the selected lane;
-    its `restart_result` is the batched IMMCTMFitResult of all lanes."""
+    `model.compact_info`. `devices` fans the lanes out over one process per
+    device instead (`fit_immctm_restarts_from_states`), uncut, from the same
+    inits, and records the ranks' run as `model.rank_info`; the re-scores
+    and the pick stay on `device`. Returns that wrapper holding the selected
+    lane; its `restart_result` is the batched IMMCTMFitResult of all lanes."""
+    _check_devices(devices, chunk_iters, compact_schedule)
     auto = _is_auto(compact_schedule, chunk_iters)
     schedule = None if auto else _resolve_schedule(chunk_iters, compact_schedule)
     model = IMMCTM(k, alpha, features, X, dtype=dtype, device=device)
@@ -765,9 +807,13 @@ def fit_immctm_restarts(k, alpha, features, X, restarts: int = 100, maxiter: int
         with ctm_base.full_f32_matmuls():
             result, model.compact_info = _fit_auto(state, fit_fn, maxiter, pilot_restarts)
     else:
+        run_info = None if devices is None else {}
         result = fit_immctm_restarts_from_states(state, model.Xdense, model.F, cfg,
                                                  maxiter=maxiter, tol=tol,
-                                                 compact_schedule=schedule)
+                                                 compact_schedule=schedule, devices=devices,
+                                                 run_info=run_info)
+        if run_info is not None:
+            model.rank_info = run_info
     score = (rescore_immctm_f64(result.state.lam, result.state.gamma, model.Xdense, model.F, cfg)
              if rescore_f64 else result.ll)
     sel = lane(result, int(pick_optimal_restart(score)))
@@ -800,14 +846,20 @@ def _best_scalar_ll_lane(result, rescore_fn, rescore_f64: bool) -> int:
 
 
 def _fit_scalar_family(model, state, fit_fn, rescore_fn, maxiter: int, chunk_iters,
-                       compact_schedule, rescore_f64: bool, pilot_restarts: int):
+                       compact_schedule, rescore_f64: bool, pilot_restarts: int, devices=None):
     """Fit every lane of the batched `state` with `fit_fn(state, schedule,
     progress)` (uncut, cut by `chunk_iters` or a `compact_schedule` tuple,
     or "auto" as `_fit_auto`, which records its derivation as
-    `model.compact_info`), pick a lane by `_best_scalar_ll_lane` with
-    `rescore_fn(state, lanes)`, and put it into the wrapper `model`, whose
-    `restart_result` is the batched result of all lanes."""
-    if _is_auto(compact_schedule, chunk_iters):
+    `model.compact_info`), or with `fit_fn(state, None, None, devices,
+    run_info)` fanned out over `devices` (recorded as `model.rank_info`),
+    pick a lane by `_best_scalar_ll_lane` with `rescore_fn(state, lanes)`,
+    and put it into the wrapper `model`, whose `restart_result` is the
+    batched result of all lanes."""
+    _check_devices(devices, chunk_iters, compact_schedule)
+    if devices is not None:
+        model.rank_info = {}
+        result = fit_fn(state, None, None, devices, model.rank_info)
+    elif _is_auto(compact_schedule, chunk_iters):
         with ctm_base.full_f32_matmuls():
             result, model.compact_info = _fit_auto(state, fit_fn, maxiter, pilot_restarts)
     else:
@@ -822,11 +874,17 @@ def _fit_scalar_family(model, state, fit_fn, rescore_fn, maxiter: int, chunk_ite
 def fit_lda_restarts_from_states(state: LDAState, X, config: LDAConfig, maxiter: int = 1000,
                                  tol: float = 1e-4,
                                  compact_schedule: Optional[Sequence[int]] = None,
-                                 progress=None) -> LDAFitResult:
+                                 progress=None, devices: Optional[Sequence] = None,
+                                 run_info: Optional[dict] = None) -> LDAFitResult:
     """Fit every lane of a batched initial LDA `state` (from `lda.init`, or
     injected by `interop.lda_state_from_numpy`). X, the dense (D, V) counts,
     is moved to the state's device and dtype. `compact_schedule` (any
-    iterable of budgets) and `progress` as in `fit_restarts`."""
+    iterable of budgets) and `progress` as in `fit_restarts`; `devices` and
+    `run_info` as in `fit_immctm_restarts_from_states`."""
+    if devices is not None:
+        _check_devices(devices, None, compact_schedule)
+        return _fan_out(fit_lda_restarts_from_states, state, (X, config), maxiter, tol, devices,
+                        progress, run_info)
     schedule = _resolve_schedule(None, compact_schedule)
     X = lda_mod.counts_tensor(X, config, ctm_base.lanes_of(state)[1])
     return lda_mod.fit(state, X, config, maxiter=maxiter, tol=tol, compact_schedule=schedule,
@@ -838,9 +896,10 @@ def fit_lda_restarts(k, alpha, eta, X, V=None, restarts: int = 100, maxiter: int
                      dtype: torch.dtype = torch.float32, device="cuda",
                      chunk_iters: Optional[int] = None,
                      compact_schedule: Union[Sequence[int], str, None] = None,
-                     rescore_f64: bool = True, pilot_restarts: int = 64) -> LDA:
+                     rescore_f64: bool = True, pilot_restarts: int = 64,
+                     devices: Optional[Sequence] = None) -> LDA:
     """Best-of-N LDA fitting (the JAX package's fit_lda_restarts,
-    restarts.py:1529-1605, but for `devices`): `restarts` lanes initialized
+    restarts.py:1529-1605): `restarts` lanes initialized
     from a CPU generator seeded with `seed`, fit as one batch on `device`
     (the CUDA card unless the caller asks for the CPU), then the lane with
     the best final ll, read from exact float64 re-scores of the shortlisted
@@ -848,35 +907,43 @@ def fit_lda_restarts(k, alpha, eta, X, V=None, restarts: int = 100, maxiter: int
     wrapper's. `chunk_iters` and a `compact_schedule` tuple cut the fit as
     in `fit_restarts`; `compact_schedule="auto"` derives the schedule from a
     pilot of the first `pilot_restarts` lanes, as `fit_restarts_auto` does,
-    and records the derivation as `model.compact_info`. Returns that wrapper
-    holding the selected lane; its `restart_result` is the batched
-    LDAFitResult of all lanes."""
+    and records the derivation as `model.compact_info`. `devices` fans the
+    lanes out as in `fit_immctm_restarts`. Returns that wrapper holding the
+    selected lane; its `restart_result` is the batched LDAFitResult of all
+    lanes."""
     args = (k, alpha, eta) + (() if V is None else (V,)) + (X,)
     model = LDA(*args, dtype=dtype, device=device)
     cfg = model.config
     state = lda_mod.init(torch.Generator().manual_seed(int(seed)), cfg, restarts=restarts,
                          device=model.device)
 
-    def fit_fn(st, schedule, progress):
-        return lda_mod.fit(st, model.Xdense, cfg, maxiter=maxiter, tol=tol,
-                           compact_schedule=schedule, progress=progress)
+    def fit_fn(st, schedule, progress, devices=None, run_info=None):
+        return fit_lda_restarts_from_states(st, model.Xdense, cfg, maxiter=maxiter, tol=tol,
+                                            compact_schedule=schedule, progress=progress,
+                                            devices=devices, run_info=run_info)
 
     def rescore(st, lanes):
         return rescore_lda_f64(st.gamma, st.lam, model.Xdense, lanes)
 
     return _fit_scalar_family(model, state, fit_fn, rescore, maxiter, chunk_iters,
-                              compact_schedule, rescore_f64, pilot_restarts)
+                              compact_schedule, rescore_f64, pilot_restarts, devices)
 
 
 def fit_ilda_restarts_from_states(state: ILDAState, X, F, config: ILDAConfig,
                                   maxiter: int = 1000, tol: float = 1e-4,
                                   compact_schedule: Optional[Sequence[int]] = None,
-                                  progress=None) -> ILDAFitResult:
+                                  progress=None, devices: Optional[Sequence] = None,
+                                  run_info: Optional[dict] = None) -> ILDAFitResult:
     """Fit every lane of a batched initial ILDA `state` (from `ilda.init`,
     or injected by `interop.ilda_state_from_numpy`). X (dense (D, V)
     counts) and F (one-hot (V, J_i) features) are moved to the state's
     device and dtype. `compact_schedule` and `progress` as in
-    `fit_restarts`."""
+    `fit_restarts`; `devices` and `run_info` as in
+    `fit_immctm_restarts_from_states`."""
+    if devices is not None:
+        _check_devices(devices, None, compact_schedule)
+        return _fan_out(fit_ilda_restarts_from_states, state, (X, F, config), maxiter, tol,
+                        devices, progress, run_info)
     schedule = _resolve_schedule(None, compact_schedule)
     device = ctm_base.lanes_of(state)[1]
     X = lda_mod.counts_tensor(X, config, device)
@@ -890,9 +957,10 @@ def fit_ilda_restarts(k, alpha, eta, features, X, restarts: int = 100, maxiter: 
                       dtype: torch.dtype = torch.float32, device="cuda",
                       chunk_iters: Optional[int] = None,
                       compact_schedule: Union[Sequence[int], str, None] = None,
-                      rescore_f64: bool = True, pilot_restarts: int = 64) -> ILDA:
+                      rescore_f64: bool = True, pilot_restarts: int = 64,
+                      devices: Optional[Sequence] = None) -> ILDA:
     """Best-of-N ILDA fitting (the JAX package's fit_ilda_restarts,
-    restarts.py:1608-1682, but for `devices`), as `fit_lda_restarts`; the
+    restarts.py:1608-1682), as `fit_lda_restarts`; the
     arguments before `restarts` are the `ILDA` wrapper's. Returns that
     wrapper holding the selected lane; its `restart_result` is the batched
     fit result of all lanes."""
@@ -901,12 +969,14 @@ def fit_ilda_restarts(k, alpha, eta, features, X, restarts: int = 100, maxiter: 
     state = ilda_mod.init(torch.Generator().manual_seed(int(seed)), cfg, restarts=restarts,
                           device=model.device)
 
-    def fit_fn(st, schedule, progress):
-        return ilda_mod.fit(st, model.Xdense, model.F, cfg, maxiter=maxiter, tol=tol,
-                            compact_schedule=schedule, progress=progress)
+    def fit_fn(st, schedule, progress, devices=None, run_info=None):
+        return fit_ilda_restarts_from_states(st, model.Xdense, model.F, cfg, maxiter=maxiter,
+                                             tol=tol, compact_schedule=schedule,
+                                             progress=progress, devices=devices,
+                                             run_info=run_info)
 
     def rescore(st, lanes):
         return rescore_ilda_f64(st.gamma, st.lam, model.Xdense, model.F, lanes)
 
     return _fit_scalar_family(model, state, fit_fn, rescore, maxiter, chunk_iters,
-                              compact_schedule, rescore_f64, pilot_restarts)
+                              compact_schedule, rescore_f64, pilot_restarts, devices)

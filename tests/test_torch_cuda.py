@@ -4,7 +4,8 @@ shapes), the dispatch rules, and short MMCTM and IMMCTM fits, the compacted
 restart fit, the two-stage fit and the inference loops on the card against
 the same runs in float64 on the CPU; LDA and ILDA steps through the θ kernel
 against the factorized schedule, their launches per iteration, and their
-restart fits.
+restart fits; the restart fan-out and the data-parallel fit over ranks on
+the card, with each rank's launches.
 
 Every test is marked `cuda` and skips without a card. The file imports
 neither JAX nor the shared conftest fixtures, so it runs on a machine with
@@ -684,3 +685,93 @@ def test_lda_restarts_on_the_card_pick_a_finite_lane(cuda, family):
     assert torch.isfinite(res.ll).all()
     auto = fit(*args, restarts=8, maxiter=60, tol=1e-4, compact_schedule="auto")
     assert auto.compact_info["pilot_restarts"] == 4 and np.isfinite(auto.ll)
+
+
+def _launch_counts(info):
+    return [(r["estep_eta"], r["lambda_newton"], r["theta_moments"]) for r in info["launches"]]
+
+
+@pytest.mark.parametrize("devices", [["cuda:0"], ["cuda:0", "cuda:0"]], ids=["nccl", "gloo"])
+def test_restart_fan_out_on_the_card_launches_the_kernels_on_every_rank(cuda, devices):
+    """The MMCTM restart fan-out: one NCCL rank, or two ranks sharing the
+    card over gloo. Each rank launches the η kernel once and the θ kernel
+    twice per CAVI iteration (20, tol 0), and the lanes agree with the
+    one-process fit of the same inits on the card."""
+    from multimodalmusig_tpu_torch.parallel import sharding
+
+    X = _poisson_docs()
+    config = mt.MMCTMConfig(K=(2, 2), V=(10, 8), D=24)
+    info = {}
+    got = sharding.shmap_fit_restarts(3, X, config, [0.1, 0.1], restarts=6, maxiter=20, tol=0.0,
+                                      devices=devices, run_info=info)
+    want = mt.fit_restarts(3, X, config, [0.1, 0.1], restarts=6, maxiter=20, tol=0.0)
+    assert info["backend"] == ("nccl" if len(devices) == 1 else "gloo")
+    assert _launch_counts(info) == [(20, 0, 40)] * len(devices)
+    assert got.ll.device.type == "cuda"
+    torch.testing.assert_close(got.ll_history, want.ll_history, rtol=1e-4, atol=0.0)
+
+
+def test_data_parallel_fit_on_the_card_launches_the_kernels_on_every_rank(cuda):
+    """Two ranks sharing the card, 12 documents each, 20 iterations (tol 0):
+    one η and two θ launches per iteration on each rank, the lls within
+    f32 rounding of the one-process fit from the same init."""
+    from multimodalmusig_tpu_torch.parallel import sharding
+
+    X = _poisson_docs()
+    config = mt.MMCTMConfig(K=(2, 2), V=(10, 8), D=24)
+    from multimodalmusig_tpu_torch.models import mmctm as mm
+
+    Xt = mm.counts_tensors(X, config, cuda)
+    state = mm.init_with_alpha(torch.Generator().manual_seed(4), config, Xt, [0.1, 0.1],
+                               device=cuda)
+    info = {}
+    got = sharding.sharded_data_parallel_fit(sharding.make_mesh(1, 2, ["cuda:0", "cuda:0"]),
+                                             state, X, config, maxiter=20, tol=0.0,
+                                             run_info=info)
+    want = mm.fit(state, Xt, config, maxiter=20, tol=0.0)
+    assert info["backend"] == "gloo" and _launch_counts(info) == [(20, 0, 40)] * 2
+    torch.testing.assert_close(got.ll_history, want.ll_history, rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(got.elbo, want.elbo, rtol=1e-4, atol=0.0)
+
+
+@pytest.fixture
+def cards(cuda):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA cards or more: one NCCL rank per card")
+    return [f"cuda:{i}" for i in range(n)]
+
+
+def test_multi_card_paths_over_nccl_match_the_one_process_fits(cuda, cards):
+    """One rank per card over NCCL: the restart fan-out (7 lanes, padded),
+    the data-parallel fit (the documents split over every card) and, on an
+    even number of cards, a (2, n/2) mesh, each against the one-process fit
+    of the same inits on the first card; one η and two θ launches per CAVI
+    iteration (20, tol 0) on every rank."""
+    from multimodalmusig_tpu_torch.models import mmctm as mm
+    from multimodalmusig_tpu_torch.parallel import sharding
+
+    X = _poisson_docs()
+    config = mt.MMCTMConfig(K=(2, 2), V=(10, 8), D=24)
+    kw = dict(restarts=7, maxiter=20, tol=0.0)
+    want = mt.fit_restarts(3, X, config, [0.1, 0.1], **kw)
+    info = {}
+    got = sharding.shmap_fit_restarts(3, X, config, [0.1, 0.1], devices=cards, run_info=info,
+                                      **kw)
+    assert info["backend"] == "nccl" and _launch_counts(info) == [(20, 0, 40)] * len(cards)
+    torch.testing.assert_close(got.ll_history, want.ll_history, rtol=1e-4, atol=0.0)
+
+    Xt = mm.counts_tensors(X, config, cuda)
+    state = mm.init_with_alpha(torch.Generator().manual_seed(4), config, Xt, [0.1, 0.1],
+                               device=cuda)
+    info = {}
+    got = sharding.sharded_data_parallel_fit(sharding.make_mesh(1, len(cards), cards), state, X,
+                                             config, maxiter=20, tol=0.0, run_info=info)
+    single = mm.fit(state, Xt, config, maxiter=20, tol=0.0)
+    assert info["backend"] == "nccl" and _launch_counts(info) == [(20, 0, 40)] * len(cards)
+    torch.testing.assert_close(got.ll_history, single.ll_history, rtol=1e-4, atol=0.0)
+
+    if len(cards) % 2 == 0 and len(cards) >= 4:
+        mesh = sharding.make_mesh(2, len(cards) // 2, cards)
+        got = sharding.sharded_fit_restarts(mesh, 3, X, config, [0.1, 0.1], **kw)
+        torch.testing.assert_close(got.ll_history, want.ll_history, rtol=1e-4, atol=0.0)

@@ -37,8 +37,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
     """Every module of the port, found with pkgutil.walk_packages (the
-    kernel wrappers, profile_step, the CLI, utils.io and ops.flags
-    included), imports without JAX."""
+    kernel wrappers, profile_step, the CLI, utils.io, ops.flags, the
+    multi-device layer, the profiling utilities and the examples included),
+    imports without JAX."""
     code = (
         "import importlib, json, pkgutil, sys\n"
         "before = set(sys.modules)\n"
@@ -64,7 +65,13 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "multimodalmusig_tpu_torch.utils.io",
             "multimodalmusig_tpu_torch.model_selection",
             "multimodalmusig_tpu_torch.cli",
-            "multimodalmusig_tpu_torch.profile_step"} <= set(names)
+            "multimodalmusig_tpu_torch.profile_step",
+            "multimodalmusig_tpu_torch.parallel.sharding",
+            "multimodalmusig_tpu_torch.parallel._ranks",
+            "multimodalmusig_tpu_torch.utils.profiling",
+            "multimodalmusig_tpu_torch.examples.fit_brca",
+            "multimodalmusig_tpu_torch.examples.large_scale",
+            "multimodalmusig_tpu_torch.examples.select_k"} <= set(names)
     assert jax_modules == []
 
 
@@ -395,3 +402,15 @@ def test_formatting_copy_gives_the_jax_packages_output():
     lda_got = formatting.format_counts_lda(dfs[0], cols)
     lda_want = jax_formatting.format_counts_lda(dfs[0], cols)
     assert all(np.array_equal(g, w) for g, w in zip(lda_got, lda_want))
+
+
+def test_multi_device_entry_points_default_to_every_card_and_never_fall_back(monkeypatch):
+    """Without `devices`, the mesh and the restart fan-out take every CUDA
+    card; with no card they raise before any rank starts."""
+    from multimodalmusig_tpu_torch.parallel import sharding
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        sharding.make_mesh(1, 1)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        sharding.shmap_fit_restarts(0, _X, _CFG, [0.1, 0.1], restarts=2, maxiter=2)
