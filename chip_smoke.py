@@ -32,7 +32,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
      ν and λ and both times at each (100, 560) shape;
   5. θ kernel against its plain PyTorch version at the BRCA shapes
      (100, 560, 96, 7) and (100, 560, 48, 7), at R = 1 and at the ragged
-     (3, 33, 128, 11), (2, 8, 5, 2) and (7, 101, 96, 7), and at the K
+     (3, 33, 128, 11), (2, 8, 5, 2) and (7, 101, 96, 7), at phase 16's
+     rank shapes (1, 280, 96, 7), (1, 560, 48, 7) and (1, 560, 24, 7), at the K
      selection's (1, 560, 96, 9) and (100, 448, 48, 5) with log-weights near
      -30 on rare terms, and at (100, 560, 96, 7) with LDA's logits (digammas
      of γ = α + counts and of λ = η + counts, down to about -17 and -22),
@@ -121,12 +122,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
      `make_mesh(1, 2, [cuda:0, cuda:0])` (280 documents a rank) of one
      seeded init, and the same init fit by one rank (mesh (1, 1));
      (d) `sharded_fit_restarts(make_mesh(2, 1, [cuda:0, cuda:0]), ...)` at
-     R=100. Prints each arm's backend, ranks per card, the ranks' start-up
-     and the fit's seconds. Gates: phase 6's and phase 14's ll gates; the
-     pick within LL_SLACK of the same fit in this process; on every rank one
-     η and two θ launches per CAVI iteration of its loop (LDA and ILDA two
-     θ, no η); for (c), the first 30 iterations' lls within DP_LL_RTOL of
-     the one-process fit, and every rank stopping at the same iteration.
+     R=100; (e) `sharded_vocab_parallel_fit([cuda:0, cuda:0], ...)` of
+     (c)'s init, each rank holding half of every vocabulary ((48, 24)
+     items) and running the θ kernel on it, the η kernel on all 560
+     documents. Prints each arm's backend, ranks per card, the ranks'
+     start-up and the fit's seconds. Gates: phase 6's and phase 14's ll
+     gates; the pick within LL_SLACK of the same fit in this process; on
+     every rank one η and two θ launches per CAVI iteration of its loop
+     (LDA and ILDA two θ, no η); for (c) and (e), the first 30 iterations'
+     lls within DP_LL_RTOL (c) or VOCAB_LL_RTOL (e) of the one-process fit
+     and every rank stopping at the same iteration; for (e), the final
+     ELBO within VOCAB_ELBO_RTOL of the one-process fit's and the
+     replicated state the same in every bit on both ranks (the join raises
+     otherwise).
 The last two lines of standard output are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
 """
@@ -211,6 +219,15 @@ CLI_RESTARTS = 1000
 # PERF.md §6)
 DP_LL_RTOL = 9.2e-7
 DP_ITERS = 30
+# The vocab-sharded fit's first 30 iterations against the one-process fit
+# from the same init, f32 on the card: the largest relative |Δ| of the lls,
+# 3× the largest seen on an H100 (1.553e-7 over two ranks in three runs;
+# PERF.md §6)
+VOCAB_LL_RTOL = 4.66e-7
+# Its final ELBO against the one-process fit's, f32 on the card: 3× the
+# largest relative |Δ| seen on an H100 (3.58e-7, 5 of 13977267, in four
+# runs; PERF.md §2)
+VOCAB_ELBO_RTOL = 1.08e-6
 # The card's published peaks (H100 SXM, 700 W): memory rate and float32
 # rate outside the tensor cores, for the kernels' bounds.
 PEAK_BYTES_PER_S = 3.35e12
@@ -535,10 +552,13 @@ def theta_phase(tk):
     max_err = 0.0
     timings = {}
     # (R, D, V, K, logits): the K selection's two with rare terms, K = 9 (the
-    # 16-wide instantiation) and K = 5; the LDA and ILDA fits' with LDA's
+    # 16-wide instantiation) and K = 5; the LDA and ILDA fits' with LDA's;
+    # phase 16 (c)'s data ranks' and (e)'s vocab ranks' (V = 48 and 24)
     for R, D, V, K, logits in ((RESTARTS, 560, 96, 7, "ctm"), (RESTARTS, 560, 48, 7, "ctm"),
                                (3, 33, 128, 11, "ctm"), (2, 8, 5, 2, "ctm"),
                                (1, 560, 96, 7, "ctm"), (7, 101, 96, 7, "ctm"),
+                               (1, 280, 96, 7, "ctm"), (1, 560, 48, 7, "ctm"),
+                               (1, 560, 24, 7, "ctm"),
                                (1, 560, 96, 9, "rare"), (RESTARTS, 448, 48, 5, "rare"),
                                (RESTARTS, 560, 96, 7, "lda")):
         # the inputs of tests/test_pallas_kernels.py, per restart lane
@@ -651,9 +671,9 @@ def slices(n_iters, ranks):
 
 def multi_device_phase(mt, X, docs, docs_snv, features):
     """Phase 16: the restart fan-out, the family fan-outs, the data-parallel
-    fit and the mesh, each on ranks that share the card (and the fan-out on
-    one NCCL rank), against the same fits in this process. Returns the
-    launches summed over every rank."""
+    fit, the mesh and the vocab-sharded fit, each on ranks that share the
+    card (and the fan-out on one NCCL rank), against the same fits in this
+    process. Returns the launches summed over every rank."""
     import numpy as np
     import torch
     from multimodalmusig_tpu_torch.models import mmctm as mm
@@ -723,6 +743,23 @@ def multi_device_phase(mt, X, docs, docs_snv, features):
                  f"one-process pick {ref.tolist()}")
         add(rank_launch_gate(label, info, slices(model.restart_result.n_iters.cpu(), 2), eta))
 
+    def one_fit_gate(label, res, single, rtol):
+        """A split fit of one init against the same init fit in this
+        process; returns its iterations."""
+        n, n1 = int(res.n_iters[0]), int(single.n_iters[0])
+        got, want = (r.ll_history[0, :DP_ITERS].cpu().double().numpy() for r in (res, single))
+        rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        print(f"{label}: {n} iterations (one process {n1}), final ll {res.ll[0].tolist()} (one "
+              f"process {single.ll[0].tolist()}), elbo {float(res.elbo[0])} ({float(single.elbo[0])}); "
+              f"first {DP_ITERS} iterations' lls against the one-process fit: max relative "
+              f"difference {rel:.3e}")
+        if not (torch.isfinite(res.ll).all() and rel <= rtol
+                and np.all(np.abs(res.ll[0].cpu().numpy() - single.ll[0].cpu().numpy())
+                           <= LL_SLACK)):
+            fail(f"{label}: the fit disagrees with the one-process fit (relative {rel:.3e} > "
+                 f"{rtol}, or final lls more than {LL_SLACK} apart)")
+        return n
+
     # (c) the data-parallel fit of one init, and the same init on one rank
     Xt = mm.counts_tensors(X, config, "cuda")
     state = mm.init_with_alpha(torch.Generator().manual_seed(SEED), config, Xt, [0.1, 0.1],
@@ -735,18 +772,7 @@ def multi_device_phase(mt, X, docs, docs_snv, features):
         label = (f"multi-device (c): sharded_data_parallel_fit over {len(devices)} data "
                  f"rank(s) on {devices}, {560 // len(devices)} documents a rank")
         rank_line(label, wall, info)
-        n, n1 = int(res.n_iters[0]), int(single.n_iters[0])
-        got, want = (r.ll_history[0, :DP_ITERS].cpu().double().numpy() for r in (res, single))
-        rel = float(np.max(np.abs(got - want) / np.abs(want)))
-        print(f"{label}: {n} iterations (one process {n1}), final ll {res.ll[0].tolist()} (one "
-              f"process {single.ll[0].tolist()}), elbo {float(res.elbo[0])} ({float(single.elbo[0])}); "
-              f"first {DP_ITERS} iterations' lls against the one-process fit: max relative "
-              f"difference {rel:.3e}")
-        if not (torch.isfinite(res.ll).all() and rel <= DP_LL_RTOL
-                and np.all(np.abs(res.ll[0].cpu().numpy() - single.ll[0].cpu().numpy())
-                           <= LL_SLACK)):
-            fail(f"{label}: the fit disagrees with the one-process fit (relative {rel:.3e} > "
-                 f"{DP_LL_RTOL}, or final lls more than {LL_SLACK} apart)")
+        n = one_fit_gate(label, res, single, DP_LL_RTOL)
         add(rank_launch_gate(label, info, [n] * len(devices), eta=True))
 
     # (d) the restart x data mesh, two restart rows
@@ -762,6 +788,23 @@ def multi_device_phase(mt, X, docs, docs_snv, features):
         fail(f"{label}: best ll {best.tolist()} is not within {LL_SLACK} of the one-process "
              f"fit's {one_best.tolist()}")
     add(rank_launch_gate(label, info, slices(res.n_iters.cpu(), 2), eta=True))
+
+    # (e) the vocab-sharded fit of (c)'s init, half of every vocabulary a rank
+    res, wall, info = timed(lambda i: sharding.sharded_vocab_parallel_fit(
+        two, state, X, config, maxiter=MAXITER, tol=TOL, run_info=i))
+    label = (f"multi-device (e): sharded_vocab_parallel_fit over {two}, "
+             f"{tuple(v // 2 for v in config.V)} vocabulary items a rank")
+    rank_line(label, wall, info)
+    if [tuple(g.shape) for g in res.state.gamma] != [(1, k, v) for k, v in zip(config.K, config.V)]:
+        fail(f"{label}: the joined γ has shapes {[tuple(g.shape) for g in res.state.gamma]}")
+    n = one_fit_gate(label, res, single, VOCAB_LL_RTOL)
+    elbo, one_elbo = float(res.elbo[0]), float(single.elbo[0])
+    rel = abs(elbo - one_elbo) / abs(one_elbo)
+    print(f"{label}: elbo against the one-process fit's: relative difference {rel:.3e}")
+    if not (np.isfinite(elbo) and rel <= VOCAB_ELBO_RTOL):
+        fail(f"{label}: elbo {elbo} is not within {VOCAB_ELBO_RTOL} (relative) of the "
+             f"one-process fit's {one_elbo}")
+    add(rank_launch_gate(label, info, [n] * 2, eta=True))
     return total
 
 

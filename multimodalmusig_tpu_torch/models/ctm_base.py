@@ -10,9 +10,13 @@ hook of a data-parallel fit (parallel/sharding.py `DocSum`), where each
 process holds a slice of the documents and the config's D is the global
 count: `reduce(tensors)` returns each tensor summed over every slice, the
 same on every process, and `reduce.agree(done)` returns the first
-process's flags, so that every process stops at the same iteration. With
-no hook each of them computes exactly what it computed before the hook
-existed.
+process's flags, so that every process stops at the same iteration. The
+functions that sum over the vocabulary take an optional `vocab_reduce`,
+the same kind of hook for a vocab-sharded fit (parallel/sharding.py
+`sharded_vocab_parallel_fit`), where each process holds a contiguous slice
+of every modality's vocabulary (its columns of X) and the config's V is
+the global count. With no hook each of them computes exactly what it
+computed before the hooks existed.
 """
 
 from __future__ import annotations
@@ -141,9 +145,14 @@ def full_f32_matmuls():
         torch.set_float32_matmul_precision(saved[2])
 
 
-def counts_per_doc(X) -> torch.Tensor:
-    """N[d, m] = total counts of document d in modality m (src/MMCTM.jl:37)."""
-    return torch.stack([Xm.sum(dim=1) for Xm in X], dim=1)
+def counts_per_doc(X, vocab_reduce=None) -> torch.Tensor:
+    """N[d, m] = total counts of document d in modality m (src/MMCTM.jl:37).
+    With `vocab_reduce`, X holds this process's vocabulary slice and N is
+    reduced over every slice."""
+    N = torch.stack([Xm.sum(dim=1) for Xm in X], dim=1)
+    if vocab_reduce is not None:
+        (N,) = vocab_reduce([N])  # V-reduction: the counts per document
+    return N
 
 
 def calculate_Ndivzeta(N: torch.Tensor, zeta: torch.Tensor, config) -> torch.Tensor:
@@ -201,18 +210,23 @@ def theta_moments_one(lam_block, logw, X, want_scatter: bool = True):
     return A * (Rm @ B), (B * (Rm.mT @ A)).mT if want_scatter else None
 
 
-def theta_moments(lam, logw, X, config, want_scatter: bool = True):
+def theta_moments(lam, logw, X, config, want_scatter: bool = True, vocab_reduce=None):
     """Both count-weighted θ moments of every modality, `theta_moments_one`
     per modality block of λ: (sumθ (R, D, MK), scatters tuple of
     (R, K_m, V_m), or None when `want_scatter` is False, as in the inference
-    loops, which keep the topics frozen)."""
+    loops, which keep the topics frozen). With `vocab_reduce`, logw and X
+    hold this process's vocabulary slice: sumθ is reduced over every slice,
+    and each scatter keeps the slice's own columns."""
     sum_parts, scatters = [], []
     for m in range(config.M):
         sumtheta_m, scatter_m = theta_moments_one(config.block(lam, m), logw[m], X[m],
                                                   want_scatter)
         sum_parts.append(sumtheta_m)
         scatters.append(scatter_m)
-    return torch.cat(sum_parts, dim=-1), tuple(scatters) if want_scatter else None
+    sumtheta = torch.cat(sum_parts, dim=-1)
+    if vocab_reduce is not None:
+        (sumtheta,) = vocab_reduce([sumtheta])  # V-reduction: sumθ for the η side
+    return sumtheta, tuple(scatters) if want_scatter else None
 
 
 def theta_from(lam, logw, config) -> Tuple[torch.Tensor, ...]:
@@ -450,9 +464,9 @@ def run_cavi_from(carry, maxiter: int, tol: float, step_fn, max_new_iters=None,
     The lanes still running must share one iteration count, as they do in a
     fresh carry and in the survivors of a compaction boundary (which all ran
     the whole phase); reading it is this call's one device→host sync before
-    the loop. With `reduce` (a data-parallel fit's hook) the loop stops on
-    the first process's `done`, so no process leaves a collective that the
-    others still enter. Returns the new carry."""
+    the loop. With `reduce` (a data-parallel or vocab-sharded fit's hook)
+    the loop stops on the first process's `done`, so no process leaves a
+    collective that the others still enter. Returns the new carry."""
     state, ll_buf, n_iters, done = carry
     running = n_iters[~done].unique().tolist()
     if len(running) > 1:

@@ -11,7 +11,9 @@ R = 1): μ (R, MK), Σ/Σ⁻¹ (R, MK, MK), α (R, M), γ/Elnϕ tuples of
 of (D, V_m) tensors shared by all lanes. Nothing here trains by autograd.
 
 The fit's document sums take ctm_base's optional `reduce` hook, with which
-parallel/sharding.py fits one model over documents split between processes.
+parallel/sharding.py fits one model over documents split between processes,
+and its vocabulary sums ctm_base's optional `vocab_reduce` hook, with which
+it fits one model over vocabularies split between processes.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.solvers import maximize_alpha
-from ..ops.special import dirichlet_expectation, logmvbeta, logmvbeta_symmetric, safe_xlogy, xlogx
+from ..ops.special import dirichlet_expectation, gammaln, logmvbeta_symmetric, safe_xlogy, xlogx
 from ..utils.formatting import infer_vocab_size, sparse_to_dense
 from . import ctm_base
 from .ctm_base import (
@@ -205,16 +207,18 @@ def reconstruct_theta(state: MMCTMState, config: MMCTMConfig) -> Tuple[torch.Ten
 
 
 def e_step_moments(state: MMCTMState, X, N, config: MMCTMConfig, logw=None,
-                   want_scatter: bool = True):
+                   want_scatter: bool = True, vocab_reduce=None):
     """Batched `fitdoc!` (src/MMCTM.jl:450-455) computing only the θ moments
     the CAVI iteration consumes: sumθ for the λ solve and, when
     `want_scatter`, the γ scatter (else None). θ uses the pre-update λ and
     the log-weights `logw` (None: E[ln ϕ], as in a fit; the inference loops
     pass their frozen tables), and both solvers the ζ from the start of the
-    E-step, as in the reference. Returns (state, scatters)."""
+    E-step, as in the reference. With `vocab_reduce` (ctm_base), sumθ is
+    reduced over the vocabulary slices before the η side, which every
+    process then runs on the same bits. Returns (state, scatters)."""
     if logw is None:
         logw = smoothed_logw(state)
-    sumtheta, scatters = theta_moments(state.lam, logw, X, config, want_scatter)
+    sumtheta, scatters = theta_moments(state.lam, logw, X, config, want_scatter, vocab_reduce)
     zeta, nu, lam = solve_eta(
         state.lam, state.nu, N, sumtheta, state.mu, state.invSigma, config
     )
@@ -236,16 +240,31 @@ def update_Sigma(state: MMCTMState, config: MMCTMConfig, reduce=None) -> MMCTMSt
     return state._replace(Sigma=Sigma, invSigma=invSigma)
 
 
+def _gamma_totals(gamma, vocab_reduce=None) -> Tuple[torch.Tensor, ...]:
+    """Σ_v γ_m[k, v] of every modality, (R, K_m, 1) each: the normalizer of
+    both E[ln ϕ] and ϕ. With `vocab_reduce` (ctm_base), γ holds this
+    process's vocabulary slice and the sums are reduced over every slice."""
+    totals = [g.sum(dim=-1, keepdim=True) for g in gamma]
+    if vocab_reduce is not None:
+        totals = vocab_reduce(totals)  # V-reduction: γ's row sums
+    return tuple(totals)
+
+
+def _update_gamma(state: MMCTMState, config: MMCTMConfig, scatter, reduce, vocab_reduce):
+    """`update_gamma`, with γ's row sums (`_gamma_totals`) beside the state."""
+    if reduce is not None:
+        scatter = reduce(list(scatter))  # D-reduction: the γ scatter
+    gamma = tuple(state.alpha[:, m, None, None] + scatter[m] for m in range(config.M))
+    totals = _gamma_totals(gamma, vocab_reduce)
+    Elnphi = tuple(dirichlet_expectation(g, axis=-1, total=t) for g, t in zip(gamma, totals))
+    return state._replace(gamma=gamma, Elnphi=Elnphi), totals
+
+
 def update_gamma(state: MMCTMState, config: MMCTMConfig, scatter, reduce=None) -> MMCTMState:
     """γ_m[k,v] = α_m + Σ_d X_m[d,v]·θ_m[d,v,k] from the E-step's (R, K_m, V_m)
     `scatter`, then E[ln ϕ] (src/MMCTM.jl:224-250, 214-222). With `reduce`,
     the scatters of this process's documents are reduced first."""
-    if reduce is not None:
-        scatter = reduce(list(scatter))  # D-reduction: the γ scatter
-    gamma = tuple(state.alpha[:, m, None, None] + scatter[m] for m in range(config.M))
-    return state._replace(
-        gamma=gamma, Elnphi=tuple(dirichlet_expectation(g, axis=-1) for g in gamma)
-    )
+    return _update_gamma(state, config, scatter, reduce, None)[0]
 
 
 def update_alpha(state: MMCTMState, config: MMCTMConfig) -> MMCTMState:
@@ -262,9 +281,13 @@ def update_alpha(state: MMCTMState, config: MMCTMConfig) -> MMCTMState:
 props_from = props_from_lam
 
 
-def phi_point(gamma) -> Tuple[torch.Tensor, ...]:
-    """Point estimate ϕ_m[k, :] = γ_m[k, :] / Σ_v γ (src/MMCTM.jl:244-250)."""
-    return tuple(g / g.sum(dim=-1, keepdim=True) for g in gamma)
+def phi_point(gamma, totals=None) -> Tuple[torch.Tensor, ...]:
+    """Point estimate ϕ_m[k, :] = γ_m[k, :] / Σ_v γ (src/MMCTM.jl:244-250).
+    `totals`, when given, are those sums (`_gamma_totals`, e.g. reduced over
+    the vocabulary slices)."""
+    if totals is None:
+        totals = _gamma_totals(gamma)
+    return tuple(g / t for g, t in zip(gamma, totals))
 
 
 # ---------------------------------------------------------------------------
@@ -272,27 +295,41 @@ def phi_point(gamma) -> Tuple[torch.Tensor, ...]:
 # ---------------------------------------------------------------------------
 
 
-def elbo_terms(state: MMCTMState, X, N, config: MMCTMConfig, reduce=None) -> dict:
+def elbo_terms(state: MMCTMState, X, N, config: MMCTMConfig, reduce=None,
+               vocab_reduce=None) -> dict:
     """The 7 named ELBO terms of src/MMCTM.jl:271-370, each (R,):
     {ElnPphi, ElnPeta, ElnPZ, ElnPX, ElnQphi, ElnQeta, ElnQZ}. Uses the last
     E-step's θ (reconstructed from the carried snapshot). With `reduce`
-    (ctm_base), the document sums are reduced over every process."""
+    (ctm_base), the document sums are reduced over every process; with
+    `vocab_reduce`, the vocabulary sums (sumθ, Σ E[ln ϕ], E[ln p(X)], both
+    sums of logmvbeta(γ), (γ−1)·E[ln ϕ] and E[ln q(Z)])."""
     theta = reconstruct_theta(state, config)
     sumtheta = torch.cat(
         [torch.einsum("dv,rdvk->rdk", X[m], theta[m]) for m in range(config.M)], dim=-1
     )
+    if vocab_reduce is not None:
+        (sumtheta,) = vocab_reduce([sumtheta])  # V-reduction: sumθ of ElnPZ
     terms = elbo_eta_z_term_dict(
         state.lam, state.nu, state.zeta, state.mu, state.invSigma, sumtheta, N, config, reduce
     )
+    sums = []  # six vocabulary sums per modality
+    for m in range(config.M):
+        g, e = state.gamma[m], state.Elnphi[m]
+        sums += [e.sum(dim=(-2, -1)), torch.einsum("dv,rdvk,rkv->r", X[m], theta[m], e),
+                 gammaln(g).sum(dim=-1), g.sum(dim=-1), ((g - 1.0) * e).sum(dim=(-2, -1)),
+                 torch.einsum("dv,rdvk->r", X[m], xlogx(theta[m]))]
+    if vocab_reduce is not None:
+        sums = vocab_reduce(sums)  # V-reductions: the six sums of every modality
     ElnPphi = ElnPX = ElnQphi = ElnQZ = 0.0
     for m in range(config.M):
+        sum_elnphi, elnpx, sum_lgamma, total, gamma_elnphi, elnqz = sums[6 * m:6 * m + 6]
         a = state.alpha[:, m]
         ElnPphi = ElnPphi - config.K[m] * logmvbeta_symmetric(a, config.V[m])
-        ElnPphi = ElnPphi + (a - 1.0) * state.Elnphi[m].sum(dim=(-2, -1))
-        ElnPX = ElnPX + torch.einsum("dv,rdvk,rkv->r", X[m], theta[m], state.Elnphi[m])
-        ElnQphi = ElnQphi - logmvbeta(state.gamma[m], axis=-1).sum(-1)
-        ElnQphi = ElnQphi + ((state.gamma[m] - 1.0) * state.Elnphi[m]).sum(dim=(-2, -1))
-        ElnQZ = ElnQZ + torch.einsum("dv,rdvk->r", X[m], xlogx(theta[m]))
+        ElnPphi = ElnPphi + (a - 1.0) * sum_elnphi
+        ElnPX = ElnPX + elnpx
+        ElnQphi = ElnQphi - (sum_lgamma - gammaln(total)).sum(-1)  # logmvbeta(γ)
+        ElnQphi = ElnQphi + gamma_elnphi
+        ElnQZ = ElnQZ + elnqz
     if reduce is not None:
         ElnPX, ElnQZ = reduce([ElnPX, ElnQZ])  # D-reductions: E[ln p(X)] and E[ln q(Z)]
     return {
@@ -306,30 +343,45 @@ def elbo_terms(state: MMCTMState, X, N, config: MMCTMConfig, reduce=None) -> dic
     }
 
 
-def calculate_elbo(state: MMCTMState, X, N, config: MMCTMConfig, reduce=None) -> torch.Tensor:
+def calculate_elbo(state: MMCTMState, X, N, config: MMCTMConfig, reduce=None,
+                   vocab_reduce=None) -> torch.Tensor:
     """The 7-term ELBO with the Blei-Lafferty ζ bound (src/MMCTM.jl:271-382), (R,)."""
-    t = elbo_terms(state, X, N, config, reduce)
+    t = elbo_terms(state, X, N, config, reduce, vocab_reduce)
     return (
         t["ElnPphi"] + t["ElnPeta"] + t["ElnPZ"] + t["ElnPX"]
         - t["ElnQphi"] - t["ElnQeta"] - t["ElnQZ"]
     )
 
 
-def modality_loglikelihoods(X, props, phi, reduce=None) -> torch.Tensor:
+def _total_counts(X, vocab_reduce=None) -> Tuple[torch.Tensor, ...]:
+    """Σ_d Σ_v X_m of every modality, the lls' denominators; with
+    `vocab_reduce` (ctm_base), over every process's vocabulary slice."""
+    counts = [Xm.sum() for Xm in X]
+    if vocab_reduce is not None:
+        counts = vocab_reduce(counts)  # V-reduction: the counts, constant over a fit
+    return tuple(counts)
+
+
+def modality_loglikelihoods(X, props, phi, reduce=None, vocab_reduce=None,
+                            counts=None) -> torch.Tensor:
     """(R, M) per-modality per-word mixture log-likelihood:
     Σ_d Σ_v X·log(Σ_k props·ϕ) / Σ_d N_d (src/MMCTM.jl:384-448). With
     `reduce` (ctm_base), both sums are reduced over every process's
-    documents."""
-    if reduce is None:
-        return torch.stack(
-            [safe_xlogy(X[m], props[m] @ phi[m]).sum(dim=(-2, -1)) / X[m].sum()
-             for m in range(len(X))],
-            dim=-1,
-        )
+    documents. With `vocab_reduce`, X and ϕ hold this process's vocabulary
+    slice, the lls' sums are reduced over every slice, and `counts` must be
+    the denominators over every slice (`_total_counts`, reduced once per
+    fit); without it they default to X's own sums."""
     M = len(X)
-    sums = reduce([safe_xlogy(X[m], props[m] @ phi[m]).sum(dim=(-2, -1)) for m in range(M)]
-                  + [X[m].sum() for m in range(M)])  # D-reductions: the lls and the counts
-    return torch.stack([sums[m] / sums[M + m] for m in range(M)], dim=-1)
+    if vocab_reduce is not None and counts is None:
+        raise ValueError("a vocab-sharded ll needs the total counts of every slice")
+    sums = [safe_xlogy(X[m], props[m] @ phi[m]).sum(dim=(-2, -1)) for m in range(M)]
+    counts = [X[m].sum() for m in range(M)] if counts is None else list(counts)
+    if reduce is not None:
+        both = reduce(sums + counts)  # D-reductions: the lls and the counts
+        sums, counts = both[:M], both[M:]
+    if vocab_reduce is not None:
+        sums = vocab_reduce(sums)  # V-reduction: the lls
+    return torch.stack([sums[m] / counts[m] for m in range(M)], dim=-1)
 
 
 def doc_modality_loglikelihood(Xdm, props, phi) -> torch.Tensor:
@@ -355,30 +407,39 @@ def docmodality_loglikelihoods(X, props, phi) -> torch.Tensor:
 
 
 def fit_step_fn(X, N, config: MMCTMConfig, autoalpha: bool = False, update_sigma: bool = True,
-                reduce=None):
+                reduce=None, vocab_reduce=None):
     """One CAVI iteration as a closure (src/MMCTM.jl:463-479): batched E-step
     (ζ/θ/ν/λ ∀d) → μ → Σ (if update_sigma) → γ → α (if autoalpha) →
     per-modality log-likelihoods. With `reduce` (ctm_base), X and N hold
     this process's documents, the E-step runs on them alone, and μ, Σ, the
-    γ scatter and the lls reduce their document sums."""
+    γ scatter and the lls reduce their document sums. With `vocab_reduce`,
+    X holds this process's vocabulary slice (N every slice's counts): sumθ,
+    γ's row sums (reduced once a step, for both E[ln ϕ] and ϕ) and the lls
+    reduce their vocabulary sums; autoα's sums over V are not reduced, so
+    it cannot be combined with the hook."""
+    if autoalpha and vocab_reduce is not None:
+        raise ValueError("autoalpha is not supported in a vocab-sharded fit")
+    counts = None if vocab_reduce is None else _total_counts(X, vocab_reduce)
 
     def step(s):
-        s, scatters = e_step_moments(s, X, N, config)
+        s, scatters = e_step_moments(s, X, N, config, vocab_reduce=vocab_reduce)
         s = update_mu(s, config, reduce)
         if update_sigma:
             s = update_Sigma(s, config, reduce)
-        s = update_gamma(s, config, scatters, reduce)
+        s, totals = _update_gamma(s, config, scatters, reduce, vocab_reduce)
         if autoalpha:
             s = update_alpha(s, config)
-        return s, modality_loglikelihoods(X, props_from(s.lam, config), phi_point(s.gamma),
-                                          reduce)
+        return s, modality_loglikelihoods(X, props_from(s.lam, config), phi_point(s.gamma, totals),
+                                          reduce, vocab_reduce, counts)
 
     return step
 
 
-def finalize_fit(carry, X, N, config: MMCTMConfig, reduce=None) -> MMCTMFitResult:
+def finalize_fit(carry, X, N, config: MMCTMConfig, reduce=None,
+                 vocab_reduce=None) -> MMCTMFitResult:
     """A finished CAVI carry as an MMCTMFitResult (final ELBO as at
-    src/MMCTM.jl:490; with `reduce`, over every process's documents)."""
+    src/MMCTM.jl:490; with `reduce`, over every process's documents, with
+    `vocab_reduce` over every process's vocabulary slice)."""
     state, ll_buf, n_iters, done = carry
     lanes = torch.arange(ll_buf.shape[0], device=ll_buf.device)
     return MMCTMFitResult(
@@ -386,28 +447,32 @@ def finalize_fit(carry, X, N, config: MMCTMConfig, reduce=None) -> MMCTMFitResul
         ll_history=ll_buf,
         n_iters=n_iters,
         converged=carry_converged(ll_buf, n_iters, done),
-        elbo=calculate_elbo(state, X, N, config, reduce),
+        elbo=calculate_elbo(state, X, N, config, reduce, vocab_reduce),
         ll=ll_buf[lanes, n_iters - 1],
     )
 
 
 def fit(state: MMCTMState, X, config: MMCTMConfig, maxiter: int = 100,
         tol: float = 1e-4, compact_schedule=(), progress=None, verbose: bool = False,
-        autoalpha: bool = False, update_sigma: bool = True, reduce=None) -> MMCTMFitResult:
+        autoalpha: bool = False, update_sigma: bool = True, reduce=None,
+        vocab_reduce=None) -> MMCTMFitResult:
     """Full MMCTM CAVI over every lane of `state` (src/MMCTM.jl:457-494),
     with TF32 off for all float32 products. X is a tuple of dense (D, V_m)
     tensors on the state's device and dtype. `compact_schedule` (any
     iterable of budgets), `progress(done, total)` and `verbose` are
     ctm_base.run_cavi's; `autoalpha` and `update_sigma` fit_step_fn's.
     `reduce` is ctm_base's data-parallel hook (parallel/sharding.py): the
-    state's document fields and X then hold this process's documents."""
+    state's document fields and X then hold this process's documents.
+    `vocab_reduce` is its vocab-sharded hook: γ, E[ln ϕ], logw_pre and X
+    then hold this process's vocabulary slice, the config's V stays global."""
     X = tuple(X)
     with full_f32_matmuls():
-        N = counts_per_doc(X)
-        step = fit_step_fn(X, N, config, autoalpha, update_sigma, reduce)
+        N = counts_per_doc(X, vocab_reduce)
+        step = fit_step_fn(X, N, config, autoalpha, update_sigma, reduce, vocab_reduce)
+        # the loop uses its hook only to agree on `done`, which either hook does
         carry = run_cavi(state, config, maxiter, tol, step, compact_schedule, progress, verbose,
-                         reduce=reduce)
-        return finalize_fit(carry, X, N, config, reduce)
+                         reduce=reduce if reduce is not None else vocab_reduce)
+        return finalize_fit(carry, X, N, config, reduce, vocab_reduce)
 
 
 # ---------------------------------------------------------------------------

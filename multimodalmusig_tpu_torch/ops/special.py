@@ -30,10 +30,14 @@ def logmvbeta_symmetric(alpha: torch.Tensor, n) -> torch.Tensor:
     return n * gammaln(alpha) - gammaln(n * alpha)
 
 
-def dirichlet_expectation(params: torch.Tensor, axis: int) -> torch.Tensor:
+def dirichlet_expectation(params: torch.Tensor, axis: int, total=None) -> torch.Tensor:
     """E[ln p] under Dirichlet(params), normalizing over `axis`:
-    digamma(p) - digamma(sum(p, axis)) (reference: src/MMCTM.jl:214-222)."""
-    return digamma(params) - digamma(params.sum(dim=axis, keepdim=True))
+    digamma(p) - digamma(sum(p, axis)) (reference: src/MMCTM.jl:214-222).
+    `total`, when given, is that sum with the axis kept, e.g. one reduced
+    over the vocabulary slices of a vocab-sharded fit."""
+    if total is None:
+        total = params.sum(dim=axis, keepdim=True)
+    return digamma(params) - digamma(total)
 
 
 def xlogx(x: torch.Tensor) -> torch.Tensor:

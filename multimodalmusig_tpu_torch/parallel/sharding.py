@@ -18,7 +18,14 @@ workers fit; cohort-scale data needs the data-parallel M-step. Here:
     ELBO) is all-reduced through the `DocSum` hook of models/ctm_base.py;
   * both at once (`sharded_fit_restarts`): lanes over the rows of a
     ("restart", "data") mesh, documents over its columns, one process group
-    per row.
+    per row;
+  * vocab-sharded (`sharded_vocab_parallel_fit`, the tensor-parallel
+    counterpart): each rank holds a contiguous slice of every modality's
+    vocabulary (its columns of X, γ and E[ln ϕ], its rows of logw_pre) and
+    runs the θ moments on it; λ, ν, ζ, μ, Σ, Σ⁻¹ and α are replicated, the
+    η side runs on every rank from the same bits, and every sum over the
+    vocabulary (N, sumθ, γ's row sums, the lls, the final ELBO) is
+    all-reduced through the `vocab_reduce` hook of models/ctm_base.py.
 
 A device may appear more than once in a device list or mesh: the ranks then
 share the card over gloo (parallel/_ranks.py's backend rule). Results come
@@ -51,11 +58,15 @@ __all__ = [
     "shmap_fit_restarts_from_states",
     "shmap_fit_restarts",
     "sharded_data_parallel_fit",
+    "sharded_vocab_parallel_fit",
     "dryrun_multichip",
 ]
 
 # The state fields with a document axis (dim 1), split over the data ranks.
 DOC_FIELDS = ("lam", "nu", "zeta", "lam_pre")
+# The state fields with a vocabulary axis, split over the vocab ranks: the
+# (R, K_m, V_m) tuples on dim 2 and the (R, V_m, K_m) log-weights on dim 1.
+VOCAB_FIELDS = {"gamma": 2, "Elnphi": 2, "logw_pre": 1}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,9 +100,10 @@ def make_mesh(n_restart: int, n_data: int, devices: Optional[Sequence] = None) -
 
 
 class DocSum:
-    """The data-parallel hook of models/ctm_base.py for one rank: sums over
-    the ranks `group_ranks` (a process group, in rank order) that hold the
-    other documents of the same lanes.
+    """The data-parallel hook (`reduce`) and the vocab-sharded hook
+    (`vocab_reduce`) of models/ctm_base.py for one rank: sums over the ranks
+    `group_ranks` (a process group, in rank order) that hold the other
+    documents, or the other vocabulary slices, of the same lanes.
 
     `self(tensors)` sums each tensor over the group. Every rank writes its
     values into its own slot of a zeroed (ranks, n) buffer, the buffer is
@@ -255,13 +267,97 @@ def sharded_data_parallel_fit(mesh: Mesh, state: MMCTMState, X, config: MMCTMCon
                                    maxiter, tol, run_info)
 
 
+def _vocab_cols(V: Sequence[int], n_vocab: int):
+    """Per modality, contiguous near-equal vocabulary ranges for n_vocab ranks."""
+    for m, v in enumerate(V):
+        if v < n_vocab:
+            raise ValueError(f"modality {m} has {v} vocabulary items, which cannot be split "
+                             f"over {n_vocab} vocab ranks")
+    return [np.array_split(np.arange(v), n_vocab) for v in V]
+
+
+def _vocab_rank(rank: _ranks.Rank, state: MMCTMState, X, config: MMCTMConfig, maxiter: int,
+                tol: float) -> MMCTMFitResult:
+    """A rank of `sharded_vocab_parallel_fit`: its vocabulary slice, fit
+    with a DocSum over every rank as the vocabulary hook."""
+    state = _ranks.tree_map(lambda t: t.to(rank.device), state)
+    vocab_reduce = DocSum(dist.group.WORLD, range(rank.size), rank.device)
+    X = mmctm_mod.counts_tensors(X, config, rank.device)
+    return mmctm_mod.fit(state, X, config, maxiter=maxiter, tol=tol, vocab_reduce=vocab_reduce)
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """True when two tensors have one shape, dtype and byte pattern (a NaN
+    equals the same NaN)."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def _join_vocab(parts: Sequence[MMCTMFitResult]) -> MMCTMFitResult:
+    """The vocab ranks' results, in rank order, as one: γ, E[ln ϕ] and
+    logw_pre joined along V, everything else rank 0's. Raises if any
+    replicated field differs in any bit between ranks: every rank ran the
+    η side and the M-step on the same reduced sums, so a difference is a
+    fault, not rounding."""
+    first = parts[0]
+    for r, part in enumerate(parts[1:], start=1):
+        for name in first._fields:
+            if name == "state":
+                fields = [(f"state.{f}", getattr(first.state, f), getattr(part.state, f))
+                          for f in first.state._fields if f not in VOCAB_FIELDS]
+            else:
+                fields = [(name, getattr(first, name), getattr(part, name))]
+            for label, a, b in fields:
+                if not _same_bits(a, b):
+                    raise RuntimeError(f"vocab rank {r}'s {label} differs from rank 0's: the "
+                                       "replicated state drifted between ranks")
+    joined = {f: tuple(torch.cat([getattr(p.state, f)[m] for p in parts], dim=dim)
+                       for m in range(len(getattr(first.state, f))))
+              for f, dim in VOCAB_FIELDS.items()}
+    return first._replace(state=first.state._replace(**joined))
+
+
+def sharded_vocab_parallel_fit(devices: Sequence, state: MMCTMState, X, config: MMCTMConfig,
+                               maxiter: int = 100, tol: float = 1e-4,
+                               run_info: Optional[dict] = None) -> MMCTMFitResult:
+    """One fit of every lane of `state` with every modality's vocabulary
+    split in contiguous slices over `devices`, a flat list (the JAX
+    package's flat ("vocab",) mesh, sharding.py:320-342 there): each rank
+    runs the θ moments, kernels included, on its columns of X, γ and
+    E[ln ϕ], and every rank runs the η side on all documents; the sums over
+    the vocabulary are all-reduced (ctm_base's `vocab_reduce`), so the ranks
+    keep one replicated λ, ν, ζ, μ, Σ, Σ⁻¹ and α and stop at the same
+    iteration. The config stays global. Raises ValueError when a modality
+    has fewer items than ranks, and RuntimeError when a replicated field
+    differs between ranks. Returns the result on the state's device, with
+    γ, E[ln ϕ] and logw_pre joined along V in rank order. `run_info`, when
+    a dict, receives the ranks' run (parallel/_ranks.py)."""
+    devices = list(devices)
+    cols = _vocab_cols(config.V, len(devices))
+    _, device = ctm_base.lanes_of(state)
+    state = _ranks.tree_map(lambda t: t.cpu(), state)
+    X = tuple(torch.as_tensor(x).cpu() for x in X)
+    rank_args = []
+    for r in range(len(devices)):
+        idx = [torch.as_tensor(c[r]) for c in cols]
+        part = state._replace(**{f: tuple(t.index_select(dim, i) for t, i in
+                                          zip(getattr(state, f), idx))
+                                 for f, dim in VOCAB_FIELDS.items()})
+        rank_args.append((part, tuple(x.index_select(1, i) for x, i in zip(X, idx)), config,
+                          maxiter, tol))
+    run = _ranks.run_ranks(_vocab_rank, rank_args, devices)
+    if run_info is not None:
+        run_info.update(run.info())
+    return _ranks.tree_map(lambda t: t.to(device), _join_vocab(run.results))
+
+
 def dryrun_multichip(n_devices: int) -> None:
     """Run every multi-device path on `n_devices` CPU ranks (gloo) at tiny
     shapes and assert that each agrees with the same fit in one process
-    (sharding.py:193-342 of the JAX package, but for its vocab-sharded
-    fit): the restart × data mesh, the padded restart fan-out, the
-    data-parallel fit and the family fan-out of `fit_lda_restarts`. Float32,
-    2 CAVI iterations, at the JAX dry run's tolerances."""
+    (sharding.py:193-342 of the JAX package): the restart × data mesh, the
+    padded restart fan-out, the data-parallel fit, the family fan-out of
+    `fit_lda_restarts` and the vocab-sharded fit over the flat device list.
+    Float32, 2 CAVI iterations, at the JAX dry run's tolerances."""
     from .restarts import fit_lda_restarts
 
     devices = ["cpu"] * n_devices
@@ -295,8 +391,9 @@ def dryrun_multichip(n_devices: int) -> None:
                                msg="restart fan-out diverged from the one-process fit")
 
     state = _init(1, X, config, alpha, 1, "random", "cpu")
+    want = single(state)
     got = sharded_data_parallel_fit(mesh, state, X, config, maxiter=2)
-    torch.testing.assert_close(got.ll, single(state).ll, **close,
+    torch.testing.assert_close(got.ll, want.ll, **close,
                                msg="data-parallel fit diverged from the one-process fit")
 
     docs = [[np.array([v + 1, int(X[0][d, v])]) for v in range(V) if X[0][d, v] > 0]
@@ -306,3 +403,8 @@ def dryrun_multichip(n_devices: int) -> None:
     fanned = fit_lda_restarts(2, 0.1, 0.1, docs, devices=devices, **kw)
     torch.testing.assert_close(fanned.restart_result.ll, plain.restart_result.ll, rtol=2e-4,
                                atol=0.0, msg="family fan-out diverged from the one-process fit")
+
+    # the vocabulary over the flat device list, the data-parallel fit's init
+    got = sharded_vocab_parallel_fit(devices, state, X, config, maxiter=2)
+    torch.testing.assert_close(got.ll, want.ll, **close,
+                               msg="vocab-sharded fit diverged from the one-process fit")

@@ -775,3 +775,49 @@ def test_multi_card_paths_over_nccl_match_the_one_process_fits(cuda, cards):
         mesh = sharding.make_mesh(2, len(cards) // 2, cards)
         got = sharding.sharded_fit_restarts(mesh, 3, X, config, [0.1, 0.1], **kw)
         torch.testing.assert_close(got.ll_history, want.ll_history, rtol=1e-4, atol=0.0)
+
+
+def test_vocab_fit_on_the_card_launches_the_kernels_on_every_rank(cuda):
+    """The vocab-sharded fit on two ranks sharing the card (gloo), V = (10,
+    8) split (5, 4) a rank: one η launch on all documents and two θ launches
+    on the rank's columns per CAVI iteration (20, tol 0), the replicated
+    state the same on both ranks (the join checks it), and the lls against
+    the one-process fit of the same init on the card."""
+    from multimodalmusig_tpu_torch.models import mmctm as mm
+    from multimodalmusig_tpu_torch.parallel import sharding
+
+    X = _poisson_docs()
+    config = mt.MMCTMConfig(K=(2, 2), V=(10, 8), D=24)
+    Xt = mm.counts_tensors(X, config, cuda)
+    state = mm.init_with_alpha(torch.Generator().manual_seed(4), config, Xt, [0.1, 0.1],
+                               device=cuda)
+    info = {}
+    got = sharding.sharded_vocab_parallel_fit(["cuda:0", "cuda:0"], state, X, config,
+                                              maxiter=20, tol=0.0, run_info=info)
+    want = mm.fit(state, Xt, config, maxiter=20, tol=0.0)
+    assert info["backend"] == "gloo" and _launch_counts(info) == [(20, 0, 40)] * 2
+    assert got.state.gamma[0].shape == want.state.gamma[0].shape
+    torch.testing.assert_close(got.ll_history, want.ll_history, rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(got.elbo, want.elbo, rtol=1e-4, atol=0.0)
+
+
+def test_multi_card_vocab_fit_over_nccl_matches_the_one_card_fit(cuda, cards):
+    """The vocab-sharded fit with one rank per card over NCCL, V = (10, 8)
+    split over every card: one η and two θ launches per CAVI iteration (20,
+    tol 0) on every rank, and the lls against the one-card fit of the same
+    init."""
+    from multimodalmusig_tpu_torch.models import mmctm as mm
+    from multimodalmusig_tpu_torch.parallel import sharding
+
+    X = _poisson_docs()
+    config = mt.MMCTMConfig(K=(2, 2), V=(10, 8), D=24)
+    Xt = mm.counts_tensors(X, config, cuda)
+    state = mm.init_with_alpha(torch.Generator().manual_seed(4), config, Xt, [0.1, 0.1],
+                               device=cuda)
+    info = {}
+    got = sharding.sharded_vocab_parallel_fit(cards, state, X, config, maxiter=20, tol=0.0,
+                                              run_info=info)
+    single = mm.fit(state, Xt, config, maxiter=20, tol=0.0)
+    assert info["backend"] == "nccl" and _launch_counts(info) == [(20, 0, 40)] * len(cards)
+    torch.testing.assert_close(got.ll_history, single.ll_history, rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(got.elbo, single.elbo, rtol=1e-4, atol=0.0)

@@ -252,6 +252,6 @@ def test_a_rank_that_raises_makes_the_call_raise():
 
 def test_dryrun_multichip():
     """Every multi-device path on 4 CPU ranks against the one-process fit
-    (the JAX package's dryrun_multichip, but for its vocab-sharded fit)."""
+    (the JAX package's dryrun_multichip), its vocab-sharded fit included."""
     sharding.dryrun_multichip(4)
 
