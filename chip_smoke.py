@@ -29,7 +29,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
      R = 1; the inference shapes: one modality (M = 1, K = (7,)) at R = 1
      and 100, and R = 1 at the 112 held-out documents; the K selection's
      K = (5, 5) and (9, 9) at (100, 448) and at R = 1 on the 112; prints max |Δ| of ζ,
-     ν and λ and both times at each (100, 560) shape;
+     ν and λ and both times at each (100, 560) shape; then with `lam_prev`
+     (the secant start of `lambda_extrap`, c = 1) at (100, 560, K=(7, 7)),
+     either side of the layout boundaries (MK 16/17 at (100, 560), 32/33
+     ragged) and R = 1, each with a small swing λ − λ_prev and one large
+     enough that the ±4 clip binds on most entries, with bit-identical repeat
+     launches, and timed at (100, 560, (7, 7));
   5. θ kernel against its plain PyTorch version at the BRCA shapes
      (100, 560, 96, 7) and (100, 560, 48, 7), at R = 1 and at the ragged
      (3, 33, 128, 11), (2, 8, 5, 2) and (7, 101, 96, 7), at phase 16's
@@ -135,11 +140,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
      ELBO within VOCAB_ELBO_RTOL of the one-process fit's and the
      replicated state the same in every bit on both ranks (the join raises
      otherwise).
+ 17. the λ solve's options (models/ctm_base.CTMBaseConfig), after phase 10,
+     on the same counts, f32, tol 1e-5: `fit_restarts` R=100 with
+     `lambda_extrap=1.0` against the default, `fit_mmctm_restarts(...,
+     lambda_extrap=1.0)` against the default and `fit_immctm_restarts(...,
+     lambda_extrap=1.0)` against the default, each warm and then timed in
+     turns (default, extrap, extrap, default), and `fit_restarts` R=100 with
+     `lambda_solver="chol"`, warm and then timed; prints each arm's wall,
+     iterations (median and maximum), CAVI steps, launches and lls. Gates:
+     the ll gates of phases 6, 8 and 10; the extrap arms one η and two θ
+     launches per CAVI iteration, the chol arm two θ launches and no η or λ
+     launch (the direct Cholesky direction is plain PyTorch, as in the JAX
+     package).
 The last two lines of standard output are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -429,14 +447,17 @@ def lambda_bound(R, D, MK, n_iter, cg_iter, polish_iter):
     return bound(n_bytes, R * D * solve_flops(MK, n_iter, cg_iter, polish_iter))
 
 
-def eta_bound(R, D, K, n_iter, cg_iter, polish_iter, nu_n_iter):
+def eta_bound(R, D, K, n_iter, cg_iter, polish_iter, nu_n_iter, lam_prev=False):
     """The η kernel: reads λ, ν, sumθ (R, D, MK), N (D, M), μ and Σ⁻¹ once
     and writes ζ (R, D, M), ν and λ (R, D, MK); per problem, besides the λ
     solve, ζ and N/ζ take 4·MK operations, the ν setup 3·MK, each
-    fixed-point sweep 7·MK and each of the 4 Newton steps 16·MK."""
+    fixed-point sweep 7·MK and each of the 4 Newton steps 16·MK. With
+    `lam_prev` it also reads λ_prev (R, D, MK) and forms the secant start,
+    5·MK operations."""
     MK, M = sum(K), len(K)
-    n_bytes = 4 * (5 * R * D * MK + D * M + R * MK + R * MK * MK + R * D * M)
-    nu = (4 + 3 + 7 * nu_n_iter + 4 * 16) * MK
+    n_bytes = 4 * ((6 if lam_prev else 5) * R * D * MK + D * M + R * MK + R * MK * MK
+                   + R * D * M)
+    nu = (4 + 3 + 7 * nu_n_iter + 4 * 16 + (5 if lam_prev else 0)) * MK
     return bound(n_bytes, R * D * (solve_flops(MK, n_iter, cg_iter, polish_iter) + nu))
 
 
@@ -524,7 +545,65 @@ def eta_phase(ek):
             print(f"η time at ({R}, {D}, {K}), {'f32 CAVI budgets' if budgets else 'cold defaults'}: "
                   f"kernel {ms:.4f} ms, plain PyTorch {plain_ms:.4f} ms "
                   f"(median of 20 CUDA-event timings); bound {bound_ms:.6f} ms ({bound_by})")
+    max_err = max(max_err, eta_extrap_checks(ek, gen, cavi))
     return max_err, timings[((7, 7), True)]
+
+
+def eta_extrap_checks(ek, gen, cavi):
+    """The η kernel with `lam_prev` (the secant start, c = 1) against its
+    plain version at the main-path shape, the layout boundaries and R = 1,
+    with a swing λ − λ_prev of 0.3 and of 8 (the ±4 clip binds on most
+    entries), repeats bit-identical; timed at the main-path shape. Returns
+    the largest |Δ|."""
+    import torch
+
+    max_err = 0.0
+    for label, (R, D, K), budgets in (
+        ("main-path shape", (RESTARTS, 560, (7, 7)), cavi),
+        ("MK=16, the thread layout's last", (RESTARTS, 560, (8, 8)), cavi),
+        ("MK=17, the warp layout's first", (RESTARTS, 560, (9, 8)), cavi),
+        ("MK=32, the warp layout's last, cold defaults", (3, 50, (16, 16)), {}),
+        ("MK=33, the block layout's first, cold defaults", (3, 50, (17, 16)), {}),
+        ("R=1", (1, 560, (7, 7)), cavi),
+    ):
+        args = eta_problem(gen, R, D, K)
+        for swing in (0.3, 8.0):
+            lam_prev = args[0] - swing * torch.randn(args[0].shape, generator=gen).cuda()
+            kw = dict(budgets, lam_prev=lam_prev, extrap=1.0)
+            got = ek.estep_eta_fused(*args, K, **kw)
+            again = ek.estep_eta_fused(*args, K, **kw)
+            want = ek.estep_eta_fused_plain(*args, K, **kw)
+            torch.cuda.synchronize()
+            errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+            same = all(torch.equal(g, a) for g, a in zip(got, again))
+            clipped = float(((args[0] - lam_prev).abs() > 4.0).float().mean())
+            print(f"η kernel with lam_prev vs plain [{label}, swing {swing}, clip binds on "
+                  f"{clipped:.3f} of the entries] (R, D, K)=({R}, {D}, {K}): max|Δζ| = "
+                  f"{errs[0]:.3e}, max|Δν| = {errs[1]:.3e}, max|Δλ| = {errs[2]:.3e}, repeat "
+                  f"launch bit-identical: {same}")
+            if not all(torch.isfinite(g).all() for g in got):
+                fail(f"η kernel with lam_prev: result not finite [{label}, swing {swing}]")
+            for name, g, w in zip(("ζ", "ν"), got, want):
+                if not bool(((g - w).abs() <= ETA_ATOL + ETA_RTOL * w.abs()).all()):
+                    fail(f"η kernel with lam_prev: {name} disagrees with its plain version "
+                         f"beyond rtol {ETA_RTOL}, atol {ETA_ATOL} [{label}, swing {swing}]")
+            if errs[2] > KERNEL_ATOL:
+                fail(f"η kernel with lam_prev: λ disagrees with its plain version by "
+                     f"{errs[2]:.3e} > {KERNEL_ATOL} [{label}, swing {swing}]")
+            if not same:
+                fail(f"η kernel with lam_prev: a repeat launch differs [{label}, swing {swing}]")
+            max_err = max(max_err, *errs)
+        if R == RESTARTS and K == (7, 7):
+            kw = dict(budgets, lam_prev=lam_prev, extrap=1.0)
+            ms = cuda_ms(lambda: ek.estep_eta_fused(*args, K, **kw))
+            base_ms = cuda_ms(lambda: ek.estep_eta_fused(*args, K, **budgets))
+            plain_ms = cuda_ms(lambda: ek.estep_eta_fused_plain(*args, K, **kw))
+            bound_ms, bound_by = eta_bound(R, D, K, 3, 4, 1, 4, lam_prev=True)
+            print(f"η time with lam_prev at ({R}, {D}, {K}), f32 CAVI budgets: kernel "
+                  f"{ms:.4f} ms (without lam_prev {base_ms:.4f} ms), plain PyTorch "
+                  f"{plain_ms:.4f} ms (median of 20 CUDA-event timings); bound "
+                  f"{bound_ms:.6f} ms ({bound_by})")
+    return max_err
 
 
 def lda_logits(gen, R, D, V, K, X):
@@ -920,6 +999,8 @@ def sync_probe(mt, X):
         "the fit's CAVI step": mm.fit_step_fn(Xt, N, config),
         "a CAVI step with autoα and no Σ update": mm.fit_step_fn(Xt, N, config, autoalpha=True,
                                                                update_sigma=False),
+        "a CAVI step with lambda_extrap": mm.fit_step_fn(
+            Xt, N, dataclasses.replace(config, lambda_extrap=1.0)),
         "the inference E-step": lambda s: mm.e_step_moments(s, Xt, N, config, logw=logw,
                                                             want_scatter=False),
     }
@@ -1263,6 +1344,113 @@ def two_stage_phase(mt, kernels, X):
             fail(f"two-stage: modality {m}: selected ll {b} worse than the JAX value {ref} "
                  f"by more than {LL_SLACK}")
     return launches
+
+
+def launches_now(kernels):
+    ek, lk, tk = kernels
+    return {"estep_eta": ek.LAUNCHES, "lambda_newton": lk.LAUNCHES, "theta_moments": tk.LAUNCHES}
+
+
+def solver_options_phase(mt, kernels, X, features):
+    """Phase 17: the λ solve's options at full width. `lambda_extrap=1.0`
+    against the default on `fit_restarts` R=100, the two-stage
+    `fit_mmctm_restarts` and `fit_immctm_restarts`, each warm and then timed
+    in turns default, extrap, extrap, default; `lambda_solver="chol"` on
+    `fit_restarts` R=100, warm and then timed. Returns the timed runs'
+    launches."""
+    import numpy as np
+    import torch
+
+    docs = [[mt.make_count_matrix(X[m][d]) for m in range(2)] for d in range(X[0].shape[0])]
+    base = mt.MMCTMConfig(K=(7, 7), V=(96, 48), D=560, dtype=torch.float32)
+    kw = dict(restarts=RESTARTS, maxiter=MAXITER, tol=TOL)
+
+    def restarts_fit(**options):
+        res = mt.fit_restarts(SEED, X, dataclasses.replace(base, **options), [0.1, 0.1], **kw)
+        iters = res.n_iters.cpu().numpy()
+        return res.ll.cpu().double().numpy(), iters, loop_iterations(iters.max()), None
+
+    def two_stage_fit(**options):
+        model = mt.fit_mmctm_restarts([7, 7], [0.1, 0.1], docs, restarts=RESTARTS,
+                                      maxiter=MAXITER, **options)
+        iters = model.restart_result.n_iters.cpu().numpy()
+        steps = loop_iterations(iters.max()) + loop_iterations(len(model.ll_history))
+        return np.asarray([model.ll]), iters, steps, model
+
+    def immctm_fit(**options):
+        model = mt.fit_immctm_restarts([7, 7], [0.1, 0.1], features, docs, **kw, **options)
+        res = model.restart_result
+        iters = res.n_iters.cpu().numpy()
+        return res.ll.cpu().double().numpy(), iters, loop_iterations(iters.max()), model
+
+    def gate(label, path, ll, model):
+        if path == "restarts":
+            ll_gates(label, ll, JAX_CPU_BEST_LL)
+        elif path == "IMMCTM":
+            ll_gates(label, ll, JAX_CPU_BEST_IMMCTM_LL)
+            if not np.isfinite(model.ll).all():
+                fail(f"{label}: the selected lane is not finite: {model.ll}")
+        else:
+            print(f"{label}: selected model ll {model.ll}, converged {model.converged} (JAX CPU "
+                  f"two-stage best-of-16 {list(JAX_CPU_TWO_STAGE_LL)})")
+            if not (np.isfinite(model.ll).all() and model.converged):
+                fail(f"{label}: the selected model is not finite and converged: {model.ll}")
+            for m, (b, ref) in enumerate(zip(model.ll, JAX_CPU_TWO_STAGE_LL)):
+                if not b >= ref - LL_SLACK:
+                    fail(f"{label}: modality {m}: selected ll {b} worse than the JAX value "
+                         f"{ref} by more than {LL_SLACK}")
+
+    def timed(label, path, fit, options, want):
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        ll, iters, steps, model = fit(**options)
+        wall = time.perf_counter() - t0
+        launches = launches_now(kernels)
+        print(f"{label}: wall {wall:.4f} s, {steps} CAVI iterations ({1000 * wall / steps:.4f} "
+              f"ms each), iterations median {float(np.median(iters)):.1f} max "
+              f"{int(iters.max())}, best in-fit ll per modality "
+              f"{np.max(np.where(np.isfinite(ll), ll, -np.inf), axis=0).tolist()}; kernel "
+              f"launches {launches}")
+        if launches != want(steps):
+            fail(f"{label}: launches {launches}, not {want(steps)} over {steps} CAVI iterations")
+        gate(label, path, ll, model)
+        return wall, launches, ll, iters
+
+    def fused(steps):
+        return {"estep_eta": steps, "lambda_newton": 0, "theta_moments": 2 * steps}
+
+    total = {"estep_eta": 0, "lambda_newton": 0, "theta_moments": 0}
+    for path, fit in (("restarts", restarts_fit), ("two-stage", two_stage_fit),
+                      ("IMMCTM", immctm_fit)):
+        for options in ({}, {"lambda_extrap": 1.0}):
+            t0 = time.perf_counter()
+            fit(**options)
+            print(f"λ options, {path} warm-up, {options or 'default'}: "
+                  f"{time.perf_counter() - t0:.3f} s")
+        walls, runs = {"default": [], "extrap": []}, {}
+        for arm in ("default", "extrap", "extrap", "default"):
+            options = {"lambda_extrap": 1.0} if arm == "extrap" else {}
+            wall, launches, ll, iters = timed(f"λ options, {path}, {arm}", path, fit, options,
+                                              fused)
+            walls[arm].append(wall)
+            runs.setdefault(arm, (ll, iters))
+            total = {k: total[k] + launches[k] for k in total}
+        (ll_d, it_d), (ll_e, it_e) = runs["default"], runs["extrap"]
+        print(f"λ options, {path}: walls in turns default {walls['default']} s, extrap "
+              f"{walls['extrap']} s; lanes whose iteration count differs "
+              f"{int((it_d != it_e).sum())}/{len(it_d)}, lane-iterations default "
+              f"{int(it_d.sum())}, extrap {int(it_e.sum())}; largest |Δ final ll| "
+              f"{float(np.nanmax(np.abs(ll_d - ll_e))):.3e}")
+
+    t0 = time.perf_counter()
+    restarts_fit(lambda_solver="chol")
+    print(f"λ options, restarts warm-up, chol: {time.perf_counter() - t0:.3f} s")
+    _, launches, _, _ = timed("λ options, restarts, chol", "restarts", restarts_fit,
+                        {"lambda_solver": "chol"},
+                        lambda steps: {"estep_eta": 0, "lambda_newton": 0,
+                                       "theta_moments": 2 * steps})
+    return {k: total[k] + launches[k] for k in total}
 
 
 def tensors(state):
@@ -1849,6 +2037,7 @@ def main():
         "IMMCTM": immctm_launches,
         "compaction": compaction_phase(mt, kernels, X),
         "two-stage": two_stage_phase(mt, kernels, X),
+        "λ solve options": solver_options_phase(mt, kernels, X, features),
         "CLI": cli_phase(mt, kernels, terms),
         "inference, MMCTM": mmctm_inference_phase(mt, kernels, docs),
         "inference, IMMCTM": inference_phase(mt, kernels, "IMMCTM inference", immctm_model,

@@ -12,10 +12,16 @@
 //             ν = max(1/(2a + b·e^{ν/2}), 1e-7), a = ½Σ⁻¹_kk, b = Ndivζ·e^λ,
 //             with b·e^{ν/2} taken as 0 where b = 0 and its exponent clipped
 //             at 60, then 4 guarded Newton steps; it reads the incoming λ;
-//   λ'      = the λ solve of lambda_solve.cuh from the incoming λ, with ν'.
+//   λ'      = the λ solve of lambda_solve.cuh with ν', from the incoming λ,
+//             or, given λ_prev (the previous CAVI iteration's λ) and c, from
+//             the secant start λ + clamp(c·(λ − λ_prev), −4, 4) of
+//             ops/solvers.py extrapolated_start (CTMBaseConfig.lambda_extrap;
+//             the JAX package's solve_eta, models/ctm_base.py:405-408), formed
+//             after ζ and ν have read the incoming λ. A null λ_prev runs the
+//             kernel as it ran before it took one.
 // It computes what ops/estep_kernel.py estep_eta_fused_plain (the port's
-// update_zeta → calculate_Ndivzeta → maximize_nu → maximize_lambda) computes,
-// step for step, in float32. Clamps propagate NaN as torch.clamp does, so a
+// update_zeta → calculate_Ndivzeta → maximize_nu → extrapolated_start →
+// maximize_lambda) computes, step for step, in float32. Clamps propagate NaN as torch.clamp does, so a
 // dead lane (an all-NaN Σ_r⁻¹) stays NaN; it cannot touch another restart,
 // whose problems run in other blocks.
 //
@@ -42,8 +48,10 @@
 //
 // Bounds. At the f32 CAVI budgets (Newton 3, PCG 4, polish 1, ν sweeps 4) a
 // problem at MK = 14 is about 12 kFLOP of λ solve plus about 1.3 kFLOP of ζ
-// and ν, and it moves 5·MK·4 bytes: at R = 100 by D = 560, 0.75 GFLOP and
-// 16 MB, an operations bound of 14 µs (chip_smoke.py eta_bound). The
+// and ν, and it moves 5·MK·4 bytes (6·MK·4 with λ_prev): at R = 100 by
+// D = 560, 0.75 GFLOP and 16 MB (19 MB), an operations bound of 14 µs
+// (chip_smoke.py eta_bound). λ_prev is read once, coalesced, in every
+// layout. The
 // thread layout is bound by its instruction issue (the matvecs' FMAs and
 // broadcast loads, the fast paths of the PCG and ν divisions and of the
 // line search's square roots, the exps), below the card's rate. On an
@@ -64,6 +72,7 @@ using namespace lambda_solve;
 
 constexpr float kNuLowerBound = 1e-7f;  // solvers.NU_LOWER_BOUND
 constexpr int kNuPolish = 4;            // solvers.NU_POLISH_ITERS
+constexpr float kExtrapClip = 4.f;      // solvers.EXTRAP_CLIP
 constexpr int kMaxThreadDocs = 64;      // documents per block of the thread layout, at most
 // Blocks an SM holds in the thread layout: 6 at P ≤ 14 (168 registers a
 // thread), 5 at P = 16.
@@ -82,6 +91,12 @@ struct Blocks {
 // max(x, lo) and min(x, hi) that return a NaN x unchanged, as torch.clamp.
 __device__ __forceinline__ float clamp_below(float x, float lo) { return x < lo ? lo : x; }
 __device__ __forceinline__ float clamp_above(float x, float hi) { return x > hi ? hi : x; }
+
+// The secant start λ + clamp(c·(λ − λ_prev), −4, 4) (solvers.extrapolated_start),
+// its clamp propagating NaN as torch.clamp does.
+__device__ __forceinline__ float secant_start(float lam, float lam_prev, float c) {
+  return lam + clamp_above(clamp_below(c * (lam - lam_prev), -kExtrapClip), kExtrapClip);
+}
 
 // ν (ops/solvers.py maximize_nu) of P coordinates at once, from a = ½Σ⁻¹_jj,
 // b = Ndivζ_j·e^{λ_j} and the incoming ν, all in registers; each division by
@@ -139,9 +154,10 @@ __global__ void __launch_bounds__(kMaxThreadDocs, thread_blocks_per_sm(P))
 estep_eta_thread_kernel(const float* __restrict__ lam0, const float* __restrict__ nu0,
                         const float* __restrict__ N, const float* __restrict__ st,
                         const float* __restrict__ mu, const float* __restrict__ inv_sigma,
-                        float* __restrict__ zeta, float* __restrict__ nu_out,
-                        float* __restrict__ lam_out, const Blocks blk, int D, int MK,
-                        int n_iter, int cg_iter, int polish_iter, int nu_n_iter) {
+                        const float* __restrict__ lam_prev, float* __restrict__ zeta,
+                        float* __restrict__ nu_out, float* __restrict__ lam_out,
+                        const Blocks blk, int D, int MK, int n_iter, int cg_iter,
+                        int polish_iter, int nu_n_iter, float extrap) {
   using Problem = ThreadProblem<P, kColStride>;
   constexpr int P4 = Problem::P4;
   extern __shared__ float4 smem4[];
@@ -215,7 +231,19 @@ estep_eta_thread_kernel(const float* __restrict__ lam0, const float* __restrict_
 #pragma unroll
   for (int j = 0; j < P; ++j) prob.at(kNu, j) = nu[j];
 
-  // λ from the incoming λ, with the new ν.
+  // With λ_prev, the λ column becomes the secant start, coalesced as it was
+  // staged, once every thread has read its incoming λ (the branch is the
+  // same for the whole block); padding keeps λ = 0.
+  if (lam_prev != nullptr) {
+    __syncthreads();
+    for (int idx = t; idx < docs * MK; idx += T) {
+      const int doc = idx / MK, j = idx - doc * MK;
+      col(kLam, j, doc) = secant_start(col(kLam, j, doc), lam_prev[base + idx], extrap);
+    }
+    __syncthreads();
+  }
+
+  // λ from its start, with the new ν.
   prob.solve(n_iter, cg_iter, polish_iter);
 
   __syncthreads();
@@ -233,10 +261,10 @@ estep_eta_thread_kernel(const float* __restrict__ lam0, const float* __restrict_
 template <typename G>
 __device__ __forceinline__ void estep(G& grp, const float* lam0, const float* nu0,
                                       const float* N, const float* st, const float* mu,
-                                      float* zeta_out, float* nu_out, float* lam_out,
-                                      const Blocks& blk, int r, int d, int j, int D, int MK,
-                                      int n_iter, int cg_iter, int polish_iter,
-                                      int nu_n_iter) {
+                                      const float* lam_prev, float* zeta_out, float* nu_out,
+                                      float* lam_out, const Blocks& blk, int r, int d, int j,
+                                      int D, int MK, int n_iter, int cg_iter, int polish_iter,
+                                      int nu_n_iter, float extrap) {
   const bool live = j < MK && d < D;
   const size_t row = static_cast<size_t>(r) * D + d;
   const size_t off = row * MK + j;
@@ -265,8 +293,12 @@ __device__ __forceinline__ void estep(G& grp, const float* lam0, const float* nu
   const float nu = nu_v[0];
   if (live) nu_out[off] = nu;
 
-  // λ from the incoming λ, with the new ν.
-  const float lam_new = solve_lane(grp, lam, nu, ndz, st_j, mu_j, n_iter, cg_iter, polish_iter);
+  // λ from the incoming λ, or with λ_prev from the secant start (a padding
+  // lane keeps λ = 0), with the new ν.
+  const float lam_start =
+      lam_prev != nullptr && live ? secant_start(lam, lam_prev[off], extrap) : lam;
+  const float lam_new =
+      solve_lane(grp, lam_start, nu, ndz, st_j, mu_j, n_iter, cg_iter, polish_iter);
   if (live) lam_out[off] = lam_new;
 }
 
@@ -275,9 +307,10 @@ __global__ void __launch_bounds__(kThreads)
 estep_eta_warp_kernel(const float* __restrict__ lam0, const float* __restrict__ nu0,
                       const float* __restrict__ N, const float* __restrict__ st,
                       const float* __restrict__ mu, const float* __restrict__ inv_sigma,
-                      float* __restrict__ zeta, float* __restrict__ nu_out,
-                      float* __restrict__ lam_out, const Blocks blk, int D, int MK, int n_iter,
-                      int cg_iter, int polish_iter, int nu_n_iter) {
+                      const float* __restrict__ lam_prev, float* __restrict__ zeta,
+                      float* __restrict__ nu_out, float* __restrict__ lam_out, const Blocks blk,
+                      int D, int MK, int n_iter, int cg_iter, int polish_iter, int nu_n_iter,
+                      float extrap) {
   __shared__ float S[P * P];
   const int r = blockIdx.y;
   stage_inv_sigma<P>(S, inv_sigma + static_cast<size_t>(r) * MK * MK, MK);
@@ -286,8 +319,8 @@ estep_eta_warp_kernel(const float* __restrict__ lam0, const float* __restrict__ 
   const int d = blockIdx.x * (kThreads / P) + threadIdx.x / P;
   WarpGroup<P> grp;
   bind_warp_group<P>(grp, S, j);
-  estep(grp, lam0, nu0, N, st, mu, zeta, nu_out, lam_out, blk, r, d, j, D, MK, n_iter, cg_iter,
-        polish_iter, nu_n_iter);
+  estep(grp, lam0, nu0, N, st, mu, lam_prev, zeta, nu_out, lam_out, blk, r, d, j, D, MK, n_iter,
+        cg_iter, polish_iter, nu_n_iter, extrap);
 }
 
 template <int P>
@@ -295,9 +328,10 @@ __global__ void __launch_bounds__(kThreads)
 estep_eta_block_kernel(const float* __restrict__ lam0, const float* __restrict__ nu0,
                        const float* __restrict__ N, const float* __restrict__ st,
                        const float* __restrict__ mu, const float* __restrict__ inv_sigma,
-                       float* __restrict__ zeta, float* __restrict__ nu_out,
-                       float* __restrict__ lam_out, const Blocks blk, int D, int MK,
-                       int n_iter, int cg_iter, int polish_iter, int nu_n_iter) {
+                       const float* __restrict__ lam_prev, float* __restrict__ zeta,
+                       float* __restrict__ nu_out, float* __restrict__ lam_out,
+                       const Blocks blk, int D, int MK, int n_iter, int cg_iter,
+                       int polish_iter, int nu_n_iter, float extrap) {
   extern __shared__ float smem[];
   const int r = blockIdx.y;
   stage_inv_sigma<P>(smem, inv_sigma + static_cast<size_t>(r) * MK * MK, MK);
@@ -305,17 +339,18 @@ estep_eta_block_kernel(const float* __restrict__ lam0, const float* __restrict__
   BlockGroup<P> grp;
   bind_block_group<P>(grp, smem);
   const int d = blockIdx.x * (kThreads / P) + threadIdx.x / P;
-  estep(grp, lam0, nu0, N, st, mu, zeta, nu_out, lam_out, blk, r, d, grp.j, D, MK, n_iter,
-        cg_iter, polish_iter, nu_n_iter);
+  estep(grp, lam0, nu0, N, st, mu, lam_prev, zeta, nu_out, lam_out, blk, r, d, grp.j, D, MK,
+        n_iter, cg_iter, polish_iter, nu_n_iter, extrap);
 }
 
 // ---------------------------------------------------------------------------
 // Launch.
 
 struct Args {
-  const float *lam0, *nu0, *N, *st, *mu, *inv_sigma;
+  const float *lam0, *nu0, *N, *st, *mu, *inv_sigma, *lam_prev;
   float *zeta, *nu_out, *lam_out;
   int R, D, MK, n_iter, cg_iter, polish_iter, nu_n_iter;
+  float extrap;
 };
 
 template <typename Kernel>
@@ -324,9 +359,10 @@ int launch(Kernel kernel, const Args& a, const Blocks& blk, int docs, int thread
   const cudaError_t rc = allow_smem(kernel, smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const dim3 grid((a.D + docs - 1) / docs, a.R);
-  kernel<<<grid, threads, smem, stream>>>(a.lam0, a.nu0, a.N, a.st, a.mu, a.inv_sigma, a.zeta,
-                                          a.nu_out, a.lam_out, blk, a.D, a.MK, a.n_iter,
-                                          a.cg_iter, a.polish_iter, a.nu_n_iter);
+  kernel<<<grid, threads, smem, stream>>>(a.lam0, a.nu0, a.N, a.st, a.mu, a.inv_sigma,
+                                          a.lam_prev, a.zeta, a.nu_out, a.lam_out, blk, a.D,
+                                          a.MK, a.n_iter, a.cg_iter, a.polish_iter, a.nu_n_iter,
+                                          a.extrap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -360,7 +396,8 @@ int launch_thread_layout(int P, const Args& a, const Blocks& blk, int docs, cuda
 // C interface, bound with ctypes (ops/estep_kernel.py). All arrays are
 // contiguous float32 on the current device: lam0/nu/st and the outputs
 // nu_out/lam_out (R, D, MK), N (D, M), mu (R, MK), inv_sigma (R, MK, MK), the
-// output zeta (R, D, M). K (host memory) holds the M ≥ 1 topic counts, each
+// output zeta (R, D, M); lam_prev (R, D, MK), or null for no secant start,
+// and extrap its coefficient c. K (host memory) holds the M ≥ 1 topic counts, each
 // ≥ 1, summing to MK ≤ 128. (layout, P, docs) is the launch geometry of
 // ops/estep_kernel.py launch_geometry: layout 0 (thread) with P even,
 // MK ≤ P ≤ 16 and 1 ≤ docs ≤ 64 documents per block; 1 (warp) with P = 32
@@ -369,9 +406,10 @@ int launch_thread_layout(int P, const Args& a, const Blocks& blk, int docs, cuda
 // launched).
 extern "C" int estep_eta_launch(const float* lam0, const float* nu, const float* N,
                                 const float* st, const float* mu, const float* inv_sigma,
-                                float* zeta, float* nu_out, float* lam_out, const int* K, int M,
-                                int R, int D, int MK, int n_iter, int cg_iter, int polish_iter,
-                                int nu_n_iter, int layout, int P, int docs, void* stream) {
+                                const float* lam_prev, float* zeta, float* nu_out,
+                                float* lam_out, const int* K, int M, int R, int D, int MK,
+                                int n_iter, int cg_iter, int polish_iter, int nu_n_iter,
+                                float extrap, int layout, int P, int docs, void* stream) {
   if (R <= 0 || D <= 0) return static_cast<int>(cudaSuccess);
   if (MK < 1 || MK > kMaxMK || R > 65535 || M < 1 || M > MK || P < MK)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -383,8 +421,8 @@ extern "C" int estep_eta_launch(const float* lam0, const float* nu, const float*
     blk.offset[m + 1] = blk.offset[m] + K[m];
   }
   if (blk.offset[M] != MK) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{lam0, nu, N, st, mu, inv_sigma, zeta, nu_out, lam_out,
-               R, D, MK, n_iter, cg_iter, polish_iter, nu_n_iter};
+  const Args a{lam0, nu, N, st, mu, inv_sigma, lam_prev, zeta, nu_out, lam_out,
+               R, D, MK, n_iter, cg_iter, polish_iter, nu_n_iter, extrap};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (layout == kThreadLayout && docs >= 1 && docs <= kMaxThreadDocs)
     return launch_thread_layout(P, a, blk, docs, s);

@@ -36,6 +36,7 @@ from ..ops.solvers import (
     LAMBDA_NITER_F32_CAVI,
     LAMBDA_POLISH_F32_CAVI,
     NU_FP_F32_CAVI,
+    extrapolated_start,
     maximize_lambda,
     maximize_nu,
 )
@@ -45,10 +46,12 @@ __all__ = [
     "full_f32_matmuls",
     "counts_per_doc",
     "calculate_Ndivzeta",
+    "calculate_sumtheta",
     "theta_moments_one",
     "theta_moments",
     "theta_from",
     "update_zeta",
+    "solve_nu",
     "resolved_budgets",
     "solve_lambda",
     "solve_eta",
@@ -64,6 +67,7 @@ __all__ = [
     "run_cavi",
     "carry_converged",
     "elbo_eta_z_term_dict",
+    "elbo_eta_z_terms",
     "DONE_CHECK_EVERY",
     "FrozenTopics",
     "update_mu_Sigma",
@@ -83,7 +87,19 @@ DONE_CHECK_EVERY = 8
 @dataclasses.dataclass(frozen=True)
 class CTMBaseConfig:
     """Static per-modality topic/vocab structure. The inner-solver budgets
-    default (None) to the dtype-dependent values of `resolved_budgets`."""
+    default (None) to the dtype-dependent values of `resolved_budgets`.
+
+    Two options of the λ solve, the JAX package's (its ctm_base.py:61-76),
+    set with `dataclasses.replace(config, ...)`:
+      * `lambda_extrap` (None or 0: off): the fit and inference loops start
+        the λ solve at the secant step λ + clamp(c·(λ − λ_prev), ±4), λ_prev
+        the previous iteration's λ (the state's lam_pre), instead of at λ;
+        ζ and ν still read λ (`solve_eta`). The η kernel forms that start
+        itself, so the option keeps the fused route;
+      * `lambda_solver`: the Newton direction, None or "pcg" (Jacobi PCG),
+        or "chol" (a direct Cholesky solve, ops/solvers._chol_solve), which
+        the kernels do not implement: it takes the split η route and the
+        plain λ solver on every device (`_eta_route`, `_lambda_route`)."""
 
     K: Tuple[int, ...]  # topics per modality
     V: Tuple[int, ...]  # vocab items per modality
@@ -93,6 +109,8 @@ class CTMBaseConfig:
     lambda_cg_iter: Optional[int] = None
     lambda_polish_iter: Optional[int] = None
     nu_n_iter: Optional[int] = None
+    lambda_extrap: Optional[float] = None
+    lambda_solver: Optional[str] = None
 
     @property
     def M(self) -> int:
@@ -163,6 +181,15 @@ def calculate_Ndivzeta(N: torch.Tensor, zeta: torch.Tensor, config) -> torch.Ten
         [ratio[..., m : m + 1].expand(*ratio.shape[:-1], config.K[m]) for m in range(config.M)],
         dim=-1,
     )
+
+
+def calculate_sumtheta(theta, X, config) -> torch.Tensor:
+    """(R, D, MK): the count-weighted θ sums Σ_v X[d, v]·θ[r, d, v, k] of a
+    materialized θ (`theta_from`), concatenated over the modalities
+    (src/MMCTM.jl:110-117). The fit loops take them from `theta_moments`
+    without θ."""
+    return torch.cat([torch.einsum("dv,rdvk->rdk", X[m], theta[m]) for m in range(config.M)],
+                     dim=-1)
 
 
 def _theta_route(device_type: str, dtype: torch.dtype, V: int, K: int) -> str:
@@ -244,6 +271,14 @@ def update_zeta(lam: torch.Tensor, nu: torch.Tensor, config) -> torch.Tensor:
     return torch.stack([config.block(e, m).sum(dim=-1) for m in range(config.M)], dim=-1)
 
 
+def solve_nu(nu, lam, Ndivzeta, invSigma, n_iter=None):
+    """The batched ν solve (replaces NLopt at src/MMCTM.jl:156-170) with
+    diag(Σ⁻¹) of each lane: Σ⁻¹ (R, MK, MK) against ν, λ, N/ζ (R, D, MK)."""
+    kw = {} if n_iter is None else {"n_iter": n_iter}
+    return maximize_nu(nu, lam, Ndivzeta,
+                       torch.diagonal(invSigma, dim1=-2, dim2=-1).unsqueeze(-2), **kw)
+
+
 def resolved_budgets(config) -> dict:
     """The inner-solver budgets a fit with this config runs:
     {"lambda_n_iter", "lambda_cg_iter", "lambda_polish_iter", "nu_n_iter"},
@@ -265,52 +300,75 @@ def resolved_budgets(config) -> dict:
     return out
 
 
-def _lambda_route(device_type: str, dtype: torch.dtype, MK: int) -> str:
+def _lambda_route(device_type: str, dtype: torch.dtype, MK: int, solver=None) -> str:
     """How `solve_lambda` solves: "kernel" (the fused CUDA kernel,
     ops/lambda_kernel.py, f32 like the TPU kernel it replaces) for CUDA
     float32 with MK ≤ 128, the JAX package's rule (JAX ctm_base.py:317);
     "plain" (ops/solvers.maximize_lambda) for CPU tensors, CUDA float64 and
-    MK > 128."""
+    MK > 128. A `solver` (CTMBaseConfig.lambda_solver) other than None or
+    "pcg" is "plain" on every device: the kernel implements the PCG
+    direction only, and "chol" is the user's explicit choice of the plain
+    solver, not a fallback (JAX ctm_base.py:312-316)."""
+    if solver not in (None, "pcg"):
+        return "plain"
     if device_type == "cuda" and dtype == torch.float32 and MK <= lambda_kernel.KERNEL_MAX_MK:
         return "kernel"
     return "plain"
 
 
 def solve_lambda(lam, nu, Ndivzeta, sumtheta, mu, invSigma,
-                 n_iter=None, cg_iter=None, polish_iter=None):
+                 n_iter=None, cg_iter=None, polish_iter=None, solver=None):
     """Batched λ maximization (replaces NLopt at src/MMCTM.jl:127-143) over
     (R, D, MK) with per-lane μ (R, MK) and Σ⁻¹ (R, MK, MK), routed by
-    `_lambda_route`. The route is a shape rule, not an error path: a kernel
-    that fails to build or launch raises."""
+    `_lambda_route`; `solver` is the Newton direction (None: "pcg"). The
+    route is a shape rule, not an error path: a kernel that fails to build
+    or launch raises."""
     kw = {"n_iter": n_iter, "cg_iter": cg_iter, "polish_iter": polish_iter}
     kw = {k: int(v) for k, v in kw.items() if v is not None}
-    if _lambda_route(lam.device.type, lam.dtype, lam.shape[-1]) == "kernel":
+    if _lambda_route(lam.device.type, lam.dtype, lam.shape[-1], solver) == "kernel":
         return lambda_kernel.maximize_lambda_restarts(
             lam, nu, Ndivzeta, sumtheta, mu, invSigma, **kw
         )
+    if solver is not None:
+        kw["solver"] = str(solver)
     return maximize_lambda(lam, nu, Ndivzeta, sumtheta, mu, invSigma, **kw)
 
 
-def _eta_route(device_type: str, dtype: torch.dtype, MK: int) -> str:
+def _eta_route(device_type: str, dtype: torch.dtype, MK: int, solver=None) -> str:
     """How `solve_eta` computes the η side: "fused" (the fused CUDA kernel,
     ops/estep_kernel.py: ζ, N/ζ, ν and λ in one launch) for CUDA float32
     with MK ≤ 128; "split" (ζ, N/ζ and the ν solve in PyTorch, then
     `solve_lambda`, which `_lambda_route` sends to the λ kernel or the plain
-    solver) for CPU tensors, CUDA float64 and MK > 128."""
+    solver) for CPU tensors, CUDA float64 and MK > 128. A `solver`
+    (CTMBaseConfig.lambda_solver) other than None or "pcg" is "split" on
+    every device, and `_lambda_route` then sends it to the plain solver:
+    the user's explicit choice of a direction the kernels do not implement,
+    not a fallback, so such a fit launches neither the η nor the λ kernel
+    (JAX ctm_base.py:312-316)."""
+    if solver not in (None, "pcg"):
+        return "split"
     if device_type == "cuda" and dtype == torch.float32 and MK <= estep_kernel.KERNEL_MAX_MK:
         return "fused"
     return "split"
 
 
-def solve_eta(lam, nu, N, sumtheta, mu, invSigma, config):
+def solve_eta(lam, nu, N, sumtheta, mu, invSigma, config, lam_prev=None):
     """The η side of one batched `fitdoc!` (src/MMCTM.jl:450-455, minus θ):
     ζ (closed form) → N/ζ → ν solve → λ solve, for every lane and document,
     routed by `_eta_route`. ζ and N/ζ come from the incoming λ and ν, the ν
-    solve reads the incoming λ, and the λ solve starts from the incoming λ
-    with the new ν. The route is a shape rule, not an error path: a kernel
-    that fails to build or launch raises. Returns (ζ, ν', λ')."""
+    solve reads the incoming λ, and the λ solve starts, with the new ν, from
+    `ops/solvers.extrapolated_start(λ, lam_prev, config.lambda_extrap)`:
+    the incoming λ itself unless the config's lambda_extrap is set and
+    `lam_prev` (the previous iteration's λ, the state's lam_pre) is given
+    (the JAX package's solve_eta, its ctm_base.py:363-412). On the fused
+    route the η kernel forms that start. The route is a shape rule, not an
+    error path: a kernel that fails to build or launch raises. Returns
+    (ζ, ν', λ')."""
     budgets = resolved_budgets(config)
-    if _eta_route(lam.device.type, lam.dtype, lam.shape[-1]) == "fused":
+    # the secant start's arguments only where it is on, else no argument
+    start = ({"lam_prev": lam_prev, "extrap": float(config.lambda_extrap)}
+             if config.lambda_extrap and lam_prev is not None else {})
+    if _eta_route(lam.device.type, lam.dtype, lam.shape[-1], config.lambda_solver) == "fused":
         kw = {
             kernel_name: budgets[field]
             for kernel_name, field in (
@@ -319,20 +377,23 @@ def solve_eta(lam, nu, N, sumtheta, mu, invSigma, config):
             )
             if budgets[field] is not None
         }
-        return estep_kernel.estep_eta_fused(lam, nu, N, sumtheta, mu, invSigma, config.K, **kw)
+        return estep_kernel.estep_eta_fused(lam, nu, N, sumtheta, mu, invSigma, config.K,
+                                            **kw, **start)
+    solver = {} if config.lambda_solver is None else {"solver": config.lambda_solver}
     return split_eta(
         lam, nu, N, sumtheta, mu, invSigma, config, solve_lambda, nu_n_iter=budgets["nu_n_iter"],
         n_iter=budgets["lambda_n_iter"], cg_iter=budgets["lambda_cg_iter"],
-        polish_iter=budgets["lambda_polish_iter"],
+        polish_iter=budgets["lambda_polish_iter"], **start, **solver,
     )
 
 
 def split_eta(lam, nu, N, sumtheta, mu, invSigma, config, lambda_solver, nu_n_iter=None,
-              **lambda_kw):
+              lam_prev=None, extrap=None, **lambda_kw):
     """The η side as separate steps: ζ and N/ζ from the incoming λ and ν,
     the ν solve from the incoming λ (`nu_n_iter` sweeps, None: the
-    solver's default), then `lambda_solver(lam, ν', N/ζ, sumθ, μ, Σ⁻¹,
-    **lambda_kw)` with the new ν. `solve_eta`'s "split" route passes
+    solver's default), then `lambda_solver(λ₀, ν', N/ζ, sumθ, μ, Σ⁻¹,
+    **lambda_kw)` with the new ν, from λ₀ = extrapolated_start(λ, lam_prev,
+    extrap) (λ itself without both). `solve_eta`'s "split" route passes
     `solve_lambda`; the η kernel's plain version passes the plain
     `maximize_lambda`. Returns (ζ, ν', λ')."""
     zeta = update_zeta(lam, nu, config)
@@ -340,7 +401,8 @@ def split_eta(lam, nu, N, sumtheta, mu, invSigma, config, lambda_solver, nu_n_it
     diag = torch.diagonal(invSigma, dim1=-2, dim2=-1).unsqueeze(-2)
     nu_kw = {} if nu_n_iter is None else {"n_iter": nu_n_iter}
     nu2 = maximize_nu(nu, lam, Ndivzeta, diag, **nu_kw)
-    return zeta, nu2, lambda_solver(lam, nu2, Ndivzeta, sumtheta, mu, invSigma, **lambda_kw)
+    lam0 = extrapolated_start(lam, lam_prev, extrap)
+    return zeta, nu2, lambda_solver(lam0, nu2, Ndivzeta, sumtheta, mu, invSigma, **lambda_kw)
 
 
 def check_device(device) -> torch.device:
@@ -603,6 +665,16 @@ def elbo_eta_z_term_dict(lam, nu, zeta, mu, invSigma, sumtheta, N, config, reduc
     ElnPeta = 0.5 * (D * logdet - D * MK * log2pi - trace - quad)
     ElnQeta = -0.5 * (lognu + D * MK * (log2pi + 1.0))
     return {"ElnPeta": ElnPeta, "ElnPZ": ElnPZ, "ElnQeta": ElnQeta}
+
+
+def elbo_eta_z_terms(lam, nu, zeta, mu, invSigma, theta, X, N, config):
+    """ElnPη + ElnPZ − ElnQη, each lane's (R,), of a materialized θ
+    (`theta_from`; the JAX package's elbo_eta_z_terms, its
+    ctm_base.py:597-600): `elbo_eta_z_term_dict` with sumθ from
+    `calculate_sumtheta`."""
+    t = elbo_eta_z_term_dict(lam, nu, zeta, mu, invSigma, calculate_sumtheta(theta, X, config),
+                             N, config)
+    return t["ElnPeta"] + t["ElnPZ"] - t["ElnQeta"]
 
 
 # ---------------------------------------------------------------------------

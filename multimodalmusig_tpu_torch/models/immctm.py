@@ -34,6 +34,7 @@ from . import ctm_base
 from .ctm_base import (
     CTMBaseConfig,
     FrozenTopics,
+    calculate_sumtheta,
     carry_converged,
     check_device,
     counts_per_doc,
@@ -68,7 +69,9 @@ __all__ = [
     "summed_Elnphi",
     "smoothed_logw",
     "unsmoothed_logw",
+    "update_theta",
     "reconstruct_theta",
+    "e_step",
     "e_step_moments",
     "update_gamma",
     "update_alpha",
@@ -203,9 +206,30 @@ def unsmoothed_logw(phi, F, config: IMMCTMConfig) -> Tuple[torch.Tensor, ...]:
                  for m in range(config.M))
 
 
+def update_theta(state: IMMCTMState, F, config: IMMCTMConfig) -> Tuple[torch.Tensor, ...]:
+    """θ[r,d,v,:] ∝ exp(λ_block[r,d,:] + Σ_i Elnϕ) (src/IMMCTM.jl:152-172) as
+    (R, D, V_m, K_m) tensors, for the reference-shaped `e_step`."""
+    return theta_from(state.lam, smoothed_logw(state, F, config), config)
+
+
 def reconstruct_theta(state: IMMCTMState, config: IMMCTMConfig) -> Tuple[torch.Tensor, ...]:
     """The θ of the last E-step, rebuilt from the (λ_pre, logw_pre) snapshot."""
     return theta_from(state.lam_pre, state.logw_pre, config)
+
+
+def e_step(state: IMMCTMState, X, N, F, config: IMMCTMConfig, logw=None):
+    """The reference-shaped `fitdoc!` (src/IMMCTM.jl:430-435) with θ
+    materialized, as mmctm.e_step: θ from the log-weights `logw` (None: the
+    smoothed Σ_i E[ln ϕ]), then `solve_eta` with `lam_pre`. Returns (state,
+    θ tuple of (R, D, V_m, K_m))."""
+    if logw is None:
+        logw = smoothed_logw(state, F, config)
+    theta = theta_from(state.lam, logw, config)
+    zeta, nu, lam = solve_eta(
+        state.lam, state.nu, N, calculate_sumtheta(theta, X, config), state.mu, state.invSigma,
+        config, lam_prev=state.lam_pre,
+    )
+    return state._replace(zeta=zeta, lam_pre=state.lam, logw_pre=logw, nu=nu, lam=lam), theta
 
 
 def e_step_moments(state: IMMCTMState, X, N, F, config: IMMCTMConfig, logw=None,
@@ -213,13 +237,15 @@ def e_step_moments(state: IMMCTMState, X, N, F, config: IMMCTMConfig, logw=None,
     """Batched `fitdoc!` (src/IMMCTM.jl:430-435) computing only the θ moments
     the CAVI iteration consumes, through the shared ctm_base.theta_moments
     and solve_eta. θ takes the log-weights `logw` (None: the smoothed
-    Σ_i E[ln ϕ]). Returns (state, scatters tuple of (R, K_m, V_m), or None
-    without `want_scatter`)."""
+    Σ_i E[ln ϕ]); the λ solve's start reads `lam_pre` when the config's
+    lambda_extrap is set. Returns (state, scatters tuple of (R, K_m, V_m),
+    or None without `want_scatter`)."""
     if logw is None:
         logw = smoothed_logw(state, F, config)
     sumtheta, scatters = theta_moments(state.lam, logw, X, config, want_scatter)
     zeta, nu, lam = solve_eta(
-        state.lam, state.nu, N, sumtheta, state.mu, state.invSigma, config
+        state.lam, state.nu, N, sumtheta, state.mu, state.invSigma, config,
+        lam_prev=state.lam_pre,
     )
     return (
         state._replace(zeta=zeta, lam_pre=state.lam, logw_pre=logw, nu=nu, lam=lam),

@@ -31,6 +31,7 @@ from . import ctm_base
 from .ctm_base import (
     CTMBaseConfig,
     FrozenTopics,
+    calculate_sumtheta,
     carry_converged,
     check_device,
     counts_per_doc,
@@ -61,6 +62,11 @@ __all__ = [
     "init_with_alpha",
     "smoothed_logw",
     "unsmoothed_logw",
+    "update_theta",
+    "unsmoothed_update_theta",
+    "reconstruct_theta",
+    "calculate_sumtheta",
+    "e_step",
     "e_step_moments",
     "update_mu",
     "update_Sigma",
@@ -201,9 +207,38 @@ def unsmoothed_logw(phi) -> Tuple[torch.Tensor, ...]:
     return tuple(torch.log(p).mT for p in phi)
 
 
+def update_theta(state: MMCTMState, config: MMCTMConfig) -> Tuple[torch.Tensor, ...]:
+    """θ[r,d,v,:] ∝ exp(λ_block[r,d,:] + Elnϕ_m[r,:,v]) (src/MMCTM.jl:183-198)
+    as (R, D, V_m, K_m) tensors: θ materialized, for the reference-shaped
+    `e_step`; the fit loops take its moments from `theta_moments`."""
+    return theta_from(state.lam, smoothed_logw(state), config)
+
+
+def unsmoothed_update_theta(state: MMCTMState, phi, config: MMCTMConfig) -> Tuple[torch.Tensor, ...]:
+    """Inference-mode θ from the point estimates ϕ (R, K_m, V_m)
+    (src/MMCTM.jl:496-509), materialized as `update_theta`'s."""
+    return theta_from(state.lam, unsmoothed_logw(phi), config)
+
+
 def reconstruct_theta(state: MMCTMState, config: MMCTMConfig) -> Tuple[torch.Tensor, ...]:
     """The θ of the last E-step, rebuilt from the (λ_pre, logw_pre) snapshot."""
     return theta_from(state.lam_pre, state.logw_pre, config)
+
+
+def e_step(state: MMCTMState, X, N, config: MMCTMConfig, logw=None):
+    """The reference-shaped `fitdoc!` (src/MMCTM.jl:450-455) with θ
+    materialized: θ from the pre-update λ and the log-weights `logw` (None:
+    E[ln ϕ]), its sums, then `solve_eta` with the previous iteration's λ
+    (`lam_pre`, for the config's lambda_extrap). Returns (state, θ tuple of
+    (R, D, V_m, K_m)); `e_step_moments` computes the same state without θ."""
+    if logw is None:
+        logw = smoothed_logw(state)
+    theta = theta_from(state.lam, logw, config)
+    zeta, nu, lam = solve_eta(
+        state.lam, state.nu, N, calculate_sumtheta(theta, X, config), state.mu, state.invSigma,
+        config, lam_prev=state.lam_pre,
+    )
+    return state._replace(zeta=zeta, lam_pre=state.lam, logw_pre=logw, nu=nu, lam=lam), theta
 
 
 def e_step_moments(state: MMCTMState, X, N, config: MMCTMConfig, logw=None,
@@ -213,14 +248,17 @@ def e_step_moments(state: MMCTMState, X, N, config: MMCTMConfig, logw=None,
     `want_scatter`, the γ scatter (else None). θ uses the pre-update λ and
     the log-weights `logw` (None: E[ln ϕ], as in a fit; the inference loops
     pass their frozen tables), and both solvers the ζ from the start of the
-    E-step, as in the reference. With `vocab_reduce` (ctm_base), sumθ is
-    reduced over the vocabulary slices before the η side, which every
-    process then runs on the same bits. Returns (state, scatters)."""
+    E-step, as in the reference; the λ solve's start reads the previous
+    iteration's λ (`lam_pre`) when the config's lambda_extrap is set. With
+    `vocab_reduce` (ctm_base), sumθ is reduced over the vocabulary slices
+    before the η side, which every process then runs on the same bits.
+    Returns (state, scatters)."""
     if logw is None:
         logw = smoothed_logw(state)
     sumtheta, scatters = theta_moments(state.lam, logw, X, config, want_scatter, vocab_reduce)
     zeta, nu, lam = solve_eta(
-        state.lam, state.nu, N, sumtheta, state.mu, state.invSigma, config
+        state.lam, state.nu, N, sumtheta, state.mu, state.invSigma, config,
+        lam_prev=state.lam_pre,
     )
     return (
         state._replace(zeta=zeta, lam_pre=state.lam, logw_pre=logw, nu=nu, lam=lam),

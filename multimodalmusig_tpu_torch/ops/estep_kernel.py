@@ -50,10 +50,11 @@ THREAD_DOCS = 64
 # The kernel's layout codes (csrc/estep_eta.cu).
 _LAYOUTS = {"thread": 0, "warp": 1, "block": 2}
 
-# lam0, nu, N, sumtheta, mu, invSigma, zeta, nu_out, lam_out, K; M, R, D,
-# MK, n_iter, cg_iter, polish_iter, nu_n_iter; layout, P, documents per
-# block; stream
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+# lam0, nu, N, sumtheta, mu, invSigma, lam_prev (or null), zeta, nu_out,
+# lam_out, K; M, R, D, MK, n_iter, cg_iter, polish_iter, nu_n_iter; extrap;
+# layout, P, documents per block; stream
+_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float]
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 class EtaGeometry(NamedTuple):
@@ -106,9 +107,10 @@ def _check_K(K, MK):
 
 def estep_eta_fused_plain(lam0, nu, N, sumtheta, mu, invSigma, K, n_iter: int = 7,
                           cg_iter: int = None, polish_iter: int = None,
-                          nu_n_iter: int = None):
+                          nu_n_iter: int = None, lam_prev=None, extrap=None):
     """The plain PyTorch version of the kernel: ζ and N/ζ from the incoming
     λ and ν, the ν solve from the incoming λ, the λ solve with the new ν
+    from ops/solvers.extrapolated_start(λ, lam_prev, extrap)
     (models/ctm_base.split_eta with ops/solvers.maximize_lambda), at the
     same defaults."""
     from ..models import ctm_base  # ctm_base routes to this module
@@ -118,17 +120,23 @@ def estep_eta_fused_plain(lam0, nu, N, sumtheta, mu, invSigma, K, n_iter: int = 
     cg_iter, polish_iter, nu_n_iter = _defaults(MK, cg_iter, polish_iter, nu_n_iter)
     config = ctm_base.CTMBaseConfig(K=K, V=(0,) * len(K), D=lam0.shape[-2])
     return ctm_base.split_eta(lam0, nu, N, sumtheta, mu, invSigma, config, maximize_lambda,
-                              nu_n_iter=nu_n_iter, n_iter=n_iter, cg_iter=cg_iter,
-                              polish_iter=polish_iter)
+                              nu_n_iter=nu_n_iter, lam_prev=lam_prev, extrap=extrap,
+                              n_iter=n_iter, cg_iter=cg_iter, polish_iter=polish_iter)
 
 
 def estep_eta_fused(lam0, nu, N, sumtheta, mu, invSigma, K, n_iter: int = 7,
-                    cg_iter: int = None, polish_iter: int = None, nu_n_iter: int = None):
+                    cg_iter: int = None, polish_iter: int = None, nu_n_iter: int = None,
+                    lam_prev=None, extrap=None):
     """Restart-batched fused η side: lam0/nu/sumtheta (R, D, MK), N (D, M)
     shared by the lanes, mu (R, MK), invSigma (R, MK, MK), K the M topic
     counts (sum(K) = MK ≤ KERNEL_MAX_MK) -> (ζ (R, D, M), ν' (R, D, MK),
-    λ' (R, D, MK)). CPU tensors take the plain version; CUDA tensors must be
-    float32 and launch the kernel."""
+    λ' (R, D, MK)). With `lam_prev` (R, D, MK), the previous iteration's λ,
+    and `extrap` = c (not None or 0), the λ solve starts at the secant step
+    λ + clamp(c·(λ − λ_prev), ±4) (ops/solvers.extrapolated_start), which the
+    kernel forms after ζ and ν have read λ; without both it starts at λ and
+    the kernel runs exactly as it did before it took `lam_prev`. CPU tensors
+    take the plain version; CUDA tensors must be float32 and launch the
+    kernel."""
     if lam0.dim() != 3:
         raise ValueError(f"lam0 must be (R, D, MK), got shape {tuple(lam0.shape)}")
     R, D, MK = lam0.shape
@@ -136,14 +144,19 @@ def estep_eta_fused(lam0, nu, N, sumtheta, mu, invSigma, K, n_iter: int = 7,
     M = len(K)
     if MK > KERNEL_MAX_MK:
         raise ValueError(f"MK={MK} exceeds the η kernel's limit of {KERNEL_MAX_MK} topics")
+    if not extrap:
+        lam_prev = None
     if lam0.device.type == "cpu":
         return estep_eta_fused_plain(lam0, nu, N, sumtheta, mu, invSigma, K, n_iter, cg_iter,
-                                     polish_iter, nu_n_iter)
+                                     polish_iter, nu_n_iter, lam_prev, extrap)
     if lam0.device.type != "cuda":
         raise ValueError(f"the η kernel runs on CUDA tensors, got {lam0.device}")
     args = (lam0, nu, N, sumtheta, mu, invSigma)
     shapes = ((R, D, MK), (R, D, MK), (D, M), (R, D, MK), (R, MK), (R, MK, MK))
-    for name, t, shape in zip(("lam0", "nu", "N", "sumtheta", "mu", "invSigma"), args, shapes):
+    names = ("lam0", "nu", "N", "sumtheta", "mu", "invSigma")
+    if lam_prev is not None:
+        args, shapes, names = args + (lam_prev,), shapes + ((R, D, MK),), names + ("lam_prev",)
+    for name, t, shape in zip(names, args, shapes):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
         if t.dtype != torch.float32:
@@ -153,6 +166,7 @@ def estep_eta_fused(lam0, nu, N, sumtheta, mu, invSigma, K, n_iter: int = 7,
     cg_iter, polish_iter, nu_n_iter = _defaults(MK, cg_iter, polish_iter, nu_n_iter)
     _, launch = cuda_function("estep_eta", "estep_eta_launch", _ARGTYPES)
     args = [t.contiguous() for t in args]
+    prev_ptr = args[6].data_ptr() if lam_prev is not None else None
     zeta = torch.empty((R, D, M), dtype=torch.float32, device=lam0.device)
     nu_out = torch.empty_like(args[0])
     lam_out = torch.empty_like(args[0])
@@ -161,10 +175,10 @@ def estep_eta_fused(lam0, nu, N, sumtheta, mu, invSigma, K, n_iter: int = 7,
     with torch.cuda.device(lam0.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = launch(
-            *(t.data_ptr() for t in args), zeta.data_ptr(), nu_out.data_ptr(),
+            *(t.data_ptr() for t in args[:6]), prev_ptr, zeta.data_ptr(), nu_out.data_ptr(),
             lam_out.data_ptr(), ctypes.addressof(K_host), M, R, D, MK, int(n_iter),
-            cg_iter, polish_iter, nu_n_iter, _LAYOUTS[geo.layout], geo.P, geo.docs_per_block,
-            stream,
+            cg_iter, polish_iter, nu_n_iter, float(extrap or 0.0), _LAYOUTS[geo.layout], geo.P,
+            geo.docs_per_block, stream,
         )
     if rc != 0:
         raise RuntimeError(f"η kernel launch failed with CUDA error {rc}")

@@ -5,8 +5,10 @@ reference's per-document NLopt LD_MMA calls (src/MMCTM.jl:127-143, 156-170;
 objectives src/common.jl:11-36) with fixed-iteration batched methods:
 
   * λ: damped Newton whose direction comes from Jacobi-preconditioned CG
-    against (Σ⁻¹ + diag(w)), with a branch-free candidate-step line search
-    (over-steps 8, 4, 2, then 1 .. 2⁻¹², then 0) and trust-region polish;
+    against (Σ⁻¹ + diag(w)) ("pcg", the default) or from a direct Cholesky
+    solve of it ("chol", CTMBaseConfig.lambda_solver), with a branch-free
+    candidate-step line search (over-steps 8, 4, 2, then 1 .. 2⁻¹², then 0)
+    and trust-region polish;
   * ν: the objective is separable per coordinate, so a contractive
     fixed-point sweep plus Newton polish, elementwise;
   * α (autoα, src/MMCTM.jl:252-269): Newton on log α with the same
@@ -32,6 +34,10 @@ __all__ = [
     "lambda_objective",
     "lambda_grad",
     "maximize_lambda",
+    "extrapolated_start",
+    "nu_objective",
+    "nu_objective_terms",
+    "nu_grad",
     "maximize_nu",
     "alpha_objective",
     "alpha_grad",
@@ -68,6 +74,13 @@ N_BACKTRACK = 13
 EXP_CLIP = 60.0
 # ν Newton polish rounds after the fixed-point sweeps.
 NU_POLISH_ITERS = 4
+# Per-coordinate bound of the secant warm start's step (`extrapolated_start`),
+# the JAX package's clip (multimodalmusig_tpu/models/ctm_base.py:408): a
+# large early swing cannot overflow exp(λ) in the solver's first gradient.
+EXTRAP_CLIP = 4.0
+# Pivot floor of the direct Cholesky λ direction (`_chol_solve`), the JAX
+# package's _CHOL_PIVOT_FLOOR.
+CHOL_PIVOT_FLOOR = 1e-30
 
 # reference: src/MMCTM.jl:158 and :254 `lower_bounds!(opt, 1e-7)`
 NU_LOWER_BOUND = 1e-7
@@ -112,14 +125,42 @@ def _cg_solve(w, g, invSigma, diag, n_iter: int):
     return x
 
 
+def _chol_solve(w, g, invSigma):
+    """(Σ⁻¹ + diag(w)) δ = g by a direct Cholesky solve, as the JAX
+    package's _chol_solve (multimodalmusig_tpu/ops/solvers.py:271-330): the
+    factor L column by column, each column one vector operation over the
+    problems (the JAX order of subtractions), every pivot floored at
+    CHOL_PIVOT_FLOOR, then the forward and back substitutions by
+    `torch.linalg.solve_triangular`. w and g are (..., D, MK) and Σ⁻¹
+    (..., MK, MK), as in `maximize_lambda`. The floor makes a pivot that
+    f32 cancellation drove to or below 0 a huge but finite direction,
+    which the line search rejects; the Newton body (unlike the polish)
+    does not guard a non-finite direction, as in the JAX package."""
+    n = g.shape[-1]
+    idx = torch.arange(n, device=g.device)
+    cols = []  # cols[j]: (..., D, n) column j of L, zero above the diagonal
+    for j in range(n):
+        r = invSigma[..., None, :, j] + torch.where(idx == j, w[..., j:j + 1], 0.0)
+        for k in range(j):
+            r = r - cols[k] * cols[k][..., j:j + 1]
+        d = torch.sqrt(torch.clamp(r[..., j], min=CHOL_PIVOT_FLOOR))
+        cols.append(torch.where(idx >= j, r / d[..., None], 0.0))
+    L = torch.stack(cols, dim=-1)
+    y = torch.linalg.solve_triangular(L, g.unsqueeze(-1), upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True).squeeze(-1)
+
+
 def maximize_lambda(lam0, nu, Ndivzeta, sumtheta, mu, invSigma, n_iter: int = 7,
-                    cg_iter: int = None, polish_iter: int = None):
+                    cg_iter: int = None, polish_iter: int = None, solver: str = "pcg"):
     """Batched λ solve (replaces NLopt at src/MMCTM.jl:127-143).
 
     lam0/nu/Ndivzeta/sumtheta: (..., D, MK); mu: (..., MK); invSigma:
     (..., MK, MK) — see the module docstring. `cg_iter` defaults to MK in
     float64 and min(MK, CG_ITER_F32_CAP) otherwise; `polish_iter` to
-    LAMBDA_POLISH_ITERS.
+    LAMBDA_POLISH_ITERS. `solver` picks the Newton direction of both the
+    Newton steps and the polish: "pcg" (`_cg_solve`, `cg_iter` iterations)
+    or "chol" (`_chol_solve`, which reads no `cg_iter`); any other name
+    raises ValueError.
 
     Line-search algebra: for a candidate λ + sδ the quadratic expands as
     -½(q0 + 2s·b + s²·c2) from two matvecs, the linear term as lin0 + s·lind,
@@ -128,6 +169,8 @@ def maximize_lambda(lam0, nu, Ndivzeta, sumtheta, mu, invSigma, n_iter: int = 7,
     candidates (s = 0 included) keeps every document's iterate monotone.
     """
     MK = lam0.shape[-1]
+    if solver not in ("pcg", "chol"):
+        raise ValueError(f"solver must be 'pcg' or 'chol', got {solver!r}")
     if cg_iter is None:
         cg_iter = MK if lam0.dtype == torch.float64 else min(MK, CG_ITER_F32_CAP)
     if polish_iter is None:
@@ -135,12 +178,17 @@ def maximize_lambda(lam0, nu, Ndivzeta, sumtheta, mu, invSigma, n_iter: int = 7,
     mu = mu.unsqueeze(-2)
     diag = torch.diagonal(invSigma, dim1=-2, dim2=-1).unsqueeze(-2)
 
+    def newton_dir(w, g):
+        if solver == "chol":
+            return _chol_solve(w, g, invSigma)
+        return _cg_solve(w, g, invSigma, diag, cg_iter)
+
     lam = lam0
     for _ in range(n_iter):
         w = Ndivzeta * torch.exp(lam + 0.5 * nu)
         diff = lam - mu
         Sdiff = diff @ invSigma
-        delta = _cg_solve(w, -Sdiff + sumtheta - w, invSigma, diag, cg_iter)
+        delta = newton_dir(w, -Sdiff + sumtheta - w)
         Sdelta = delta @ invSigma
         q0 = (diff * Sdiff).sum(-1)
         b = (delta * Sdiff).sum(-1)
@@ -173,12 +221,41 @@ def maximize_lambda(lam0, nu, Ndivzeta, sumtheta, mu, invSigma, n_iter: int = 7,
     for _ in range(polish_iter):
         w = Ndivzeta * torch.exp(lam + 0.5 * nu)
         g = -((lam - mu) @ invSigma) + sumtheta - w
-        delta = _cg_solve(w, g, invSigma, diag, cg_iter)
+        delta = newton_dir(w, g)
         dmax = delta.abs().amax(-1, keepdim=True)
         delta = delta * torch.clamp(POLISH_MAX_STEP / torch.clamp(dmax, min=1e-30), max=1.0)
         step = lam + delta
         lam = torch.where(torch.isfinite(step).all(-1, keepdim=True), step, lam)
     return lam
+
+
+def extrapolated_start(lam, lam_prev, extrap):
+    """The start of a fit loop's λ solve: λ itself (the same tensor) unless
+    `extrap` is set (not None or 0) and `lam_prev` (the previous iteration's
+    λ) is given, then the secant step λ + clamp(c·(λ − λ_prev), ±EXTRAP_CLIP)
+    with c = `extrap` (CTMBaseConfig.lambda_extrap; the JAX package's
+    solve_eta, multimodalmusig_tpu/models/ctm_base.py:405-408). Clamps
+    propagate NaN, so a dead lane stays dead."""
+    if not extrap or lam_prev is None:
+        return lam
+    return lam + torch.clamp(float(extrap) * (lam - lam_prev), -EXTRAP_CLIP, EXTRAP_CLIP)
+
+
+def nu_objective(nu, lam, Ndivzeta, invSigma_diag):
+    """-½Σνᵢ·Σ⁻¹ᵢᵢ - Σ Ndivζ·exp(λ+ν/2) + ½Σ log ν (src/common.jl:25-36),
+    reduced over the last axis; `invSigma_diag` is diag(Σ⁻¹), the only part
+    of Σ⁻¹ the trace term touches, which makes the problem separable."""
+    return nu_objective_terms(nu, lam, Ndivzeta, invSigma_diag).sum(-1)
+
+
+def nu_objective_terms(nu, lam, Ndivzeta, invSigma_diag):
+    """The per-coordinate terms of `nu_objective`, before the sum."""
+    return -0.5 * nu * invSigma_diag - Ndivzeta * torch.exp(lam + 0.5 * nu) + 0.5 * torch.log(nu)
+
+
+def nu_grad(nu, lam, Ndivzeta, invSigma_diag):
+    """∂/∂νᵢ = -½Σ⁻¹ᵢᵢ - (Ndivζᵢ/2)·exp(λᵢ+νᵢ/2) + 1/(2νᵢ)."""
+    return -0.5 * invSigma_diag - 0.5 * Ndivzeta * torch.exp(lam + 0.5 * nu) + 0.5 / nu
 
 
 def maximize_nu(nu0, lam, Ndivzeta, invSigma_diag, n_iter: int = NU_FP_ITERS):

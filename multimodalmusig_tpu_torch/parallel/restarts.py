@@ -41,6 +41,7 @@ is parallel/sharding.py's `shmap_fit_restarts`), uncut, so it excludes
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import time
 from functools import partial
@@ -685,7 +686,8 @@ def fit_mmctm_restarts(k: Sequence[int], alpha: Sequence[float], X,
                        compact_schedule: Union[Sequence[int], str, None] = None,
                        pilot_restarts: int = 64, progress=None,
                        rescore_f64: bool = True, verbose: bool = False,
-                       device="cuda") -> MMCTM:
+                       device="cuda", lambda_extrap: Optional[float] = None,
+                       lambda_solver: Optional[str] = None) -> MMCTM:
     """Best-of-N two-stage MMCTM fitting, the reference CLI's `fit_model`
     (run_mmctm.jl:163-180; the JAX package's fit_mmctm_restarts), on
     `device`, the CUDA card unless the caller asks for the CPU. The
@@ -699,9 +701,13 @@ def fit_mmctm_restarts(k: Sequence[int], alpha: Sequence[float], X,
     wrapper holding the selected stage-2 lane, with `ll_history` (its
     per-iteration lls), `stage1_ll` ((R, M) float64 array of the stage-1
     in-fit lls) and `restart_result` (the batched stage-1 MMCTMFitResult).
-    `verbose` prints the derived schedule and the lls the selection read."""
+    `verbose` prints the derived schedule and the lls the selection read.
+    `lambda_extrap` and `lambda_solver` set the model config's options of
+    the λ solve (models/ctm_base.CTMBaseConfig) for both stages."""
     args = (list(k), list(alpha)) + (() if V is None else (list(V),)) + (X,)
     model = MMCTM(*args, dtype=dtype, device=device)
+    model.config = dataclasses.replace(model.config, lambda_extrap=lambda_extrap,
+                                       lambda_solver=lambda_solver)
     auto_info: dict = {}
     selection_info: dict = {}
     best, stage1, _, _ = two_stage_fit(
@@ -776,7 +782,9 @@ def fit_immctm_restarts(k, alpha, features, X, restarts: int = 100, maxiter: int
                         rescore_f64: bool = True, chunk_iters: Optional[int] = None,
                         compact_schedule: Union[Sequence[int], str, None] = None,
                         pilot_restarts: int = 64,
-                        devices: Optional[Sequence] = None) -> IMMCTM:
+                        devices: Optional[Sequence] = None,
+                        lambda_extrap: Optional[float] = None,
+                        lambda_solver: Optional[str] = None) -> IMMCTM:
     """Best-of-N IMMCTM fitting (the JAX package's fit_immctm_restarts,
     restarts.py:1685-1762): `restarts` lanes initialized
     from a CPU generator seeded with `seed`, fit as one batch on `device`
@@ -791,13 +799,16 @@ def fit_immctm_restarts(k, alpha, features, X, restarts: int = 100, maxiter: int
     `model.compact_info`. `devices` fans the lanes out over one process per
     device instead (`fit_immctm_restarts_from_states`), uncut, from the same
     inits, and records the ranks' run as `model.rank_info`; the re-scores
-    and the pick stay on `device`. Returns that wrapper holding the selected
-    lane; its `restart_result` is the batched IMMCTMFitResult of all lanes."""
+    and the pick stay on `device`. `lambda_extrap` and `lambda_solver` set
+    the model config's options of the λ solve (models/ctm_base.CTMBaseConfig).
+    Returns that wrapper holding the selected lane; its `restart_result` is
+    the batched IMMCTMFitResult of all lanes."""
     _check_devices(devices, chunk_iters, compact_schedule)
     auto = _is_auto(compact_schedule, chunk_iters)
     schedule = None if auto else _resolve_schedule(chunk_iters, compact_schedule)
     model = IMMCTM(k, alpha, features, X, dtype=dtype, device=device)
-    cfg = model.config
+    model.config = cfg = dataclasses.replace(model.config, lambda_extrap=lambda_extrap,
+                                             lambda_solver=lambda_solver)
     state = immctm_mod.init(torch.Generator().manual_seed(int(seed)), cfg, model.alpha,
                             restarts=restarts, device=model.device)
     if auto:

@@ -5,7 +5,9 @@ restart fit, the two-stage fit and the inference loops on the card against
 the same runs in float64 on the CPU; LDA and ILDA steps through the θ kernel
 against the factorized schedule, their launches per iteration, and their
 restart fits; the restart fan-out and the data-parallel fit over ranks on
-the card, with each rank's launches.
+the card, with each rank's launches; the η kernel with the secant start
+of `lambda_extrap` against its plain version, its bits without one against
+the kernel before it took one, and the routes of the λ solve's options.
 
 Every test is marked `cuda` and skips without a card. The file imports
 neither JAX nor the shared conftest fixtures, so it runs on a machine with
@@ -13,6 +15,9 @@ only PyTorch:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -o addopts="" -p no:cacheprovider
 """
+
+import dataclasses
+import hashlib
 
 import numpy as np
 import pytest
@@ -821,3 +826,152 @@ def test_multi_card_vocab_fit_over_nccl_matches_the_one_card_fit(cuda, cards):
     assert info["backend"] == "nccl" and _launch_counts(info) == [(20, 0, 40)] * len(cards)
     torch.testing.assert_close(got.ll_history, single.ll_history, rtol=1e-4, atol=0.0)
     torch.testing.assert_close(got.elbo, single.elbo, rtol=1e-4, atol=0.0)
+
+
+# ---------------------------------------------------------------------------
+# The λ solve's options: the η kernel's secant start (lambda_extrap) and the
+# direct Cholesky direction (lambda_solver="chol")
+# ---------------------------------------------------------------------------
+
+
+def _extrap_problem(seed, R, D, K, swing, device):
+    """`_eta_problem` and a previous λ at a distance of about `swing` (at 8
+    the ±4 clip binds on about 60% of the entries)."""
+    args = _eta_problem(seed, R, D, K, device)
+    rng = np.random.default_rng(seed + 1)
+    lam_prev = args[0] - torch.as_tensor(swing * rng.standard_normal(tuple(args[0].shape)),
+                                         dtype=torch.float32, device=device)
+    return args, lam_prev
+
+
+@pytest.mark.parametrize("R, D, K, budgets", [
+    (100, 560, (7, 7), CAVI),  # MK 14: the thread layout
+    (100, 560, (10, 9), CAVI),  # MK 19: the warp layout
+    (3, 70, (20, 20), {}),  # MK 40: the block layout
+    (1, 560, (7, 7), CAVI),  # R = 1
+])
+@pytest.mark.parametrize("swing", [0.3, 8.0])
+def test_eta_kernel_with_lam_prev_matches_plain(cuda, R, D, K, budgets, swing):
+    """The secant start formed in the kernel, on every layout: the
+    tolerances of test_eta_kernel_matches_plain, and repeats bit-identical."""
+    args, lam_prev = _extrap_problem(R * D + sum(K), R, D, K, swing, cuda)
+    kw = dict(budgets, lam_prev=lam_prev, extrap=1.0)
+    before = ek.LAUNCHES
+    got = ek.estep_eta_fused(*args, K, **kw)
+    again = ek.estep_eta_fused(*args, K, **kw)
+    want = ek.estep_eta_fused_plain(*args, K, **kw)
+    torch.cuda.synchronize()
+    assert ek.LAUNCHES == before + 2
+    assert all(torch.isfinite(g).all() for g in got)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-6)
+    assert float((got[2] - want[2]).abs().max()) <= ATOL
+    # the start moved the solve: λ differs from the run without it
+    assert not torch.equal(got[2], ek.estep_eta_fused(*args, K, **budgets)[2])
+
+
+@pytest.mark.parametrize("K", [(7, 7), (10, 9), (20, 20)])
+def test_eta_kernel_without_lam_prev_is_the_call_without_it(cuda, K):
+    """lam_prev=None, or a coefficient of 0, runs the kernel exactly as the
+    call without them; repeats bit-identical."""
+    args, lam_prev = _extrap_problem(17, 3, 70, K, 2.0, cuda)
+    base = ek.estep_eta_fused(*args, K, **CAVI)
+    for kw in (dict(lam_prev=None, extrap=1.0), dict(lam_prev=lam_prev, extrap=0.0),
+               dict(lam_prev=lam_prev, extrap=None), {}):
+        got = ek.estep_eta_fused(*args, K, **CAVI, **kw)
+        assert all(torch.equal(g, b) for g, b in zip(got, base))
+
+
+def _digest_problem(seed, R, D, K):
+    """The inputs of the digests below, from a torch generator on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    MK = sum(K)
+    A = torch.randn(R, MK, MK, generator=g, dtype=torch.float64)
+    invS = (torch.eye(MK, dtype=torch.float64) + 0.05 * A @ A.mT / MK).float()
+    lam = 0.5 * torch.randn(R, D, MK, generator=g)
+    nu = 0.5 + torch.rand(R, D, MK, generator=g)
+    N = torch.randint(0, 200, (D, len(K)), generator=g).float()
+    st = 5 * torch.rand(R, D, MK, generator=g)
+    mu = torch.randn(R, MK, generator=g)
+    return [t.cuda() for t in (lam, nu, N, st, mu, invS)]
+
+
+# sha256 (first 16 hex digits) of the η kernel's outputs (ζ, ν, λ bytes)
+# before it took lam_prev (NVIDIA H100 80GB HBM3, nvcc 12.9), on
+# `_digest_problem(seed, R, D, K)`: (seed, R, D, K, budgets) -> digest.
+ETA_DIGESTS = {
+    (100, 100, 560, (7, 7), "cavi"): "d43dd87f2ca3ac30",
+    (101, 100, 560, (7, 7), "cold"): "d9e29a5aca0fc757",
+    (102, 1, 560, (7, 7), "cavi"): "4e4316f15342c2e0",
+    (103, 100, 560, (8, 8), "cavi"): "940a7f103ba64b04",
+    (104, 100, 560, (9, 8), "cavi"): "a18470b3f3259ff9",
+    (105, 3, 50, (16, 16), "cold"): "44715636e2d5c74c",
+    (106, 3, 50, (17, 16), "cold"): "4c262521f3098e07",
+    (107, 100, 560, (20, 20), "cavi"): "7a1ffe90ce3fb897",
+    (108, 3, 29, (40, 50, 38), "cold"): "336de164f56b75e9",
+    (109, 1, 9, (7, 7), "cold"): "eeae18d7d82cd7bf",
+    (110, 3, 37, (3, 4, 5), "cold"): "d762e4cdb7c2ead8",
+}
+
+
+@pytest.mark.parametrize("key", sorted(ETA_DIGESTS))
+def test_eta_kernel_without_lam_prev_keeps_the_bits_it_had_before(cuda, key):
+    seed, R, D, K, budgets = key
+    out = ek.estep_eta_fused(*_digest_problem(seed, R, D, K), K,
+                             **(CAVI if budgets == "cavi" else {}))
+    digest = hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in out)).hexdigest()[:16]
+    assert digest == ETA_DIGESTS[key]
+
+
+def test_solve_eta_forms_the_secant_start_in_the_eta_kernel(cuda):
+    """A float32 config with lambda_extrap: one η launch, no λ launch, the
+    bits of the wrapper called with lam_prev."""
+    K = (7, 7)
+    args, lam_prev = _extrap_problem(21, 2, 40, K, 3.0, cuda)
+    config = mt.MMCTMConfig(K=K, V=(96, 48), D=40, dtype=torch.float32, lambda_extrap=1.0)
+    eta, lam = ek.LAUNCHES, lk.LAUNCHES
+    got = ctm_base.solve_eta(*args, config, lam_prev=lam_prev)
+    assert (ek.LAUNCHES, lk.LAUNCHES) == (eta + 1, lam)
+    want = ek.estep_eta_fused(*args, K, **CAVI, lam_prev=lam_prev, extrap=1.0)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_chol_fit_on_the_card_launches_neither_the_eta_nor_the_lambda_kernel(cuda):
+    """lambda_solver="chol" on the card: the split η route and the plain λ
+    solver, as in the JAX package; θ still takes its kernel. 2 lanes x 10
+    iterations of BRCA-EU against the same fit in float64 on the CPU."""
+    X = [mt.read_counts_tsv(mt.brca_counts_path(f))[0].T
+         for f in ("brca-eu_snv_counts.tsv", "brca-eu_sv_counts.tsv")]
+    out = []
+    for dtype, device in ((torch.float32, cuda), (torch.float64, "cpu")):
+        config = mt.MMCTMConfig(K=(7, 7), V=(96, 48), D=560, dtype=dtype, lambda_n_iter=3,
+                                lambda_cg_iter=4, lambda_polish_iter=1, nu_n_iter=4,
+                                lambda_solver="chol")
+        before = (ek.LAUNCHES, lk.LAUNCHES, tk.LAUNCHES)
+        res = mt.fit_restarts(0, X, config, [0.1, 0.1], restarts=2, maxiter=10, tol=0.0,
+                              device=device)
+        if device == cuda:
+            assert (ek.LAUNCHES, lk.LAUNCHES, tk.LAUNCHES) == (before[0], before[1],
+                                                              before[2] + 20)
+        out.append(res.ll_history.cpu().double().numpy())
+    np.testing.assert_allclose(out[0], out[1], rtol=1e-4)
+
+
+def test_extrap_fit_on_the_card_matches_the_cpu_in_float64(cuda):
+    """test_fit_on_the_card_matches_the_cpu_in_float64 with lambda_extrap =
+    1.0: the η kernel once per iteration, the secant start in it."""
+    X = [mt.read_counts_tsv(mt.brca_counts_path(f))[0].T
+         for f in ("brca-eu_snv_counts.tsv", "brca-eu_sv_counts.tsv")]
+    out = []
+    for dtype, device in ((torch.float32, cuda), (torch.float64, "cpu")):
+        config = mt.MMCTMConfig(K=(7, 7), V=(96, 48), D=560, dtype=dtype, lambda_n_iter=3,
+                                lambda_cg_iter=4, lambda_polish_iter=1, nu_n_iter=4)
+        config = dataclasses.replace(config, lambda_extrap=1.0)
+        before = ek.LAUNCHES
+        res = mt.fit_restarts(0, X, config, [0.1, 0.1], restarts=2, maxiter=10, tol=0.0,
+                              device=device)
+        if device == cuda:
+            assert ek.LAUNCHES - before == 10
+        out.append(res.ll_history.cpu().double().numpy())
+    np.testing.assert_allclose(out[0], out[1], rtol=1e-4)
