@@ -21,20 +21,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
      (560, 14); a dead lane (all-NaN Σ⁻¹) on every layout at MK 14, 19 and
      40; prints the layout, both times (median of 20 CUDA-event timings)
      and the bound at each timed shape and for B2;
-  4. η kernel against its plain PyTorch version: (100, 560, K=(7, 7)) at the
-     f32 CAVI budgets and the cold defaults, K=(20, 20) and (64, 64) at
-     (100, 560), a ragged M=3 case with odd D, a document with no counts in
-     one modality, MK = 128 in three modalities, and either side of each
-     layout boundary (MK 16 and 17 at (100, 560), 32 and 33 ragged) and
-     R = 1; the inference shapes: one modality (M = 1, K = (7,)) at R = 1
-     and 100, and R = 1 at the 112 held-out documents; the K selection's
-     K = (5, 5) and (9, 9) at (100, 448) and at R = 1 on the 112; prints max |Δ| of ζ,
-     ν and λ and both times at each (100, 560) shape; then with `lam_prev`
-     (the secant start of `lambda_extrap`, c = 1) at (100, 560, K=(7, 7)),
-     either side of the layout boundaries (MK 16/17 at (100, 560), 32/33
-     ragged) and R = 1, each with a small swing λ − λ_prev and one large
-     enough that the ±4 clip binds on most entries, with bit-identical repeat
-     launches, and timed at (100, 560, (7, 7));
+  4. η kernel against its plain PyTorch version (ETA_CASES), a repeat
+     launch bit-identical, printing the layout `launch_geometry(R, D, MK)`
+     picked: (100, 560, K=(7, 7)) at the f32 CAVI budgets and the cold
+     defaults and (1000, 560, (7, 7)), K=(20, 20) and (64, 64) at (100,
+     560), a ragged M=3 case with odd D, a document with no counts in one
+     modality, MK = 128 in three modalities; every layout and either side
+     of each boundary: MK 16/17 (thread/pair), 28/29 (pair at P = 14/one
+     thread at P = 32), MK 32 on the pair at P = 16 (R = 90) and on one
+     thread (R = 100), 32/33 ragged (warp/block), the few-problem
+     crossovers at MK 14 ((16, 560)/(18, 560)) and MK 17 (R = 1, D = 3167
+     and 3168); PCAWG's K=(7, 7, 5) at (100, 2800), (1000, 2800) and R = 1
+     (MK 29–32 and PCAWG's R ≥ 100 at the cold defaults: ETA_CASES says
+     why);
+     R = 1 at D = 560, 448, 112, 280 and 2800; one modality (M = 1,
+     K = (7,)) at R = 1 and 100; the K selection's K = (5, 5) and (9, 9) at
+     (100, 448) and at R = 1 on the 112; prints max |Δ| of ζ, ν and λ, and
+     both times and the bound at each R = 100 shape and at ETA_TIMED (the
+     R = 1000 and R = 1 ones); then with `lam_prev` (the secant start of
+     `lambda_extrap`, c = 1) at ETA_EXTRAP_CASES (every layout, either side
+     of its boundaries), each with a small swing λ − λ_prev and one large
+     enough that the ±4 clip binds on most entries, with bit-identical
+     repeat launches, and timed at (100, 560, K=(7, 7));
   5. θ kernel against its plain PyTorch version at the BRCA shapes
      (100, 560, 96, 7) and (100, 560, 48, 7), at R = 1 and at the ragged
      (3, 33, 128, 11), (2, 8, 5, 2) and (7, 101, 96, 7), at phase 16's
@@ -54,7 +62,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
      ll per modality is within 5e-3 of the JAX package's value; a short fit
      on the card is also held against the same fit in float64 on the CPU;
   7. single model: `MMCTM([7, 7], [0.1, 0.1], X).fit(maxiter=30,
-     verbose=False)` on the card, the η kernel at R = 1;
+     verbose=False)` on the card, the η kernel at R = 1; prints its layout;
   8. IMMCTM path: `fit_immctm_restarts([7, 7], [0.1, 0.1], features, X,
      restarts=100, maxiter=1000, tol=1e-5)` on the same counts, with the
      SNV terms factored into substitution × context and the SV terms into
@@ -77,6 +85,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
      f64 scores and the selected ll; the selected lane must be finite and
      converged, no more than 5e-3 below the JAX package's two-stage fit
      per modality, and the η kernel must run once per CAVI iteration;
+     prints the η layouts each stage ran;
  11. CLI: `cli.main` in this process on the bundled TSVs with --restarts
      1000 --auto-compact --progress and every output, warm and then timed:
      exit 0, one η and two θ launches per CAVI iteration, the selected ll
@@ -91,7 +100,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
      docs)` with fit_gaussian False and True and `predict_modality_eta(Xobs,
      m, model)` for m = 1 and 2 on the 112, each warm and then timed;
      IMMCTM: the same five calls on the IMMCTM phase's selected model.
-     Prints each call's wall, CAVI iterations and ms per iteration. Gates:
+     Prints each call's wall, CAVI iterations, ms per iteration and η
+     layout. Gates:
      finite outputs; one η launch per CAVI iteration and one θ launch per
      observed modality per iteration; a 30-iteration run of each call's
      loop (tol 0) on the card within the stated tolerances of the same run
@@ -99,8 +109,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
      the K=(7, 7) model no more than HELDOUT_SLACK below the JAX package's;
  13. K selection: `select_k_mmctm([(5, 5), (7, 7), (9, 9)], docs, [0.1, 0.1],
      restarts=100, maxiter=1000)` on the card, warm and then timed; prints
-     the curve, the chosen K and the wall; every held-out ll finite, one η
-     and two θ launches per CAVI iteration;
+     the curve, the chosen K, the wall and the η layouts run; every
+     held-out ll finite, one η and two θ launches per CAVI iteration;
  14. LDA and ILDA: `fit_lda_restarts(7, 0.1, 0.1, docs_snv, restarts=100,
      maxiter=1000, tol=1e-5)` on the SNV counts alone, uncut and with
      `compact_schedule="auto"`, the same for `fit_ilda_restarts` with the
@@ -152,10 +162,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
      launches per CAVI iteration, the chol arm two θ launches and no η or λ
      launch (the direct Cholesky direction is plain PyTorch, as in the JAX
      package).
+ 18. PCAWG scale, after phase 13: `fit_restarts(SEED, X, config, [0.1, 0.1,
+     0.1], restarts=100)` on the synthetic PCAWG-scale corpus of
+     tools/pcawg_bench.py:27 (copied here as `pcawg_corpus`, from
+     np.random.default_rng(0): D=2800, V=(96, 48, 24), K=(7, 7, 5), MK 19),
+     f32, tol 1e-5, maxiter 1000, warm and then timed; prints its wall,
+     CAVI iterations, B3 launches and layouts. Gates: at least 99% finite
+     lanes; one η and three θ launches per CAVI iteration.
 The last two lines of standard output are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
 """
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -488,111 +506,163 @@ def eta_problem(gen, R, D, K, zero_count=False):
     return [t.to("cuda") for t in (lam, nu, N, st, mu, invS)]
 
 
+# (label, (R, D, K), CAVI budgets or the cold defaults, a zero-count
+# modality) of the η phase: the main path, every layout and either side of
+# each boundary of `launch_geometry`, the inference, rank, K selection and
+# PCAWG shapes.
+ETA_CASES = (
+    ("main-path shape", (RESTARTS, 560, (7, 7)), True, False),
+    ("main-path shape", (RESTARTS, 560, (7, 7)), False, False),
+    ("main-path shape at R=1000", (1000, 560, (7, 7)), True, False),
+    ("K=(20, 20)", (RESTARTS, 560, (20, 20)), True, False),
+    ("K=(64, 64)", (RESTARTS, 560, (64, 64)), True, False),
+    ("ragged M=3, odd D=37", (3, 37, (3, 4, 5)), False, False),
+    ("zero counts in one modality", (2, 9, (3, 2)), False, True),
+    ("MK=128 in three modalities", (3, 29, (40, 50, 38)), False, False),
+    ("MK=16, the thread layout's last MK", (RESTARTS, 560, (8, 8)), True, False),
+    ("MK=17, the pair layout's first", (RESTARTS, 560, (9, 8)), True, False),
+    ("PCAWG's MK=19", (RESTARTS, 560, (10, 9)), True, False),
+    ("MK=28, the pair's last at P=14", (RESTARTS, 560, (14, 14)), True, False),
+    # MK 29–32, and PCAWG's hundreds of thousands of problems, at the cold
+    # defaults: at the CAVI budgets from λ ~ 0.5·N(0, 1) about one problem in
+    # 10^4 at MK 29–32 (one in 10^6 at MK 19) sits at a near-tie of the line
+    # search, where the step taken depends on the order of the sums, on the
+    # pair as on the warp layout (tests/test_torch_cuda.py
+    # test_eta_kernel_at_a_line_search_tie)
+    ("MK=29, one thread at P=32", (RESTARTS, 560, (15, 14)), False, False),
+    ("MK=32, one thread at P=32", (RESTARTS, 560, (16, 16)), False, False),
+    ("MK=32, the pair at P=16", (90, 560, (16, 16)), False, False),
+    ("MK=32, the warp layout's last", (3, 50, (16, 16)), False, False),
+    ("MK=33, the block layout's first", (3, 50, (17, 16)), False, False),
+    ("PCAWG, K=(7, 7, 5)", (RESTARTS, 2800, (7, 7, 5)), False, False),
+    ("PCAWG at R=1000", (1000, 2800, (7, 7, 5)), False, False),
+    ("R=1 (stage 2, MMCTM.fit)", (1, 560, (7, 7)), True, False),
+    ("R=1 at the 448 training documents", (1, 448, (7, 7)), True, False),
+    ("R=1 at the 112 held-out documents", (1, 112, (7, 7)), True, False),
+    ("R=1 at a data rank's 280 documents", (1, 280, (7, 7)), True, False),
+    ("R=1 at D=2800", (1, 2800, (7, 7)), True, False),
+    ("PCAWG at R=1", (1, 2800, (7, 7, 5)), True, False),
+    ("few-problem crossover at MK=14, below", (16, 560, (7, 7)), True, False),
+    ("few-problem crossover at MK=14, above", (18, 560, (7, 7)), True, False),
+    ("few-problem crossover at MK=17, below", (1, 3167, (9, 8)), True, False),
+    ("few-problem crossover at MK=17, above", (1, 3168, (9, 8)), True, False),
+    ("one modality (M = 1), R=1", (1, 560, (7,)), True, False),
+    ("one modality (M = 1)", (RESTARTS, 560, (7,)), True, False),
+    ("K selection's MK=10", (RESTARTS, 448, (5, 5)), True, False),
+    ("K selection's MK=10, R=1 at the 112 held-out documents", (1, 112, (5, 5)), True, False),
+    ("K selection's MK=18", (RESTARTS, 448, (9, 9)), True, False),
+    ("K selection's MK=18, R=1 at the 112 held-out documents", (1, 112, (9, 9)), True, False),
+)
+# the η phase's timed shapes besides those at R = RESTARTS: the main path's
+# at R = 1000, and R = 1 at stage 2's, inference's, a rank's and PCAWG's D
+ETA_TIMED = {(1000, 560, (7, 7)), (1, 560, (7, 7)), (1, 448, (7, 7)), (1, 112, (7, 7)),
+             (1, 280, (7, 7)), (1, 2800, (7, 7, 5))}
+
+
+# (label, (R, D, K), CAVI budgets or the cold defaults) of the checks with
+# `lam_prev`: every layout, either side of its boundaries.
+ETA_EXTRAP_CASES = (
+    ("main-path shape", (RESTARTS, 560, (7, 7)), True),
+    ("MK=16, the thread layout's last MK", (RESTARTS, 560, (8, 8)), True),
+    ("MK=17, the pair layout's first", (RESTARTS, 560, (9, 8)), True),
+    ("K selection's MK=18 on the pair", (RESTARTS, 448, (9, 9)), True),
+    ("MK=29, one thread at P=32, cold defaults", (RESTARTS, 560, (15, 14)), False),
+    ("MK=32, the pair at P=16, cold defaults", (90, 560, (16, 16)), False),
+    ("MK=32, the warp layout's last, cold defaults", (3, 50, (16, 16)), False),
+    ("MK=33, the block layout's first, cold defaults", (3, 50, (17, 16)), False),
+    ("R=1", (1, 560, (7, 7)), True),
+    ("PCAWG at R=1", (1, 2800, (7, 7, 5)), True),
+    ("few-problem crossover at MK=14, below", (16, 560, (7, 7)), True),
+    ("few-problem crossover at MK=14, above", (18, 560, (7, 7)), True),
+    ("few-problem crossover at MK=17, below", (1, 3167, (9, 8)), True),
+    ("few-problem crossover at MK=17, above", (1, 3168, (9, 8)), True),
+)
+
+
+def eta_check(ek, label, args, K, kw):
+    """The η kernel against its plain version on `args`, with a repeat
+    launch bit-identical; returns the largest |Δ|."""
+    import torch
+
+    got = ek.estep_eta_fused(*args, K, **kw)
+    again = ek.estep_eta_fused(*args, K, **kw)
+    want = ek.estep_eta_fused_plain(*args, K, **kw)
+    torch.cuda.synchronize()
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
+    R, D, MK = args[0].shape
+    print(f"{label} (R, D, K)=({R}, {D}, {K}), layout {tuple(ek.launch_geometry(R, D, MK))}: "
+          f"max|Δζ| = {errs[0]:.3e}, max|Δν| = {errs[1]:.3e}, max|Δλ| = {errs[2]:.3e}, "
+          f"repeat launch bit-identical: {same}")
+    if not all(torch.isfinite(g).all() for g in got):
+        fail(f"{label}: result not finite")
+    for name, g, w in zip(("ζ", "ν"), got, want):
+        if not bool(((g - w).abs() <= ETA_ATOL + ETA_RTOL * w.abs()).all()):
+            fail(f"{label}: {name} disagrees with its plain version beyond rtol {ETA_RTOL}, "
+                 f"atol {ETA_ATOL}")
+    if errs[2] > KERNEL_ATOL:
+        fail(f"{label}: λ disagrees with its plain version by {errs[2]:.3e} > {KERNEL_ATOL}")
+    if not same:
+        fail(f"{label}: a repeat launch differs")
+    return max(errs)
+
+
 def eta_phase(ek):
+    """B3 against its plain version at ETA_CASES, timed at R = RESTARTS and
+    at ETA_TIMED, then with `lam_prev`. Returns the largest error, the
+    main-path shape's (ms, plain ms) and one record per timed shape."""
     import torch
 
     cavi = dict(n_iter=3, cg_iter=4, polish_iter=1, nu_n_iter=4)
     gen = torch.Generator().manual_seed(2)
     max_err = 0.0
-    timings = {}
-    for label, (R, D, K), budgets, zero in (
-        ("main-path shape, f32 CAVI budgets", (RESTARTS, 560, (7, 7)), cavi, False),
-        ("main-path shape, cold defaults", (RESTARTS, 560, (7, 7)), {}, False),
-        ("K=(20, 20), f32 CAVI budgets", (RESTARTS, 560, (20, 20)), cavi, False),
-        ("K=(64, 64), f32 CAVI budgets", (RESTARTS, 560, (64, 64)), cavi, False),
-        ("ragged M=3, odd D=37, cold defaults", (3, 37, (3, 4, 5)), {}, False),
-        ("zero counts in one modality, cold defaults", (2, 9, (3, 2)), {}, True),
-        ("MK=128 in three modalities, cold defaults", (3, 29, (40, 50, 38)), {}, False),
-        ("MK=16, the thread layout's last, f32 CAVI budgets", (RESTARTS, 560, (8, 8)), cavi, False),
-        ("MK=17, the warp layout's first, f32 CAVI budgets", (RESTARTS, 560, (9, 8)), cavi, False),
-        ("MK=32, the warp layout's last, cold defaults", (3, 50, (16, 16)), {}, False),
-        ("MK=33, the block layout's first, cold defaults", (3, 50, (17, 16)), {}, False),
-        ("R=1, f32 CAVI budgets", (1, 560, (7, 7)), cavi, False),
-        ("one modality (M = 1), R=1, f32 CAVI budgets", (1, 560, (7,)), cavi, False),
-        ("one modality (M = 1), f32 CAVI budgets", (RESTARTS, 560, (7,)), cavi, False),
-        ("R=1 at the 112 held-out documents, f32 CAVI budgets", (1, 112, (7, 7)), cavi, False),
-        ("K selection's MK=10, f32 CAVI budgets", (RESTARTS, 448, (5, 5)), cavi, False),
-        ("K selection's MK=10, R=1 at the 112 held-out documents, f32 CAVI budgets",
-         (1, 112, (5, 5)), cavi, False),
-        ("K selection's MK=18, f32 CAVI budgets", (RESTARTS, 448, (9, 9)), cavi, False),
-        ("K selection's MK=18, R=1 at the 112 held-out documents, f32 CAVI budgets",
-         (1, 112, (9, 9)), cavi, False),
-    ):
+    shapes = []
+    for label, (R, D, K), at_cavi, zero in ETA_CASES:
+        budgets = cavi if at_cavi else {}
+        budget_name = "f32 CAVI budgets" if at_cavi else "cold defaults"
         args = eta_problem(gen, R, D, K, zero)
-        got = ek.estep_eta_fused(*args, K, **budgets)
-        want = ek.estep_eta_fused_plain(*args, K, **budgets)
-        torch.cuda.synchronize()
-        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
-        print(f"η kernel vs plain [{label}] (R, D, K)=({R}, {D}, {K}): max|Δζ| = {errs[0]:.3e}, "
-              f"max|Δν| = {errs[1]:.3e}, max|Δλ| = {errs[2]:.3e}")
-        if not all(torch.isfinite(g).all() for g in got):
-            fail(f"η kernel result not finite [{label}]")
-        for name, g, w in zip(("ζ", "ν"), got, want):
-            if not bool(((g - w).abs() <= ETA_ATOL + ETA_RTOL * w.abs()).all()):
-                fail(f"η kernel {name} disagrees with its plain version beyond rtol "
-                     f"{ETA_RTOL}, atol {ETA_ATOL} [{label}]")
-        if errs[2] > KERNEL_ATOL:
-            fail(f"η kernel λ disagrees with its plain version by {errs[2]:.3e} > "
-                 f"{KERNEL_ATOL} [{label}]")
-        max_err = max(max_err, *errs)
-        if R == RESTARTS:
+        max_err = max(max_err, eta_check(ek, f"η kernel vs plain [{label}, {budget_name}]",
+                                         args, K, budgets))
+        if R == RESTARTS or (R, D, K) in ETA_TIMED:
             ms = cuda_ms(lambda: ek.estep_eta_fused(*args, K, **budgets))
-            plain_ms = cuda_ms(lambda: ek.estep_eta_fused_plain(*args, K, **budgets))
-            timings[(K, bool(budgets))] = (ms, plain_ms)
+            plain_ms = cuda_ms(lambda: ek.estep_eta_fused_plain(*args, K, **budgets), reps=5)
             MK = sum(K)
             steps = ((3, 4, 1, 4) if budgets else (7, min(MK, 10), 2, 8))
             bound_ms, bound_by = eta_bound(R, D, K, *steps)
-            print(f"η time at ({R}, {D}, {K}), {'f32 CAVI budgets' if budgets else 'cold defaults'}: "
-                  f"kernel {ms:.4f} ms, plain PyTorch {plain_ms:.4f} ms "
-                  f"(median of 20 CUDA-event timings); bound {bound_ms:.6f} ms ({bound_by})")
+            geo = list(ek.launch_geometry(R, D, MK))
+            shapes.append({"shape": [R, D, list(K)], "budgets": "cavi" if budgets else "cold",
+                           "layout": geo, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by})
+            print(f"η time at ({R}, {D}, {K}), {budget_name}, layout {tuple(geo)}: kernel "
+                  f"{ms:.4f} ms, plain PyTorch {plain_ms:.4f} ms (median of 20 and 5 CUDA-event "
+                  f"timings, the wrapper's host time included); bound {bound_ms:.6f} ms "
+                  f"({bound_by})")
     max_err = max(max_err, eta_extrap_checks(ek, gen, cavi))
-    return max_err, timings[((7, 7), True)]
+    main = next(x for x in shapes if x["shape"] == [RESTARTS, 560, [7, 7]]
+                and x["budgets"] == "cavi")
+    return max_err, (main["ms"], main["plain_ms"]), shapes
 
 
 def eta_extrap_checks(ek, gen, cavi):
     """The η kernel with `lam_prev` (the secant start, c = 1) against its
-    plain version at the main-path shape, the layout boundaries and R = 1,
-    with a swing λ − λ_prev of 0.3 and of 8 (the ±4 clip binds on most
-    entries), repeats bit-identical; timed at the main-path shape. Returns
-    the largest |Δ|."""
+    plain version at the main-path shape, on every layout and either side
+    of its boundaries, with a swing λ − λ_prev of 0.3 and of 8 (the ±4 clip
+    binds on most entries), repeats bit-identical; timed at the main-path
+    shape. Returns the largest |Δ|."""
     import torch
 
     max_err = 0.0
-    for label, (R, D, K), budgets in (
-        ("main-path shape", (RESTARTS, 560, (7, 7)), cavi),
-        ("MK=16, the thread layout's last", (RESTARTS, 560, (8, 8)), cavi),
-        ("MK=17, the warp layout's first", (RESTARTS, 560, (9, 8)), cavi),
-        ("MK=32, the warp layout's last, cold defaults", (3, 50, (16, 16)), {}),
-        ("MK=33, the block layout's first, cold defaults", (3, 50, (17, 16)), {}),
-        ("R=1", (1, 560, (7, 7)), cavi),
-    ):
+    for label, (R, D, K), at_cavi in ETA_EXTRAP_CASES:
+        budgets = cavi if at_cavi else {}
         args = eta_problem(gen, R, D, K)
         for swing in (0.3, 8.0):
-            lam_prev = args[0] - swing * torch.randn(args[0].shape, generator=gen).cuda()
-            kw = dict(budgets, lam_prev=lam_prev, extrap=1.0)
-            got = ek.estep_eta_fused(*args, K, **kw)
-            again = ek.estep_eta_fused(*args, K, **kw)
-            want = ek.estep_eta_fused_plain(*args, K, **kw)
-            torch.cuda.synchronize()
-            errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
-            same = all(torch.equal(g, a) for g, a in zip(got, again))
+            noise = torch.randn(args[0].shape, generator=gen).to(args[0].device)
+            lam_prev = args[0] - swing * noise
             clipped = float(((args[0] - lam_prev).abs() > 4.0).float().mean())
-            print(f"η kernel with lam_prev vs plain [{label}, swing {swing}, clip binds on "
-                  f"{clipped:.3f} of the entries] (R, D, K)=({R}, {D}, {K}): max|Δζ| = "
-                  f"{errs[0]:.3e}, max|Δν| = {errs[1]:.3e}, max|Δλ| = {errs[2]:.3e}, repeat "
-                  f"launch bit-identical: {same}")
-            if not all(torch.isfinite(g).all() for g in got):
-                fail(f"η kernel with lam_prev: result not finite [{label}, swing {swing}]")
-            for name, g, w in zip(("ζ", "ν"), got, want):
-                if not bool(((g - w).abs() <= ETA_ATOL + ETA_RTOL * w.abs()).all()):
-                    fail(f"η kernel with lam_prev: {name} disagrees with its plain version "
-                         f"beyond rtol {ETA_RTOL}, atol {ETA_ATOL} [{label}, swing {swing}]")
-            if errs[2] > KERNEL_ATOL:
-                fail(f"η kernel with lam_prev: λ disagrees with its plain version by "
-                     f"{errs[2]:.3e} > {KERNEL_ATOL} [{label}, swing {swing}]")
-            if not same:
-                fail(f"η kernel with lam_prev: a repeat launch differs [{label}, swing {swing}]")
-            max_err = max(max_err, *errs)
+            kw = dict(budgets, lam_prev=lam_prev, extrap=1.0)
+            max_err = max(max_err, eta_check(
+                ek, f"η kernel with lam_prev vs plain [{label}, swing {swing}, clip binds on "
+                f"{clipped:.3f} of the entries]", args, K, kw))
         if R == RESTARTS and K == (7, 7):
             kw = dict(budgets, lam_prev=lam_prev, extrap=1.0)
             ms = cuda_ms(lambda: ek.estep_eta_fused(*args, K, **kw))
@@ -604,6 +674,37 @@ def eta_extrap_checks(ek, gen, cavi):
                   f"{plain_ms:.4f} ms (median of 20 CUDA-event timings); bound "
                   f"{bound_ms:.6f} ms ({bound_by})")
     return max_err
+
+
+@contextlib.contextmanager
+def eta_layouts(ek):
+    """While active, records the η kernel's launches by shape and layout:
+    yields a Counter of ((R, D, MK), layout) -> launches, read from the
+    wrapper's call of `launch_geometry`."""
+    seen = collections.Counter()
+    pick = ek.launch_geometry
+
+    def spy(R, D, MK):
+        geo = pick(R, D, MK)
+        seen[((R, D, MK), tuple(geo))] += 1
+        return geo
+
+    ek.launch_geometry = spy
+    try:
+        yield seen
+    finally:
+        ek.launch_geometry = pick
+
+
+def layouts_line(seen):
+    """The layouts of an `eta_layouts` record, each with its launches and
+    the (R, D, MK) shapes it ran."""
+    by_layout = collections.defaultdict(lambda: [0, set()])
+    for (shape, geo), n in seen.items():
+        by_layout[geo][0] += n
+        by_layout[geo][1].add(shape)
+    return "; ".join(f"{geo}: {n} launches at (R, D, MK) {sorted(shapes)}"
+                     for geo, (n, shapes) in sorted(by_layout.items()))
 
 
 def lda_logits(gen, R, D, V, K, X):
@@ -1099,11 +1200,13 @@ def single_model_phase(mt, ek, X):
     docs = [[mt.make_count_matrix(X[m][d]) for m in range(2)] for d in range(X[0].shape[0])]
     ek.LAUNCHES = 0
     model = mt.MMCTM([7, 7], [0.1, 0.1], docs)
-    history = model.fit(maxiter=30, verbose=False)  # tol 1e-4
+    with eta_layouts(ek) as seen:
+        history = model.fit(maxiter=30, verbose=False)  # tol 1e-4
     torch.cuda.synchronize()
     launches = ek.LAUNCHES
     print(f"single model on {model.device}: {len(history)} iterations, final ll {model.ll}, "
-          f"elbo {model.elbo}, {launches} η-kernel launches at R = 1")
+          f"elbo {model.elbo}, {launches} η-kernel launches at R = 1; η layouts "
+          f"{layouts_line(seen)}")
     if model.device.type != "cuda":
         fail("the MMCTM wrapper did not default to the card")
     if not (np.isfinite(model.ll).all() and np.isfinite(model.elbo)):
@@ -1315,11 +1418,14 @@ def two_stage_phase(mt, kernels, X):
 
     torch.cuda.synchronize()
     reset_counts(kernels)
-    t0 = time.perf_counter()
-    model = mt.fit_mmctm_restarts([7, 7], [0.1, 0.1], docs, restarts=RESTARTS, maxiter=MAXITER)
-    wall = time.perf_counter() - t0
+    with eta_layouts(ek) as seen:
+        t0 = time.perf_counter()
+        model = mt.fit_mmctm_restarts([7, 7], [0.1, 0.1], docs, restarts=RESTARTS,
+                                      maxiter=MAXITER)
+        wall = time.perf_counter() - t0
     launches = {"estep_eta": ek.LAUNCHES, "lambda_newton": lk.LAUNCHES,
                 "theta_moments": tk.LAUNCHES}
+    print(f"two-stage: η layouts {layouts_line(seen)}")
     stage1 = model.restart_result
     n1, n2 = loop_iterations(stage1.n_iters.max()), loop_iterations(len(model.ll_history))
     print(f"two-stage: fit_mmctm_restarts R={RESTARTS} BRCA-EU K=(7, 7) f32 (stage 1 tol 1e-4, "
@@ -1719,7 +1825,7 @@ def inference_phase(mt, kernels, label, model, test, docs):
     for name, call, n_obs in calls:
         torch.cuda.synchronize()
         reset_counts(kernels)
-        with counting_fits() as count:
+        with counting_fits() as count, eta_layouts(ek) as seen:
             t0 = time.perf_counter()
             out = call()
             torch.cuda.synchronize()
@@ -1732,7 +1838,8 @@ def inference_phase(mt, kernels, label, model, test, docs):
         print(f"{label}: {name} on {model.device}: wall {wall:.4f} s (the new model's set-up, "
               f"the loop, the final ELBO), {n} CAVI iterations, {1000 * wall / n:.4f} ms per CAVI "
               f"iteration; the loop alone {loop_ms:.4f} ms, {loop_ms / n:.4f} ms per CAVI "
-              f"iteration (R = 1); {summary}; kernel launches {launches}")
+              f"iteration (R = 1); {summary}; kernel launches {launches}; η layouts "
+              f"{layouts_line(seen)}")
         if not output_finite(out):
             fail(f"{label}: {name} gave a non-finite output")
         if n <= 0 or launches != {"estep_eta": n, "lambda_newton": 0, "theta_moments": n_obs * n}:
@@ -1776,7 +1883,7 @@ def k_selection_phase(mt, kernels, docs):
     print(f"K selection warm-up run: {time.perf_counter() - t0:.3f} s")
     torch.cuda.synchronize()
     reset_counts(kernels)
-    with counting_fits() as count:
+    with counting_fits() as count, eta_layouts(ek) as seen:
         t0 = time.perf_counter()
         best, curve = mt.select_k_mmctm(K_CANDIDATES, docs, [0.1, 0.1], **kw)
         wall = time.perf_counter() - t0
@@ -1787,9 +1894,72 @@ def k_selection_phase(mt, kernels, docs):
           f"maxiter={MAXITER}) on the card: wall {wall:.4f} s (split, three two-stage fits, "
           f"three held-out fits), {n} CAVI iterations; chosen K {best}; curve {curve}; kernel "
           f"launches {launches}")
+    print(f"K selection: η layouts {layouts_line(seen)}")
     if not np.isfinite([ll for _, ll in curve]).all():
         fail(f"K selection: a held-out ll is not finite: {curve}")
     check_fused_launches("K selection", launches, n)
+    return launches
+
+
+def pcawg_corpus(D=2800, V=(96, 48, 24), K=(7, 7, 5), mean_counts=(3000, 250, 120)):
+    """The synthetic PCAWG-scale corpus of tools/pcawg_bench.py:27
+    (synthesize_corpus) from np.random.default_rng(0): per modality K
+    topics ~ Dirichlet(0.3) over V terms, D documents' proportions ~
+    Dirichlet(0.5), Poisson(mean) counts per document drawn multinomially."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    X = []
+    for v, k, mean_n in zip(V, K, mean_counts):
+        topics = rng.dirichlet(np.full(v, 0.3), size=k)  # (K, V)
+        props = rng.dirichlet(np.full(k, 0.5), size=D)  # (D, K)
+        P = props @ topics
+        N = rng.poisson(mean_n, size=D)
+        counts = np.stack([rng.multinomial(n, p) for n, p in zip(N, P)])
+        X.append(counts.astype(np.float32))
+    return X
+
+
+def pcawg_phase(mt, kernels):
+    """An R=100 MMCTM fit at PCAWG scale (D=2800, V=(96, 48, 24), K=(7, 7,
+    5), MK 19; tools/pcawg_bench.py's corpus, α=0.1, f32, tol 1e-5), warm
+    and then timed; prints its wall, steps, B3 launches and layouts. Gates:
+    at least 99% finite lanes; one η and three θ launches (one per
+    modality) per CAVI iteration."""
+    import numpy as np
+    import torch
+
+    ek, lk, tk = kernels
+    K, V = (7, 7, 5), (96, 48, 24)
+    X = pcawg_corpus(V=V, K=K)
+    config = mt.MMCTMConfig(K=K, V=V, D=X[0].shape[0], dtype=torch.float32)
+    kw = dict(restarts=RESTARTS, maxiter=MAXITER, tol=TOL)
+    t0 = time.perf_counter()
+    mt.fit_restarts(SEED, X, config, [0.1, 0.1, 0.1], **kw).ll.cpu()
+    print(f"PCAWG warm-up run: {time.perf_counter() - t0:.3f} s")
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    with eta_layouts(ek) as seen:
+        t0 = time.perf_counter()
+        res = mt.fit_restarts(SEED, X, config, [0.1, 0.1, 0.1], **kw)
+        ll = res.ll.cpu().double().numpy()
+        wall = time.perf_counter() - t0
+    launches = launches_now(kernels)
+    iters = res.n_iters.cpu().numpy()
+    n = loop_iterations(iters.max())
+    finite = int(np.isfinite(ll).all(axis=1).sum())
+    print(f"PCAWG scale: fit_restarts R={RESTARTS} D={config.D} V={V} K={K} f32 tol={TOL} on "
+          f"{res.ll.device}: wall {wall:.4f} s, {n} CAVI iterations, {1000 * wall / n:.4f} ms "
+          f"per CAVI iteration; iterations median {float(np.median(iters)):.1f} max "
+          f"{int(iters.max())}, converged {int(res.converged.sum())}/{RESTARTS}; finite lanes "
+          f"{finite}/{RESTARTS}; best ll per modality {np.nanmax(ll, axis=0).tolist()}; kernel "
+          f"launches {launches} (B3 {launches['estep_eta']}); η layouts {layouts_line(seen)}")
+    if finite < 0.99 * RESTARTS:
+        fail(f"PCAWG scale: only {finite} of {RESTARTS} lanes finite")
+    want = {"estep_eta": n, "lambda_newton": 0, "theta_moments": 3 * n}
+    if launches != want:
+        fail(f"PCAWG scale: launches {launches} are not one η and one θ launch per modality per "
+             f"CAVI iteration: {want}")
     return launches
 
 
@@ -2018,7 +2188,7 @@ def main():
             print("build log:\n" + f.read().strip())
 
     lam_err, (lam_ms, lam_plain_ms), lam_shapes = lambda_phase(lk)
-    eta_err, (eta_ms, eta_plain_ms) = eta_phase(ek)
+    eta_err, (eta_ms, eta_plain_ms), eta_shapes = eta_phase(ek)
     theta_err, (theta_ms, theta_plain_ms) = theta_phase(tk)
     X, terms = load_brca()
     features = brca_features(*terms)
@@ -2044,6 +2214,7 @@ def main():
                                              mt.train_test_split_docs(docs, 0.2, seed=0)[1],
                                              docs)[0],
         "K selection": k_selection_phase(mt, kernels, docs),
+        "PCAWG scale": pcawg_phase(mt, kernels),
         "LDA and ILDA": lda_phase(mt, kernels, docs_snv, features[0]),
         "inference, LDA and ILDA": lda_inference_phase(mt, kernels, docs_snv, features[0]),
     }
@@ -2075,6 +2246,7 @@ def main():
         "bound_ms": eta_bound_ms,
         "bound_by": eta_by,
         "library_ms": None,
+        "shapes": eta_shapes,
     }, {
         "name": "lambda_newton",
         "route": "cuda",

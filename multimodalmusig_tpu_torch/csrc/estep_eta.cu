@@ -25,22 +25,37 @@
 // dead lane (an all-NaN Σ_r⁻¹) stays NaN; it cannot touch another restart,
 // whose problems run in other blocks.
 //
-// Layouts. The wrapper (ops/estep_kernel.py launch_geometry) picks one by MK
-// and passes it, with the documents per block, to estep_eta_launch:
-//  * "thread", MK ≤ 16 (the BRCA main path, MK = 14): one thread per (r, d)
-//    problem, ThreadProblem<P> of lambda_solve.cuh with P = MK rounded up to
-//    even. A block is 64 documents of one restart (D = 560 fills 560 of 576
-//    threads), staged into shared-memory columns by coalesced loads and
-//    written back the same way. ζ is M sums inside the thread over the
-//    modality blocks; N/ζ and the ν solve are elementwise, the ν solve on
-//    the thread's P coordinates at once. No shuffles, no idle lanes. At 168
-//    registers an SM holds 6 blocks (384 problems), so R = 100 by D = 560
-//    (56,000 problems) takes 1.1 waves on 132 SMs.
-//  * "warp", MK ≤ 32: one WarpGroup<32> per problem, one coordinate per lane;
-//    "block", MK ≤ 128: one BlockGroup<64 or 128>. A block of 256 threads
-//    holds 256 / P documents. Each lane finds its modality from the block
-//    offsets; ζ is one masked group sum per modality, M of them in every
-//    group, so every thread of a BlockGroup block meets every barrier.
+// Layouts. The wrapper (ops/estep_kernel.py launch_geometry) picks one from
+// MK and the number of problems R·D and passes it, with P and the documents
+// per block, to estep_eta_launch:
+//  * "thread": one thread per (r, d) problem, ThreadProblem<P> of
+//    lambda_solve.cuh with P = MK rounded up to even (up to 16; 20, 24, 28
+//    or 32 above). A block is up to 64 documents of one restart (D = 560
+//    fills 560 of 576 threads), staged into shared-memory columns by
+//    coalesced loads and written back the same way. ζ is M sums inside the
+//    thread over the modality blocks; N/ζ and the ν solve are elementwise,
+//    the ν solve on the thread's P coordinates at once. No shuffles, no idle
+//    lanes. At 168 registers an SM holds 6 blocks (384 problems) at
+//    P ≤ 14, so R = 100 by D = 560 (56,000 problems) takes 1.1 waves on
+//    132 SMs.
+//  * "pair": two neighbouring threads per problem, ThreadProblem<P, ·, 2>,
+//    each holding P of the 2P ≥ MK coordinates. A modality's coordinates
+//    may straddle the two halves (K = (9, 9): the first thread holds all of
+//    modality 0 and one coordinate of modality 1), so ζ_m is each thread's
+//    partial sum over its own coordinates of block m plus one xor-shuffle
+//    of the other's; both threads add the same two floats, so both hold the
+//    same ζ bits, and N/ζ, the step choice and the NaN rule agree without a
+//    vote. Up to 64 documents (128 threads) a block, whole warps of pairs.
+//  * "warp": one WarpGroup<16 or 32> per problem, one coordinate per lane,
+//    `docs` problems a block; for calls with too few problems to fill the
+//    card one per thread (stage 2, inference, single-model fits, ranks),
+//    where the time is one problem's chain of dependent steps.
+//  * "block", MK 33–128: one BlockGroup<64 or 128> per problem, 256 threads
+//    a block.
+//  In both group layouts each lane finds its modality from the block
+//  offsets; ζ is one masked group sum per modality, M of them in every
+//  group (in WarpGroup<16> a butterfly of width 16, inside the group), so
+//  every thread of a BlockGroup block meets every barrier.
 // Padding coordinates (j ≥ MK) and padding documents (d ≥ D) stay inert, as
 // the TPU kernel keeps them: a = ½ (identity row), b = 0, ν = 1, λ = μ = 0
 // (a padding document of the thread layout keeps its restart's μ and solves
@@ -51,15 +66,16 @@
 // and ν, and it moves 5·MK·4 bytes (6·MK·4 with λ_prev): at R = 100 by
 // D = 560, 0.75 GFLOP and 16 MB (19 MB), an operations bound of 14 µs
 // (chip_smoke.py eta_bound). λ_prev is read once, coalesced, in every
-// layout. The
-// thread layout is bound by its instruction issue (the matvecs' FMAs and
-// broadcast loads, the fast paths of the PCG and ν divisions and of the
-// line search's square roots, the exps), below the card's rate. On an
-// NVIDIA H100 80GB HBM3 at 700 W,
-// torch.profiler (profile_step.py) gives 106.5 µs of device time per call
-// at R = 100 and 711.3 µs at R = 1000, against 164.7 µs and 1556.7 µs for
-// the warp layout it replaced at MK ≤ 16, which issued about 790 shuffles
-// per warp of two problems.
+// layout. The thread and pair layouts are bound by their instruction issue
+// (the matvecs' FMAs and broadcast loads, the fast paths of the PCG and ν
+// divisions and of the line search's square roots, the exps), below the
+// card's rate; the warp layout by one problem's chain of shuffles. On an
+// NVIDIA H100 80GB HBM3 at 700 W (lambda_bench.py --eta, device time from
+// a CUDA graph of 20 calls, the CAVI budgets): 0.094 ms at (R, D, MK) =
+// (100, 560, 14) on the thread layout, 6.7x the bound; 0.10–0.13 ms at
+// MK 17–20 on the pair (P = 10), against 0.36–0.45 ms for the WarpGroup<32>
+// it replaced there; 0.014 ms at R = 1, D = 560, MK 14 on WarpGroup<16>,
+// against 0.034 ms for one thread per problem.
 //
 // Full-precision float32 throughout: expf, sqrtf and IEEE divisions, and no
 // --use_fast_math.
@@ -73,13 +89,22 @@ using namespace lambda_solve;
 constexpr float kNuLowerBound = 1e-7f;  // solvers.NU_LOWER_BOUND
 constexpr int kNuPolish = 4;            // solvers.NU_POLISH_ITERS
 constexpr float kExtrapClip = 4.f;      // solvers.EXTRAP_CLIP
-constexpr int kMaxThreadDocs = 64;      // documents per block of the thread layout, at most
-// Blocks an SM holds in the thread layout: 6 at P ≤ 14 (168 registers a
-// thread), 5 at P = 16.
-__host__ __device__ constexpr int thread_blocks_per_sm(int P) { return P <= 14 ? 6 : 5; }
-constexpr int kColStride = kMaxThreadDocs + 1;
+constexpr int kMaxThreadDocs = 64;     // documents a block of the thread and pair layouts, at most
 
-enum Layout { kThreadLayout = 0, kWarpLayout = 1, kBlockLayout = 2 };
+enum Layout { kThreadLayout = 0, kPairLayout = 1, kWarpLayout = 2, kBlockLayout = 3 };
+
+// Column stride of the thread and pair layouts: a block's threads, plus one.
+template <int Split>
+__host__ __device__ constexpr int col_stride() { return kMaxThreadDocs * Split + 1; }
+
+// Blocks an SM holds: in the thread layout 6 at P ≤ 14 (168 registers a
+// thread), 5 at P = 16, the compiler's choice at P = 32 (255 registers, 4
+// blocks: shared memory bounds it); in the pair layout 3 blocks of 128
+// threads at P = 10 (156 registers), 2 above (167, 193 and 212 at P = 12,
+// 14, 16). ptxas reports no spill in any instantiation.
+__host__ __device__ constexpr int min_blocks(int P, int Split) {
+  return Split == 2 ? (P <= 10 ? 3 : 2) : P <= 14 ? 6 : P <= 16 ? 5 : 1;
+}
 
 // The per-modality topic blocks: modality m holds coordinates
 // [offset[m], offset[m + 1]); offset[M] = MK.
@@ -147,10 +172,10 @@ __device__ __forceinline__ void nu_solve_vec(const float (&a)[P], const float (&
 }
 
 // ---------------------------------------------------------------------------
-// The thread layout.
+// The thread and pair layouts.
 
-template <int P>
-__global__ void __launch_bounds__(kMaxThreadDocs, thread_blocks_per_sm(P))
+template <int P, int Split>
+__global__ void __launch_bounds__(kMaxThreadDocs * Split, min_blocks(P, Split))
 estep_eta_thread_kernel(const float* __restrict__ lam0, const float* __restrict__ nu0,
                         const float* __restrict__ N, const float* __restrict__ st,
                         const float* __restrict__ mu, const float* __restrict__ inv_sigma,
@@ -158,30 +183,33 @@ estep_eta_thread_kernel(const float* __restrict__ lam0, const float* __restrict_
                         float* __restrict__ nu_out, float* __restrict__ lam_out,
                         const Blocks blk, int D, int MK, int n_iter, int cg_iter,
                         int polish_iter, int nu_n_iter, float extrap) {
-  using Problem = ThreadProblem<P, kColStride>;
-  constexpr int P4 = Problem::P4;
+  constexpr int Stride = col_stride<Split>();
+  using Problem = ThreadProblem<P, Stride, Split>;
+  constexpr int NP = Problem::N, P4 = Problem::P4;
   extern __shared__ float4 smem4[];
-  float* S = reinterpret_cast<float*>(smem4);  // [P][P4]
-  float* diag = S + P * P4;                    // [P4]
+  float* S = reinterpret_cast<float*>(smem4);  // [NP][P4]
+  float* diag = S + NP * P4;                   // [P4]
   float* mu_s = diag + P4;                     // [P4]
-  float* cols = mu_s + P4;                     // [kColumns][P][kColStride]
-  const int T = blockDim.x, t = threadIdx.x;
-  const int r = blockIdx.y, d0 = blockIdx.x * T;
-  const int docs = min(T, D - d0);  // live documents of this block
+  float* cols = mu_s + P4;                     // [kColumns][P][Stride]
+  const int T = blockDim.x, t = threadIdx.x, per_block = T / Split;
+  const int r = blockIdx.y, d0 = blockIdx.x * per_block;
+  const int docs = min(per_block, D - d0);  // live documents of this block
+  // coordinate j of document doc: thread doc·Split + j / P, element j % P
   auto col = [&](int c, int j, int doc) -> float& {
-    return cols[(c * P + j) * kColStride + doc];
+    const int part = Split == 1 ? 0 : j / P;
+    return cols[(c * P + j - part * P) * Stride + doc * Split + part];
   };
 
   const float* S_r = inv_sigma + static_cast<size_t>(r) * MK * MK;
-  for (int idx = t; idx < P * P4; idx += T) {
+  for (int idx = t; idx < NP * P4; idx += T) {
     const int i = idx / P4, k = idx % P4;
     const float s = (i < MK && k < MK) ? S_r[i * MK + k] : (i == k ? 1.f : 0.f);
     S[idx] = s;
     if (i == k) diag[i] = s;
   }
   for (int j = t; j < P4; j += T) mu_s[j] = j < MK ? mu[static_cast<size_t>(r) * MK + j] : 0.f;
-  for (int idx = t; idx < P * T; idx += T) {  // the inert padding
-    const int j = idx / T, doc = idx % T;
+  for (int idx = t; idx < NP * per_block; idx += T) {  // the inert padding
+    const int j = idx / per_block, doc = idx % per_block;
     if (j >= MK || doc >= docs) {
       col(kLam, j, doc) = 0.f;
       col(kNu, j, doc) = 1.f;
@@ -198,21 +226,25 @@ estep_eta_thread_kernel(const float* __restrict__ lam0, const float* __restrict_
   }
   __syncthreads();
 
-  Problem prob{S, diag, mu_s, cols + t};
-  const bool live = t < docs;
-  const int d = d0 + t;
+  const int part = t % Split;
+  Problem prob{S + part * P * P4, diag + part * P, mu_s + part * P, cols + t, part};
+  const bool live = t / Split < docs;
+  const int d = d0 + t / Split;
 
-  // ζ and N/ζ from the incoming λ and ν.
+  // ζ and N/ζ from the incoming λ and ν. This thread holds coordinates
+  // [part·P, part·P + P); in a pair each ζ_m is the two threads' partial
+  // sums added, the same float in both.
   float e[P];  // a padding coordinate's e is never summed
 #pragma unroll
   for (int j = 0; j < P; ++j) e[j] = expf(prob.at(kLam, j) + 0.5f * prob.at(kNu, j));
   for (int m = 0; m < blk.M; ++m) {
-    const int lo = blk.offset[m], hi = blk.offset[m + 1];
+    const int lo = blk.offset[m] - part * P, hi = blk.offset[m + 1] - part * P;
     float z = 0.f;
 #pragma unroll
     for (int j = 0; j < P; ++j)
       if (j >= lo && j < hi) z += e[j];
-    if (live) zeta[(static_cast<size_t>(r) * D + d) * blk.M + m] = z;
+    z = prob.sum(z);
+    if (live && part == 0) zeta[(static_cast<size_t>(r) * D + d) * blk.M + m] = z;
     const float n = live ? N[static_cast<size_t>(d) * blk.M + m] : 0.f;
 #pragma unroll
     for (int j = 0; j < P; ++j)
@@ -223,7 +255,7 @@ estep_eta_thread_kernel(const float* __restrict__ lam0, const float* __restrict_
   float a[P], b[P], nu[P];
 #pragma unroll
   for (int j = 0; j < P; ++j) {
-    a[j] = 0.5f * diag[j];
+    a[j] = 0.5f * prob.dg(j);
     b[j] = prob.at(kNdz, j) * expf(prob.at(kLam, j));
     nu[j] = prob.at(kNu, j);
   }
@@ -302,8 +334,11 @@ __device__ __forceinline__ void estep(G& grp, const float* lam0, const float* nu
   if (live) lam_out[off] = lam_new;
 }
 
+// At least 3 blocks of 256 threads an SM, as the λ kernel's warp layout
+// (without a block count ptxas gave that kernel too few registers and it
+// spilled).
 template <int P>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 estep_eta_warp_kernel(const float* __restrict__ lam0, const float* __restrict__ nu0,
                       const float* __restrict__ N, const float* __restrict__ st,
                       const float* __restrict__ mu, const float* __restrict__ inv_sigma,
@@ -316,7 +351,7 @@ estep_eta_warp_kernel(const float* __restrict__ lam0, const float* __restrict__ 
   stage_inv_sigma<P>(S, inv_sigma + static_cast<size_t>(r) * MK * MK, MK);
 
   const int j = threadIdx.x % P;
-  const int d = blockIdx.x * (kThreads / P) + threadIdx.x / P;
+  const int d = blockIdx.x * (blockDim.x / P) + threadIdx.x / P;
   WarpGroup<P> grp;
   bind_warp_group<P>(grp, S, j);
   estep(grp, lam0, nu0, N, st, mu, lam_prev, zeta, nu_out, lam_out, blk, r, d, j, D, MK, n_iter,
@@ -366,27 +401,38 @@ int launch(Kernel kernel, const Args& a, const Blocks& blk, int docs, int thread
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int P>
+template <int P, int Split>
 int launch_thread(const Args& a, const Blocks& blk, int docs, cudaStream_t stream) {
   // Shared memory, not L1, bounds the blocks an SM holds: ask for its most.
   static const cudaError_t carveout = cudaFuncSetAttribute(
-      estep_eta_thread_kernel<P>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      estep_eta_thread_kernel<P, Split>, cudaFuncAttributePreferredSharedMemoryCarveout,
       cudaSharedmemCarveoutMaxShared);
   if (carveout != cudaSuccess) return static_cast<int>(carveout);
-  return launch(estep_eta_thread_kernel<P>, a, blk, docs, docs,
-                sizeof(float) * thread_smem_floats<P, kColStride>(), stream);
+  return launch(estep_eta_thread_kernel<P, Split>, a, blk, docs, docs * Split,
+                sizeof(float) * thread_smem_floats<P, col_stride<Split>(), Split>(), stream);
 }
 
 int launch_thread_layout(int P, const Args& a, const Blocks& blk, int docs, cudaStream_t s) {
   switch (P) {
-    case 2: return launch_thread<2>(a, blk, docs, s);
-    case 4: return launch_thread<4>(a, blk, docs, s);
-    case 6: return launch_thread<6>(a, blk, docs, s);
-    case 8: return launch_thread<8>(a, blk, docs, s);
-    case 10: return launch_thread<10>(a, blk, docs, s);
-    case 12: return launch_thread<12>(a, blk, docs, s);
-    case 14: return launch_thread<14>(a, blk, docs, s);
-    case 16: return launch_thread<16>(a, blk, docs, s);
+    case 2: return launch_thread<2, 1>(a, blk, docs, s);
+    case 4: return launch_thread<4, 1>(a, blk, docs, s);
+    case 6: return launch_thread<6, 1>(a, blk, docs, s);
+    case 8: return launch_thread<8, 1>(a, blk, docs, s);
+    case 10: return launch_thread<10, 1>(a, blk, docs, s);
+    case 12: return launch_thread<12, 1>(a, blk, docs, s);
+    case 14: return launch_thread<14, 1>(a, blk, docs, s);
+    case 16: return launch_thread<16, 1>(a, blk, docs, s);
+    case 32: return launch_thread<32, 1>(a, blk, docs, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int launch_pair_layout(int P, const Args& a, const Blocks& blk, int docs, cudaStream_t s) {
+  switch (P) {
+    case 10: return launch_thread<10, 2>(a, blk, docs, s);
+    case 12: return launch_thread<12, 2>(a, blk, docs, s);
+    case 14: return launch_thread<14, 2>(a, blk, docs, s);
+    case 16: return launch_thread<16, 2>(a, blk, docs, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -399,11 +445,13 @@ int launch_thread_layout(int P, const Args& a, const Blocks& blk, int docs, cuda
 // output zeta (R, D, M); lam_prev (R, D, MK), or null for no secant start,
 // and extrap its coefficient c. K (host memory) holds the M ≥ 1 topic counts, each
 // ≥ 1, summing to MK ≤ 128. (layout, P, docs) is the launch geometry of
-// ops/estep_kernel.py launch_geometry: layout 0 (thread) with P even,
-// MK ≤ P ≤ 16 and 1 ≤ docs ≤ 64 documents per block; 1 (warp) with P = 32
-// and docs = 8; 2 (block) with P = 64 or 128 and docs = 256 / P. Launches on
-// `stream` without synchronising and returns the CUDA error code (0 =
-// launched).
+// ops/estep_kernel.py launch_geometry:
+//  0 (thread): P ≥ MK one of 2, 4, …, 16, 32; 1 ≤ docs ≤ 64;
+//  1 (pair): P one of 10, 12, 14, 16, 2P ≥ MK; docs 16, 32, 48 or 64;
+//  2 (warp): P = 16 or 32, P ≥ MK; docs·P a multiple of 32, at most 256;
+//  3 (block): P = 64 or 128, P ≥ MK; docs = 256 / P.
+// Launches on `stream` without synchronising and returns the CUDA error code
+// (0 = launched).
 extern "C" int estep_eta_launch(const float* lam0, const float* nu, const float* N,
                                 const float* st, const float* mu, const float* inv_sigma,
                                 const float* lam_prev, float* zeta, float* nu_out,
@@ -411,7 +459,7 @@ extern "C" int estep_eta_launch(const float* lam0, const float* nu, const float*
                                 int n_iter, int cg_iter, int polish_iter, int nu_n_iter,
                                 float extrap, int layout, int P, int docs, void* stream) {
   if (R <= 0 || D <= 0) return static_cast<int>(cudaSuccess);
-  if (MK < 1 || MK > kMaxMK || R > 65535 || M < 1 || M > MK || P < MK)
+  if (MK < 1 || MK > kMaxMK || R > 65535 || M < 1 || M > MK || docs < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Blocks blk;
   blk.M = M;
@@ -424,11 +472,15 @@ extern "C" int estep_eta_launch(const float* lam0, const float* nu, const float*
   const Args a{lam0, nu, N, st, mu, inv_sigma, lam_prev, zeta, nu_out, lam_out,
                R, D, MK, n_iter, cg_iter, polish_iter, nu_n_iter, extrap};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (layout == kThreadLayout && docs >= 1 && docs <= kMaxThreadDocs)
+  if (layout == kThreadLayout && P >= MK && docs <= kMaxThreadDocs)
     return launch_thread_layout(P, a, blk, docs, s);
-  if (layout == kWarpLayout && P == 32 && docs == kThreads / 32)
-    return launch(estep_eta_warp_kernel<32>, a, blk, docs, kThreads, 0, s);
-  if (layout == kBlockLayout && P == 64 && docs == kThreads / 64)
+  if (layout == kPairLayout && 2 * P >= MK && docs <= kMaxThreadDocs && docs % 16 == 0)
+    return launch_pair_layout(P, a, blk, docs, s);
+  if (layout == kWarpLayout && (P == 16 || P == 32) && P >= MK && docs * P % 32 == 0 &&
+      docs * P <= kThreads)
+    return P == 16 ? launch(estep_eta_warp_kernel<16>, a, blk, docs, docs * P, 0, s)
+                   : launch(estep_eta_warp_kernel<32>, a, blk, docs, docs * P, 0, s);
+  if (layout == kBlockLayout && P == 64 && MK <= 64 && docs == kThreads / 64)
     return launch(estep_eta_block_kernel<64>, a, blk, docs, kThreads, block_smem_bytes<64>(), s);
   if (layout == kBlockLayout && P == 128 && docs == kThreads / 128)
     return launch(estep_eta_block_kernel<128>, a, blk, docs, kThreads, block_smem_bytes<128>(),

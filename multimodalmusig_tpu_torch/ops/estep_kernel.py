@@ -14,14 +14,15 @@ maximize_nu → maximize_lambda at the kernel's defaults); a CUDA tensor
 launches the kernel, or raises when it cannot be built or launched — there
 is no fallback. `LAUNCHES` counts the kernel's launches, so a run can show
 that its path went through the kernel. `launch_geometry` picks the kernel's
-layout for an MK, and the wrapper passes it to the kernel.
+layout from MK and the number of problems R·D, and the wrapper passes it to
+the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -44,11 +45,27 @@ KERNEL_MAX_MK = 128
 # Kernel launches since import (or since a caller last reset it to 0).
 LAUNCHES = 0
 
-# The largest MK of the per-thread layout, and its documents per block.
+# The layouts' reach, from B3's own times (lambda_bench.py --eta on an
+# NVIDIA H100, PERF.md §6). At MK ≤ 32 a call of fewer (restart, document)
+# problems R·D than `_few_problems(MK)` takes the warp layout, a group of 16
+# or 32 lanes per problem in blocks of WARP_DOCS problems: there the time is
+# one problem's chain of dependent steps, and the crossover grows with the
+# work of the layout it gives way to. Above it: one thread per problem at
+# MK ≤ 16; a pair of threads at MK 17–28, and at MK 29–32 up to
+# PAIR16_MAX_PROBLEMS (three waves of the pair at P = 16: 2 blocks of 64
+# problems on each of 132 SMs); one thread (P = 32) beyond.
+GROUP_MAX_MK = 32
 THREAD_MAX_MK = 16
+PAIR_MAX_MK = 28
+PAIR16_MAX_PROBLEMS = 3 * 2 * 64 * 132
+WARP_DOCS = {16: 4, 32: 8}
 THREAD_DOCS = 64
+# The kernel's instantiations: the thread layout's coordinates per thread
+# (P ≥ MK), the pair layout's per thread of a pair (2P ≥ MK).
+THREAD_P = (2, 4, 6, 8, 10, 12, 14, 16, 32)
+PAIR_P = (10, 12, 14, 16)
 # The kernel's layout codes (csrc/estep_eta.cu).
-_LAYOUTS = {"thread": 0, "warp": 1, "block": 2}
+_LAYOUTS = {"thread": 0, "pair": 1, "warp": 2, "block": 3}
 
 # lam0, nu, N, sumtheta, mu, invSigma, lam_prev (or null), zeta, nu_out,
 # lam_out, K; M, R, D, MK, n_iter, cg_iter, polish_iter, nu_n_iter; extrap;
@@ -58,9 +75,10 @@ _ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float]
 
 
 class EtaGeometry(NamedTuple):
-    """The η kernel's launch for one MK: `layout` "thread" (one thread per
-    (restart, document) problem, holding P ≥ MK coordinates), "warp" (a
-    32-lane group per problem) or "block" (a P-lane group of whole warps);
+    """The η kernel's launch: `layout` "thread" (one thread per (restart,
+    document) problem, holding P ≥ MK coordinates), "pair" (two threads per
+    problem, P ≥ MK/2 coordinates each), "warp" (a P-lane group per problem
+    inside one warp) or "block" (a P-lane group of whole warps);
     `docs_per_block` documents of one restart per block."""
 
     layout: str
@@ -68,18 +86,88 @@ class EtaGeometry(NamedTuple):
     docs_per_block: int
 
 
-@functools.lru_cache(maxsize=None)
-def launch_geometry(MK: int) -> EtaGeometry:
-    """MK ≤ 16: one thread per problem with P = MK rounded up to even, 64
-    documents a block (D = 560 fills 560 of 576 threads); MK ≤ 32: one warp
-    per problem, 8 a block; MK ≤ 64 and ≤ 128: a group of 64 or 128 lanes
-    per problem, in blocks of 256 threads."""
+def _check_mk(MK):
     if not 1 <= MK <= KERNEL_MAX_MK:
         raise ValueError(f"MK={MK} is outside the η kernel's 1..{KERNEL_MAX_MK}")
+
+
+def _thread_P(MK):
+    return min(p for p in THREAD_P if p >= MK)
+
+
+def _pair_P(MK):
+    return min(p for p in PAIR_P if 2 * p >= MK)
+
+
+def _group_P(MK):
+    return min(p for p in (16, 32, 64, 128) if p >= MK)
+
+
+def _few_problems(MK):
+    """The problems R·D below which a call at MK ≤ 32 takes the warp layout:
+    at MK ≤ 14 650 per coordinate of the thread layout's P (the crossover
+    measured at P = 4, 8, 10, 12 and 14); at MK 15 the same, at MK 16
+    (the 16-lane group full) 20,480; at MK 17–24 3,168, the warp's one wave
+    (132 SMs × 3 blocks × 8 problems); at MK 25–28 4,352; at MK 29–31
+    6,144, at MK 32 (the 32-lane group full) 10,240."""
     if MK <= THREAD_MAX_MK:
-        return EtaGeometry("thread", MK + MK % 2, THREAD_DOCS)
-    P = 32 if MK <= 32 else 64 if MK <= 64 else 128
-    return EtaGeometry("warp" if P == 32 else "block", P, 256 // P)
+        return 20480 if MK == 16 else 650 * _thread_P(MK)
+    if MK <= 24:
+        return 3168
+    if MK <= PAIR_MAX_MK:
+        return 4352
+    return 10240 if MK == 32 else 6144
+
+
+@functools.lru_cache(maxsize=None)
+def launch_geometry(R: int, D: int, MK: int) -> EtaGeometry:
+    """MK > 32: a BlockGroup of 64 or 128 lanes per problem, 256 threads a
+    block. MK ≤ 32: below `_few_problems(MK)` problems R·D (stage 2,
+    inference, single-model fits, ranks), a warp group of 16 or 32 lanes per
+    problem; else one thread per problem at MK ≤ 16 (P = MK rounded up to
+    even), a pair of threads at MK 17–28 (P the least of PAIR_P with
+    2P ≥ MK) and at MK 29–32 up to PAIR16_MAX_PROBLEMS, one thread (P = 32)
+    beyond; 64 documents a block (D = 560 fills 560 of 576 threads)."""
+    _check_mk(MK)
+    if not (R >= 1 and D >= 1):
+        raise ValueError(f"R={R} and D={D} must be positive")
+    P = _group_P(MK)
+    if MK > GROUP_MAX_MK:
+        return EtaGeometry("block", P, 256 // P)
+    if R * D < _few_problems(MK):
+        return EtaGeometry("warp", P, WARP_DOCS[P])
+    if MK <= THREAD_MAX_MK or (MK > PAIR_MAX_MK and R * D > PAIR16_MAX_PROBLEMS):
+        return EtaGeometry("thread", _thread_P(MK), THREAD_DOCS)
+    return EtaGeometry("pair", _pair_P(MK), THREAD_DOCS)
+
+
+def _candidate_geometries(MK: int) -> Tuple[EtaGeometry, ...]:
+    """Every layout the kernel can run an MK with, each at its smallest P,
+    for measurements and tests: at MK ≤ 32 the thread layout, the pair at
+    MK 17–32 (64 documents a block) and the warp layout in blocks of 64 and
+    of 256 threads; above, the block layout."""
+    _check_mk(MK)
+    P = _group_P(MK)
+    if MK > GROUP_MAX_MK:
+        return (EtaGeometry("block", P, 256 // P),)
+    pair = (EtaGeometry("pair", _pair_P(MK), THREAD_DOCS),) if MK > 16 else ()
+    return (EtaGeometry("thread", _thread_P(MK), THREAD_DOCS), *pair,
+            EtaGeometry("warp", P, 64 // P), EtaGeometry("warp", P, 256 // P))
+
+
+def _check_geometry(geo: EtaGeometry, MK: int):
+    """Raises ValueError unless the kernel takes `geo` at this MK (the
+    rules of csrc/estep_eta.cu estep_eta_launch)."""
+    layout, P, docs = geo
+    ok = {
+        "thread": P in THREAD_P and P >= MK and 1 <= docs <= THREAD_DOCS,
+        "pair": P in PAIR_P and 2 * P >= MK and docs in (16, 32, 48, 64),
+        "warp": P in (16, 32) and P >= MK and docs >= 1 and docs * P % 32 == 0
+        and docs * P <= 256,
+        "block": P in (64, 128) and P >= MK and docs == 256 // P,
+    }.get(layout, False)
+    if not ok:
+        raise ValueError(f"the η kernel has no launch {geo} at MK={MK}")
 
 
 def build() -> str:
@@ -136,7 +224,17 @@ def estep_eta_fused(lam0, nu, N, sumtheta, mu, invSigma, K, n_iter: int = 7,
     kernel forms after ζ and ν have read λ; without both it starts at λ and
     the kernel runs exactly as it did before it took `lam_prev`. CPU tensors
     take the plain version; CUDA tensors must be float32 and launch the
-    kernel."""
+    kernel in the layout of `launch_geometry`."""
+    return _launch_at(None, lam0, nu, N, sumtheta, mu, invSigma, K, n_iter, cg_iter,
+                      polish_iter, nu_n_iter, lam_prev, extrap)
+
+
+def _launch_at(geometry, lam0, nu, N, sumtheta, mu, invSigma, K, n_iter: int = 7,
+               cg_iter: int = None, polish_iter: int = None, nu_n_iter: int = None,
+               lam_prev=None, extrap=None):
+    """`estep_eta_fused` with the kernel launched as `geometry` (an
+    EtaGeometry; None: `launch_geometry`'s), for measurements and tests.
+    Raises ValueError for a geometry the kernel does not take at this MK."""
     if lam0.dim() != 3:
         raise ValueError(f"lam0 must be (R, D, MK), got shape {tuple(lam0.shape)}")
     R, D, MK = lam0.shape
@@ -144,6 +242,8 @@ def estep_eta_fused(lam0, nu, N, sumtheta, mu, invSigma, K, n_iter: int = 7,
     M = len(K)
     if MK > KERNEL_MAX_MK:
         raise ValueError(f"MK={MK} exceeds the η kernel's limit of {KERNEL_MAX_MK} topics")
+    if geometry is not None:
+        _check_geometry(EtaGeometry(*geometry), MK)
     if not extrap:
         lam_prev = None
     if lam0.device.type == "cpu":
@@ -163,15 +263,17 @@ def estep_eta_fused(lam0, nu, N, sumtheta, mu, invSigma, K, n_iter: int = 7,
             raise TypeError(f"the η kernel takes float32, got {name} as {t.dtype}")
         if t.device != lam0.device:
             raise ValueError(f"{name} is on {t.device}, lam0 on {lam0.device}")
+    zeta = torch.empty((R, D, M), dtype=torch.float32, device=lam0.device)
+    nu_out = torch.empty_like(lam0, memory_format=torch.contiguous_format)
+    lam_out = torch.empty_like(nu_out)
+    if R * D == 0:
+        return zeta, nu_out, lam_out
+    geo = launch_geometry(R, D, MK) if geometry is None else EtaGeometry(*geometry)
     cg_iter, polish_iter, nu_n_iter = _defaults(MK, cg_iter, polish_iter, nu_n_iter)
     _, launch = cuda_function("estep_eta", "estep_eta_launch", _ARGTYPES)
     args = [t.contiguous() for t in args]
     prev_ptr = args[6].data_ptr() if lam_prev is not None else None
-    zeta = torch.empty((R, D, M), dtype=torch.float32, device=lam0.device)
-    nu_out = torch.empty_like(args[0])
-    lam_out = torch.empty_like(args[0])
     K_host = (ctypes.c_int * M)(*K)
-    geo = launch_geometry(MK)
     with torch.cuda.device(lam0.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = launch(

@@ -239,18 +239,34 @@ def test_eta_kernel_keeps_a_dead_lane_dead_and_apart(cuda):
         assert torch.equal(g[[0, 2]], a[[0, 2]])
 
 
-@pytest.mark.parametrize("R, D, K, budgets", [
-    (100, 560, (7, 7), CAVI),  # MK 14: the thread layout, P = 14
-    (100, 560, (8, 8), CAVI),  # MK 16: the thread layout's last P
-    (100, 560, (9, 8), CAVI),  # MK 17: the first of the warp layout
-    (3, 50, (16, 16), {}),  # MK 32: the warp layout's last
-    (3, 50, (17, 16), {}),  # MK 33: the first of the block layout
-    (1, 560, (7, 7), CAVI),  # R = 1
-    (1, 9, (7, 7), {}),  # a single block with 55 padding documents
+@pytest.mark.parametrize("R, D, K, budgets, layout", [
+    (100, 560, (7, 7), CAVI, "thread"),  # MK 14: P = 14, the BRCA main path
+    (100, 560, (8, 8), CAVI, "thread"),  # MK 16: the thread layout's last MK
+    (100, 560, (9, 8), CAVI, "pair"),  # MK 17: the pair's first, P = 10
+    (100, 560, (14, 14), CAVI, "pair"),  # MK 28: the pair's last at P = 14
+    # MK 29–32 on many problems at the cold defaults: at the CAVI budgets a
+    # near-tie of the line search flips there (test_eta_kernel_at_a_line_search_tie)
+    (100, 560, (15, 14), {}, "thread"),  # MK 29: one thread at P = 32
+    (90, 560, (16, 16), {}, "pair"),  # MK 32, three waves of the pair at P = 16
+    (3, 50, (16, 16), {}, "warp"),  # MK 32: the warp layout's last
+    (3, 50, (17, 16), {}, "block"),  # MK 33: the block layout's first
+    (1, 560, (7, 7), CAVI, "warp"),  # R = 1: WarpGroup<16>
+    (1, 9, (7, 7), {}, "warp"),  # a single block with padding documents
+    (16, 560, (7, 7), CAVI, "warp"),  # either side of the crossover at MK 14
+    (18, 560, (7, 7), CAVI, "thread"),
+    (1, 9099, (7, 7), CAVI, "warp"), (1, 9100, (7, 7), CAVI, "thread"),
+    (1, 20479, (8, 8), CAVI, "warp"), (1, 20480, (8, 8), CAVI, "thread"),
+    (1, 2800, (7, 7, 5), CAVI, "warp"),  # PCAWG at R = 1: WarpGroup<32>
+    (1, 3167, (9, 8), CAVI, "warp"), (1, 3168, (9, 8), CAVI, "pair"),
+    (1, 4351, (13, 12), CAVI, "warp"), (1, 4352, (13, 12), CAVI, "pair"),
+    (1, 6143, (16, 15), {}, "warp"), (1, 6144, (16, 15), {}, "pair"),
+    (1, 10239, (16, 16), {}, "warp"), (1, 10240, (16, 16), {}, "pair"),
+    (1, 50689, (15, 14), {}, "thread"),  # past the pair's third wave at P = 16
 ])
-def test_eta_kernel_matches_plain_at_the_layout_boundaries(cuda, R, D, K, budgets):
+def test_eta_kernel_matches_plain_at_the_layout_boundaries(cuda, R, D, K, budgets, layout):
     """The tolerances of test_eta_kernel_matches_plain, at either side of
     each layout boundary of ops/estep_kernel.launch_geometry."""
+    assert ek.launch_geometry(R, D, sum(K)).layout == layout
     args = _eta_problem(R * D + 7 * sum(K), R, D, K, cuda)
     got = ek.estep_eta_fused(*args, K, **budgets)
     want = ek.estep_eta_fused_plain(*args, K, **budgets)
@@ -261,16 +277,78 @@ def test_eta_kernel_matches_plain_at_the_layout_boundaries(cuda, R, D, K, budget
     assert float((got[2] - want[2]).abs().max()) <= ATOL
 
 
-@pytest.mark.parametrize("K", [(7, 7), (10, 10), (20, 20)])  # thread, warp, block layout
+def test_eta_kernel_at_a_line_search_tie(cuda):
+    """At the CAVI budgets from a cold start (λ ~ 0.5·N(0, 1), Newton 3),
+    one problem of these 6,144 at MK 31 sits at a near-tie of the line
+    search: the step a layout takes there depends on the order of its sums.
+    The plain version in float32 and in float64 and one thread per problem
+    take one step, the pair (P = 16) and the warp group the other, about
+    2e-3 apart in λ.
+    Every other problem agrees within ATOL on every layout, and with the
+    cold defaults (Newton 7) that problem does too."""
+    R, D, K = 1, 6144, (16, 15)
+    args = _eta_problem(R * D + 7 * sum(K), R, D, K, cuda)
+    want = ek.estep_eta_fused_plain(*args, K, **CAVI)[2]
+    want64 = ek.estep_eta_fused_plain(*(a.double() for a in args), K, **CAVI)[2]
+    assert float((want64 - want.double()).abs().max()) <= ATOL
+    apart = {}
+    for geo in ek._candidate_geometries(sum(K)):
+        gap = (ek._launch_at(geo, *args, K, **CAVI)[2] - want).abs().amax(-1)[0]
+        apart[geo.layout + str(geo.docs_per_block)] = torch.nonzero(gap > ATOL).flatten().tolist()
+        assert float(gap.max()) < 1e-2, geo
+        cold = ek._launch_at(geo, *args, K)[2] - ek.estep_eta_fused_plain(*args, K)[2]
+        assert float(cold.abs().max()) <= ATOL, geo
+    tie = apart["pair64"]
+    assert len(tie) == 1 and apart["thread64"] == [] and apart["warp2"] == apart["warp8"] == tie
+
+
+# thread and warp; pair P = 10 (modality 1 straddling the pair) with thread
+# P = 20 and warp; pair P = 16 with thread P = 32 and warp; block
+@pytest.mark.parametrize("K", [(7, 7), (10, 10), (9, 9), (16, 16), (20, 20)])
 def test_eta_kernel_keeps_a_dead_lane_dead_on_every_layout(cuda, K):
+    """On every layout of _candidate_geometries: an all-NaN Σ⁻¹ makes its
+    lane's ν and λ NaN and leaves the other lanes' bits as they are
+    without it."""
     args = _eta_problem(13, 3, 70, K, cuda)
-    alive = ek.estep_eta_fused(*args, K, **CAVI)
     invS = args[5].clone()
     invS[1] = torch.nan
-    got = ek.estep_eta_fused(*args[:5], invS, K, **CAVI)
-    assert torch.isnan(got[1][1]).all() and torch.isnan(got[2][1]).all()
-    for g, a in zip(got, alive):
-        assert torch.equal(g[[0, 2]], a[[0, 2]])
+    for geo in ek._candidate_geometries(sum(K)):
+        alive = ek._launch_at(geo, *args, K, **CAVI)
+        got = ek._launch_at(geo, *args[:5], invS, K, **CAVI)
+        assert torch.isnan(got[1][1]).all() and torch.isnan(got[2][1]).all(), geo
+        for g, a in zip(got, alive):
+            assert torch.equal(g[[0, 2]], a[[0, 2]]), geo
+
+
+@pytest.mark.parametrize("R, D, K, budgets, zero_count", [
+    (100, 448, (9, 9), CAVI, False),  # K selection's MK 18: modality 1 straddles a pair
+    (100, 560, (10, 9), CAVI, False),  # MK 19
+    (3, 101, (7, 7, 5), {}, False),  # PCAWG's K, three modalities over a pair
+    (3, 37, (11, 10), {}, False),  # MK 21: pair P = 12, thread P = 24
+    (2, 70, (13, 12), {}, False),  # MK 25: pair P = 14, thread P = 28
+    (3, 50, (16, 16), {}, False),  # MK 32: pair P = 16, thread P = 32
+    (2, 9, (9, 9), {}, True),  # a zero-count modality, padding documents
+    (1, 560, (7, 7), CAVI, False),  # R = 1: thread P = 14, warp 16
+    (1, 9, (7, 7), {}, False),  # one block, padding documents on every layout
+    (3, 37, (3, 4, 5), {}, False),  # M = 3 in a warp group of 16
+])
+def test_eta_kernel_matches_plain_on_every_layout(cuda, R, D, K, budgets, zero_count):
+    """Each launch of _candidate_geometries: the tolerances of
+    test_eta_kernel_matches_plain, and a second launch on the same inputs
+    bit-identical."""
+    args = _eta_problem(R * D + 11 * sum(K), R, D, K, cuda, zero_count)
+    want = ek.estep_eta_fused_plain(*args, K, **budgets)
+    for geo in ek._candidate_geometries(sum(K)):
+        before = ek.LAUNCHES
+        got = ek._launch_at(geo, *args, K, **budgets)
+        again = ek._launch_at(geo, *args, K, **budgets)
+        torch.cuda.synchronize()
+        assert ek.LAUNCHES == before + 2
+        assert all(torch.equal(g, a) for g, a in zip(got, again)), geo
+        assert all(torch.isfinite(g).all() for g in got), geo
+        for g, w in zip(got[:2], want[:2]):
+            torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-6, msg=lambda m: f"{geo}: {m}")
+        assert float((got[2] - want[2]).abs().max()) <= ATOL, geo
 
 
 def test_eta_wrapper_rejects_wrong_dtype_shape_or_device(cuda):
@@ -846,9 +924,9 @@ def _extrap_problem(seed, R, D, K, swing, device):
 
 @pytest.mark.parametrize("R, D, K, budgets", [
     (100, 560, (7, 7), CAVI),  # MK 14: the thread layout
-    (100, 560, (10, 9), CAVI),  # MK 19: the warp layout
+    (100, 560, (10, 9), CAVI),  # MK 19: the pair layout
     (3, 70, (20, 20), {}),  # MK 40: the block layout
-    (1, 560, (7, 7), CAVI),  # R = 1
+    (1, 560, (7, 7), CAVI),  # R = 1: the warp layout
 ])
 @pytest.mark.parametrize("swing", [0.3, 8.0])
 def test_eta_kernel_with_lam_prev_matches_plain(cuda, R, D, K, budgets, swing):
@@ -883,6 +961,35 @@ def test_eta_kernel_without_lam_prev_is_the_call_without_it(cuda, K):
         assert all(torch.equal(g, b) for g, b in zip(got, base))
 
 
+@pytest.mark.parametrize("R, D, K, budgets", [
+    (100, 448, (9, 9), CAVI),
+    (3, 70, (7, 7, 5), {}),
+    (3, 37, (11, 10), {}),
+    (3, 50, (16, 16), {}),
+    (1, 112, (7, 7), CAVI),
+])
+def test_eta_kernel_with_lam_prev_on_every_layout(cuda, R, D, K, budgets):
+    """The secant start on each launch of _candidate_geometries, with the ±4
+    clip binding on most entries: the tolerances of
+    test_eta_kernel_matches_plain, repeats bit-identical, and with
+    lam_prev=None the bits of the call without it."""
+    args, lam_prev = _extrap_problem(R * D + 3 * sum(K), R, D, K, 8.0, cuda)
+    kw = dict(budgets, lam_prev=lam_prev, extrap=1.0)
+    want = ek.estep_eta_fused_plain(*args, K, **kw)
+    for geo in ek._candidate_geometries(sum(K)):
+        got = ek._launch_at(geo, *args, K, **kw)
+        again = ek._launch_at(geo, *args, K, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, a) for g, a in zip(got, again)), geo
+        for g, w in zip(got[:2], want[:2]):
+            torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-6, msg=lambda m: f"{geo}: {m}")
+        assert float((got[2] - want[2]).abs().max()) <= ATOL, geo
+        base = ek._launch_at(geo, *args, K, **budgets)
+        none = ek._launch_at(geo, *args, K, **budgets, lam_prev=None, extrap=1.0)
+        assert all(torch.equal(g, b) for g, b in zip(none, base)), geo
+        assert not torch.equal(got[2], base[2]), geo
+
+
 def _digest_problem(seed, R, D, K):
     """The inputs of the digests below, from a torch generator on the CPU."""
     g = torch.Generator().manual_seed(seed)
@@ -898,21 +1005,37 @@ def _digest_problem(seed, R, D, K):
 
 
 # sha256 (first 16 hex digits) of the η kernel's outputs (ζ, ν, λ bytes)
-# before it took lam_prev (NVIDIA H100 80GB HBM3, nvcc 12.9), on
-# `_digest_problem(seed, R, D, K)`: (seed, R, D, K, budgets) -> digest.
+# without lam_prev (NVIDIA H100 80GB HBM3, nvcc 12.9), on
+# `_digest_problem(seed, R, D, K)`, in the layout `launch_geometry` picks:
+# (seed, R, D, K, budgets) -> digest. Keys whose layout is the one the
+# kernel had before it took lam_prev keep that kernel's bits (the thread
+# layout at 100, 101 and 103, the warp at 105, the block at 106–108); 102,
+# 109 and 110 now take the warp layout and 104 the pair, pinned from it.
 ETA_DIGESTS = {
     (100, 100, 560, (7, 7), "cavi"): "d43dd87f2ca3ac30",
     (101, 100, 560, (7, 7), "cold"): "d9e29a5aca0fc757",
-    (102, 1, 560, (7, 7), "cavi"): "4e4316f15342c2e0",
+    (102, 1, 560, (7, 7), "cavi"): "e8a395857eecf7d3",
     (103, 100, 560, (8, 8), "cavi"): "940a7f103ba64b04",
-    (104, 100, 560, (9, 8), "cavi"): "a18470b3f3259ff9",
+    (104, 100, 560, (9, 8), "cavi"): "bd3d687132ecab93",
     (105, 3, 50, (16, 16), "cold"): "44715636e2d5c74c",
     (106, 3, 50, (17, 16), "cold"): "4c262521f3098e07",
     (107, 100, 560, (20, 20), "cavi"): "7a1ffe90ce3fb897",
     (108, 3, 29, (40, 50, 38), "cold"): "336de164f56b75e9",
-    (109, 1, 9, (7, 7), "cold"): "eeae18d7d82cd7bf",
-    (110, 3, 37, (3, 4, 5), "cold"): "d762e4cdb7c2ead8",
+    (109, 1, 9, (7, 7), "cold"): "b93f82baa54b3c09",
+    (110, 3, 37, (3, 4, 5), "cold"): "83e7bcfe41f750f4",
 }
+# The four re-pinned keys launched in the layout they had before: the
+# digests of the kernel before it took lam_prev.
+OLD_LAYOUT_DIGESTS = {
+    (102, 1, 560, (7, 7), "cavi", ("thread", 14, 64)): "4e4316f15342c2e0",
+    (104, 100, 560, (9, 8), "cavi", ("warp", 32, 8)): "a18470b3f3259ff9",
+    (109, 1, 9, (7, 7), "cold", ("thread", 14, 64)): "eeae18d7d82cd7bf",
+    (110, 3, 37, (3, 4, 5), "cold", ("thread", 12, 64)): "d762e4cdb7c2ead8",
+}
+
+
+def _digest(out):
+    return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in out)).hexdigest()[:16]
 
 
 @pytest.mark.parametrize("key", sorted(ETA_DIGESTS))
@@ -920,8 +1043,16 @@ def test_eta_kernel_without_lam_prev_keeps_the_bits_it_had_before(cuda, key):
     seed, R, D, K, budgets = key
     out = ek.estep_eta_fused(*_digest_problem(seed, R, D, K), K,
                              **(CAVI if budgets == "cavi" else {}))
-    digest = hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in out)).hexdigest()[:16]
-    assert digest == ETA_DIGESTS[key]
+    assert _digest(out) == ETA_DIGESTS[key]
+
+
+@pytest.mark.parametrize("key", sorted(OLD_LAYOUT_DIGESTS))
+def test_eta_kernel_keeps_the_old_bits_on_the_old_layouts(cuda, key):
+    seed, R, D, K, budgets, geo = key
+    assert tuple(ek.launch_geometry(R, D, sum(K))) != geo
+    out = ek._launch_at(geo, *_digest_problem(seed, R, D, K), K,
+                        **(CAVI if budgets == "cavi" else {}))
+    assert _digest(out) == OLD_LAYOUT_DIGESTS[key]
 
 
 def test_solve_eta_forms_the_secant_start_in_the_eta_kernel(cuda):

@@ -44,7 +44,11 @@ def _inputs(rng, R, B, K, dtype=np.float32):
     return [a.astype(dtype) for a in (lam, nu, N, st, mu, invS)]
 
 
-@pytest.mark.parametrize("R, B, K", [(1, 17, (3, 4)), (3, 17, (3, 4)), (2, 9, (2, 3, 2))])
+@pytest.mark.parametrize("R, B, K", [
+    (1, 17, (3, 4)), (3, 17, (3, 4)), (2, 9, (2, 3, 2)),
+    (1, 7, (9, 9)), (3, 7, (9, 9)),  # K selection's MK 18
+    (1, 6, (7, 7, 5)), (3, 6, (7, 7, 5)),  # PCAWG's K
+])
 def test_plain_matches_the_jax_kernel_per_lane(rng, R, B, K):
     from pallas_experiments.estep_kernel import estep_eta_fused as jax_fused
 
@@ -183,44 +187,118 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(rng):
         ek.estep_eta_fused(*big, (129,))
 
 
-@pytest.mark.parametrize("MK, layout, P, docs", [
-    (14, "thread", 14, 64),  # the BRCA main path, K = (7, 7)
-    (13, "thread", 14, 64),
-    (1, "thread", 2, 64),
-    (16, "thread", 16, 64),
-    (17, "warp", 32, 8),
-    (19, "warp", 32, 8),  # PCAWG
-    (32, "warp", 32, 8),
-    (33, "block", 64, 4),
-    (64, "block", 64, 4),
-    (65, "block", 128, 2),
-    (128, "block", 128, 2),
+@pytest.mark.parametrize("R, D, MK, layout, P, docs", [
+    # restart batches: one thread to MK 16, the pair to 28, then one thread
+    (100, 560, 14, "thread", 14, 64),  # the BRCA main path, K = (7, 7)
+    (1000, 560, 14, "thread", 14, 64),
+    (100, 560, 13, "thread", 14, 64),
+    (100, 448, 10, "thread", 10, 64),  # K selection's (5, 5)
+    (100, 560, 1, "thread", 2, 64),
+    (100, 560, 16, "thread", 16, 64),
+    (100, 560, 17, "pair", 10, 64),
+    (100, 448, 18, "pair", 10, 64),  # K selection's (9, 9)
+    (100, 560, 19, "pair", 10, 64),
+    (100, 2800, 19, "pair", 10, 64),  # PCAWG's (7, 7, 5)
+    (1000, 2800, 19, "pair", 10, 64),
+    (100, 560, 20, "pair", 10, 64),
+    (100, 560, 21, "pair", 12, 64),
+    (100, 560, 25, "pair", 14, 64),
+    (100, 560, 28, "pair", 14, 64),
+    (100, 560, 29, "thread", 32, 64),
+    (100, 560, 32, "thread", 32, 64),
+    (1, 50688, 29, "pair", 16, 64),  # the pair at P = 16 to its third wave
+    (1, 50689, 29, "thread", 32, 64),
+    (90, 560, 32, "pair", 16, 64),
+    (100, 560, 33, "block", 64, 4),
+    (100, 560, 64, "block", 64, 4),
+    (100, 560, 65, "block", 128, 2),
+    (1, 9, 128, "block", 128, 2),
+    # calls of few problems: R = 1 (stage 2, MMCTM.fit, inference, ranks)
+    (1, 560, 14, "warp", 16, 4),
+    (1, 448, 14, "warp", 16, 4),
+    (1, 112, 14, "warp", 16, 4),
+    (1, 280, 14, "warp", 16, 4),
+    (1, 2800, 14, "warp", 16, 4),
+    (1, 9, 14, "warp", 16, 4),
+    (1, 112, 10, "warp", 16, 4),
+    (1, 112, 18, "warp", 32, 8),
+    (1, 2800, 19, "warp", 32, 8),
+    # either side of each few-problem crossover
+    (1, 2599, 4, "warp", 16, 4), (1, 2600, 4, "thread", 4, 64),
+    (1, 6499, 10, "warp", 16, 4), (1, 6500, 10, "thread", 10, 64),
+    (1, 9099, 14, "warp", 16, 4), (1, 9100, 14, "thread", 14, 64),
+    (16, 560, 14, "warp", 16, 4), (18, 560, 14, "thread", 14, 64),
+    (1, 10399, 15, "warp", 16, 4), (1, 10400, 15, "thread", 16, 64),
+    (1, 20479, 16, "warp", 16, 4), (1, 20480, 16, "thread", 16, 64),
+    (1, 3167, 17, "warp", 32, 8), (1, 3168, 17, "pair", 10, 64),
+    (1, 3167, 24, "warp", 32, 8), (1, 3168, 24, "pair", 12, 64),
+    (1, 4351, 25, "warp", 32, 8), (1, 4352, 25, "pair", 14, 64),
+    (1, 6143, 31, "warp", 32, 8), (1, 6144, 31, "pair", 16, 64),
+    (1, 10239, 32, "warp", 32, 8), (1, 10240, 32, "pair", 16, 64),
 ])
-def test_launch_geometry_picks_the_layout_by_MK(MK, layout, P, docs):
-    geo = ek.launch_geometry(MK)
+def test_launch_geometry_picks_the_layout_by_MK(R, D, MK, layout, P, docs):
+    geo = ek.launch_geometry(R, D, MK)
     assert (geo.layout, geo.P, geo.docs_per_block) == (layout, P, docs)
-    assert geo.P >= MK
-    if layout != "thread":  # blocks of 256 threads, P a problem
+    ek._check_geometry(geo, MK)  # a launch the kernel takes
+    assert geo in ek._candidate_geometries(MK)
+    assert (2 if layout == "pair" else 1) * geo.P >= MK
+    if layout == "block":  # blocks of 256 threads, P a problem
         assert geo.docs_per_block * geo.P == 256
+    if layout == "warp":  # whole warps of 16- or 32-lane groups
+        assert geo.docs_per_block * geo.P % 32 == 0
 
 
-@pytest.mark.parametrize("D, blocks", [
-    (560, 9),  # 560 of 576 threads live
-    (561, 9),
-    (37, 1),
-    (65, 2),
-    (64, 1),
-    (1, 1),
+@pytest.mark.parametrize("R, D, MK, blocks", [
+    (100, 560, 14, 9),  # 560 of 576 threads live
+    (100, 561, 14, 9),
+    (1000, 37, 14, 1),
+    (1000, 65, 14, 2),
+    (1000, 64, 14, 1),
+    (10000, 1, 14, 1),
+    (100, 448, 19, 7),  # the pair: 64 documents, 128 threads
+    (100, 2800, 19, 44),  # PCAWG
+    (1, 9, 14, 3),  # R = 1: the warp group, 4 documents a block
+    (1, 112, 14, 28),
+    (1, 280, 14, 70),
+    (1, 560, 14, 140),
+    (1, 2800, 14, 700),
+    (1, 2800, 19, 350),  # 8 documents of 32 lanes
+    (3, 50, 40, 13),  # the block group, 4 documents
 ])
-def test_thread_layout_blocks_cover_every_document_once(D, blocks):
-    """The kernel's grid is ⌈D / docs_per_block⌉ blocks per restart: the
-    BRCA D = 560 leaves 16 padding threads, and no block is empty."""
-    docs = ek.launch_geometry(14).docs_per_block
+def test_thread_layout_blocks_cover_every_document_once(R, D, MK, blocks):
+    """The kernel's grid is ⌈D / docs_per_block⌉ blocks per restart, so
+    every document lies in exactly one block and no block is empty."""
+    docs = ek.launch_geometry(R, D, MK).docs_per_block
     assert -(-D // docs) == blocks
     assert (blocks - 1) * docs < D <= blocks * docs
+
+
+def test_every_candidate_is_a_launch_the_kernel_takes():
+    """_candidate_geometries lists, for each MK, launches that
+    _check_geometry (the kernel's own rules) accepts, the picked layout
+    among them at every count; one thread and the pair stop where the
+    kernel's instantiations do."""
+    for MK in range(1, ek.KERNEL_MAX_MK + 1):
+        cands = ek._candidate_geometries(MK)
+        for geo in cands:
+            ek._check_geometry(geo, MK)
+        for n in (1, 560, 3168, 9100, 20480, 50689, 560_000):
+            assert ek.launch_geometry(1, n, MK) in cands
+    with pytest.raises(ValueError, match="no launch"):
+        ek._check_geometry(ek.EtaGeometry("thread", 20, 64), 19)
+    with pytest.raises(ValueError, match="no launch"):
+        ek._check_geometry(ek.EtaGeometry("pair", 10, 20), 19)
+    with pytest.raises(ValueError, match="no launch"):
+        ek._check_geometry(ek.EtaGeometry("warp", 16, 4), 17)
+
+
+@pytest.mark.parametrize("R, D", [(0, 5), (2, 0)])
+def test_launch_geometry_rejects_an_empty_call(R, D):
+    with pytest.raises(ValueError, match="must be positive"):
+        ek.launch_geometry(R, D, 14)
 
 
 @pytest.mark.parametrize("MK", [0, 129])
 def test_launch_geometry_rejects_MK_outside_the_kernel(MK):
     with pytest.raises(ValueError, match="outside the η kernel"):
-        ek.launch_geometry(MK)
+        ek.launch_geometry(1, 560, MK)
