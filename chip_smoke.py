@@ -31,7 +31,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
      thread at P = 32), MK 32 on the pair at P = 16 (R = 90) and on one
      thread (R = 100), 32/33 ragged (warp/block), the few-problem
      crossovers at MK 14 ((16, 560)/(18, 560)) and MK 17 (R = 1, D = 3167
-     and 3168); PCAWG's K=(7, 7, 5) at (100, 2800), (1000, 2800) and R = 1
+     and 3168); above MK 32 K=(32, 32) at (100, 560), K=(20, 12, 8) at
+     (100, 2800) (cold defaults), either side of every P of split4 and
+     split8 (MK 33, 40/41, 48/49, 56/57, 64/65, 80/81, 96/97, 112/113, 128 at
+     (30, 557)) and of the few-problem crossover at MK 40 and 128 (R = 1,
+     BLOCK_CROSS); PCAWG's K=(7, 7, 5) at (100, 2800), (1000, 2800) and R = 1
      (MK 29–32 and PCAWG's R ≥ 100 at the cold defaults: ETA_CASES says
      why);
      R = 1 at D = 560, 448, 112, 280 and 2800; one modality (M = 1,
@@ -169,6 +173,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
      f32, tol 1e-5, maxiter 1000, warm and then timed; prints its wall,
      CAVI iterations, B3 launches and layouts. Gates: at least 99% finite
      lanes; one η and three θ launches per CAVI iteration.
+ 19. K=(20, 20), after phase 18: `fit_mmctm_restarts([20, 20], [0.1, 0.1],
+     docs, restarts=100)` on the BRCA-EU counts, f32 (MK 40: stage 1 a
+     restart batch on split4, stage 2 R = 1 on the block layout), warm and
+     then timed in turns: `launch_geometry` as it is, patched to the block
+     layout above MK 32 (`block_layout`), the block layout, as it is;
+     prints each arm's wall, CAVI steps, ms per step and the η layouts of
+     each stage. Gates: at least 99 of 100 stage-1 lanes finite, the
+     selected lane converged, one η and two θ launches per CAVI iteration,
+     the selected ll per modality no more than 5e-3 below the JAX
+     package's two-stage fit of the same call (JAX_CPU_TWO_STAGE_LL_K20).
 The last two lines of standard output are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
 """
@@ -211,6 +225,11 @@ JAX_CPU_BEST_IMMCTM_LL = (-3.955171585083008, -3.0439767837524414)
 #   fit_mmctm_restarts([7, 7], [0.1, 0.1], docs, restarts=16,
 #                      dtype=jnp.float32)   # multimodalmusig_tpu.parallel.restarts
 JAX_CPU_TWO_STAGE_LL = (-3.9388527870178223, -3.034494638442993)
+# The same at K = (20, 20) (phase 19; MK 40, B3's split4 range):
+#   fit_mmctm_restarts([20, 20], [0.1, 0.1], docs, restarts=16,
+#                      dtype=jnp.float32)   # multimodalmusig_tpu.parallel.restarts
+K20 = (20, 20)
+JAX_CPU_TWO_STAGE_LL_K20 = (-3.930232048034668, -3.015367031097412)
 # The selected ll of the JAX package's best-of-16 LDA and ILDA fits of the
 # BRCA-EU SNV counts on the CPU, float32 (16/16 lanes finite in each; the
 # ILDA features as `brca_features` gives them for SNV, J = (6, 16)):
@@ -506,6 +525,10 @@ def eta_problem(gen, R, D, K, zero_count=False):
     return [t.to("cuda") for t in (lam, nu, N, st, mu, invS)]
 
 
+# launch_geometry's few-problem crossover (ops/estep_kernel.py
+# _few_problems) at MK 40 and 128: the block layout below, split4 or split8
+# from there
+BLOCK_CROSS = {40: 1000, 128: 1500}
 # (label, (R, D, K), CAVI budgets or the cold defaults, a zero-count
 # modality) of the η phase: the main path, every layout and either side of
 # each boundary of `launch_geometry`, the inference, rank, K selection and
@@ -533,7 +556,34 @@ ETA_CASES = (
     ("MK=32, one thread at P=32", (RESTARTS, 560, (16, 16)), False, False),
     ("MK=32, the pair at P=16", (90, 560, (16, 16)), False, False),
     ("MK=32, the warp layout's last", (3, 50, (16, 16)), False, False),
-    ("MK=33, the block layout's first", (3, 50, (17, 16)), False, False),
+    ("MK=33 at few problems, the block layout", (3, 50, (17, 16)), False, False),
+    # MK 33–128: split4 (P = 10, 12, 14, 16) and split8 (the same P) either
+    # side of each boundary, at a ragged D; the few-problem crossovers
+    ("MK=33, split4's first (P=10)", (30, 557, (17, 16)), True, False),
+    ("MK=40, split4 P=10's last", (30, 557, (20, 20)), True, False),
+    ("MK=41, split4 P=12's first", (30, 557, (21, 20)), True, False),
+    ("MK=48, split4 P=12's last", (30, 557, (24, 24)), True, False),
+    ("MK=49, split4 P=14's first", (30, 557, (25, 24)), True, False),
+    ("MK=56, split4 P=14's last", (30, 557, (28, 28)), True, False),
+    ("MK=57, split4 P=16's first", (30, 557, (29, 28)), True, False),
+    ("MK=64, split4's last", (30, 557, (32, 32)), True, False),
+    ("MK=65, split8's first (P=10)", (30, 557, (33, 32)), True, False),
+    ("MK=80, split8 P=10's last", (30, 557, (40, 40)), True, False),
+    ("MK=81, split8 P=12's first", (30, 557, (41, 40)), True, False),
+    ("MK=96, split8 P=12's last", (30, 557, (48, 48)), True, False),
+    ("MK=97, split8 P=14's first", (30, 557, (49, 48)), True, False),
+    ("MK=112, split8 P=14's last", (30, 557, (56, 56)), True, False),
+    ("MK=113, split8 P=16's first", (30, 557, (57, 56)), True, False),
+    ("MK=128, split8 P=16", (30, 557, (64, 64)), True, False),
+    ("K=(32, 32)", (RESTARTS, 560, (32, 32)), True, False),
+    # at the CAVI budgets one problem of these 280,000 sits at a near-tie of
+    # the line search (the block layout as split4), so the cold defaults
+    ("three modalities K=(20, 12, 8) at D=2800", (RESTARTS, 2800, (20, 12, 8)), False, False),
+    ("few-problem crossover at MK=40, below", (1, BLOCK_CROSS[40] - 1, (20, 20)), True, False),
+    ("few-problem crossover at MK=40, above", (1, BLOCK_CROSS[40], (20, 20)), True, False),
+    ("few-problem crossover at MK=128, below", (1, BLOCK_CROSS[128] - 1, (64, 64)), True, False),
+    ("few-problem crossover at MK=128, above", (1, BLOCK_CROSS[128], (64, 64)), True, False),
+    ("stage 2 of the K=(20, 20) fit, R=1", (1, 560, (20, 20)), True, False),
     ("PCAWG, K=(7, 7, 5)", (RESTARTS, 2800, (7, 7, 5)), False, False),
     ("PCAWG at R=1000", (1000, 2800, (7, 7, 5)), False, False),
     ("R=1 (stage 2, MMCTM.fit)", (1, 560, (7, 7)), True, False),
@@ -554,9 +604,10 @@ ETA_CASES = (
     ("K selection's MK=18, R=1 at the 112 held-out documents", (1, 112, (9, 9)), True, False),
 )
 # the η phase's timed shapes besides those at R = RESTARTS: the main path's
-# at R = 1000, and R = 1 at stage 2's, inference's, a rank's and PCAWG's D
+# at R = 1000, and R = 1 at stage 2's, inference's, a rank's and PCAWG's D,
+# and phase 19's stage 2
 ETA_TIMED = {(1000, 560, (7, 7)), (1, 560, (7, 7)), (1, 448, (7, 7)), (1, 112, (7, 7)),
-             (1, 280, (7, 7)), (1, 2800, (7, 7, 5))}
+             (1, 280, (7, 7)), (1, 2800, (7, 7, 5)), (1, 560, (20, 20))}
 
 
 # (label, (R, D, K), CAVI budgets or the cold defaults) of the checks with
@@ -569,7 +620,9 @@ ETA_EXTRAP_CASES = (
     ("MK=29, one thread at P=32, cold defaults", (RESTARTS, 560, (15, 14)), False),
     ("MK=32, the pair at P=16, cold defaults", (90, 560, (16, 16)), False),
     ("MK=32, the warp layout's last, cold defaults", (3, 50, (16, 16)), False),
-    ("MK=33, the block layout's first, cold defaults", (3, 50, (17, 16)), False),
+    ("MK=33 at few problems, the block layout, cold defaults", (3, 50, (17, 16)), False),
+    ("MK=40, split4", (30, 557, (20, 20)), True),
+    ("MK=128, split8", (30, 557, (64, 64)), True),
     ("R=1", (1, 560, (7, 7)), True),
     ("PCAWG at R=1", (1, 2800, (7, 7, 5)), True),
     ("few-problem crossover at MK=14, below", (16, 560, (7, 7)), True),
@@ -1963,6 +2016,92 @@ def pcawg_phase(mt, kernels):
     return launches
 
 
+def block_layout(pick):
+    """`launch_geometry` with every MK above 32 sent to the block layout (a
+    BlockGroup of 64 or 128 lanes per problem), as it was before split4 and
+    split8."""
+    from multimodalmusig_tpu_torch.ops import estep_kernel as ek
+
+    def geometry(R, D, MK):
+        if MK <= ek.GROUP_MAX_MK:
+            return pick(R, D, MK)
+        P = ek._group_P(MK)
+        return ek.EtaGeometry("block", P, 256 // P)
+
+    return geometry
+
+
+def k20_two_stage_phase(mt, kernels, docs):
+    """Phase 19: `fit_mmctm_restarts([20, 20], [0.1, 0.1], docs,
+    restarts=100)` (MK 40: stage 1 a restart batch, stage 2 R = 1), warm on
+    both arms, then timed in turns: `launch_geometry` as it is, patched to
+    the block layout, the block layout, as it is. Prints each arm's wall,
+    CAVI steps, ms per step and the η layouts of each stage. Gates: at least
+    99 of 100 stage-1 lanes finite, the selected lane converged, one η (and
+    two θ) launches per CAVI iteration, the selected ll per modality no more
+    than LL_SLACK below JAX_CPU_TWO_STAGE_LL_K20."""
+    import numpy as np
+    import torch
+
+    ek, lk, tk = kernels
+    pick = ek.launch_geometry
+    arms = {"rule": pick, "block": block_layout(pick)}
+
+    def fit(arm):
+        """The fit with `arm`'s layouts, and its η launches by layout."""
+        ek.launch_geometry = arms[arm]
+        try:
+            with eta_layouts(ek) as seen:
+                model = mt.fit_mmctm_restarts(list(K20), [0.1, 0.1], docs, restarts=RESTARTS,
+                                              maxiter=MAXITER)
+            return model, seen
+        finally:
+            ek.launch_geometry = pick
+
+    for arm in arms:
+        t0 = time.perf_counter()
+        fit(arm)
+        print(f"K=(20, 20) two-stage warm-up run, {arm} layouts: {time.perf_counter() - t0:.3f} s")
+    total = {"estep_eta": 0, "lambda_newton": 0, "theta_moments": 0}
+    walls = {arm: [] for arm in arms}
+    for arm in ("rule", "block", "block", "rule"):
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        model, seen = fit(arm)
+        wall = time.perf_counter() - t0
+        launches = launches_now(kernels)
+        walls[arm].append(wall)
+        stage1 = model.restart_result
+        n1, n2 = loop_iterations(stage1.n_iters.max()), loop_iterations(len(model.ll_history))
+        finite = int(np.isfinite(stage1.ll.cpu().double().numpy()).all(axis=1).sum())
+        stage1_seen = collections.Counter({k: v for k, v in seen.items() if k[0][0] > 1})
+        stage2_seen = collections.Counter({k: v for k, v in seen.items() if k[0][0] == 1})
+        print(f"K=(20, 20) two-stage, {arm} layouts: fit_mmctm_restarts R={RESTARTS} BRCA-EU f32 "
+              f"(stage 1 tol 1e-4, stage 2 tol 1e-5): wall {wall:.4f} s, CAVI iterations stage 1 "
+              f"{n1}, stage 2 {n2}, {1000 * wall / (n1 + n2):.4f} ms per CAVI iteration; stage 1 "
+              f"finite lanes {finite}/{RESTARTS}, converged {int(stage1.converged.sum())}/"
+              f"{RESTARTS}; selected ll {model.ll}, converged {model.converged} (JAX CPU "
+              f"two-stage best-of-16 {list(JAX_CPU_TWO_STAGE_LL_K20)}); kernel launches {launches}")
+        print(f"K=(20, 20) two-stage, {arm} layouts: stage 1 η layouts {layouts_line(stage1_seen)}; "
+              f"stage 2 η layouts {layouts_line(stage2_seen)}")
+        if finite < RESTARTS - 1:
+            fail(f"K=(20, 20) two-stage ({arm}): only {finite} of {RESTARTS} stage-1 lanes finite")
+        if not (np.isfinite(model.ll).all() and model.converged):
+            fail(f"K=(20, 20) two-stage ({arm}): the selected model is not finite and converged: "
+                 f"{model.ll}")
+        if launches != {"estep_eta": n1 + n2, "lambda_newton": 0, "theta_moments": 2 * (n1 + n2)}:
+            fail(f"K=(20, 20) two-stage ({arm}) did not launch the η kernel once and the θ kernel "
+                 f"twice per CAVI iteration: {launches}, {n1 + n2} iterations")
+        for m, (b, ref) in enumerate(zip(model.ll, JAX_CPU_TWO_STAGE_LL_K20)):
+            if not b >= ref - LL_SLACK:
+                fail(f"K=(20, 20) two-stage ({arm}): modality {m}: selected ll {b} worse than the "
+                     f"JAX value {ref} by more than {LL_SLACK}")
+        total = {k: total[k] + launches[k] for k in total}
+    print(f"K=(20, 20) two-stage walls in turns: rule {walls['rule']} s, block {walls['block']} s")
+    return total
+
+
 def lda_short_fit(mt, X_snv, features=None):
     """A short LDA fit (ILDA with `features`) of the SNV counts, 2 lanes x
     10 iterations from SEED, for `reference_phase`."""
@@ -2215,6 +2354,7 @@ def main():
                                              docs)[0],
         "K selection": k_selection_phase(mt, kernels, docs),
         "PCAWG scale": pcawg_phase(mt, kernels),
+        "K=(20, 20) two-stage": k20_two_stage_phase(mt, kernels, docs),
         "LDA and ILDA": lda_phase(mt, kernels, docs_snv, features[0]),
         "inference, LDA and ILDA": lda_inference_phase(mt, kernels, docs_snv, features[0]),
     }

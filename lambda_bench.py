@@ -2,10 +2,12 @@
 card, layout by layout.
 
     python3 lambda_bench.py [--eta] [--tree DIR] [--layouts]
-        [--shapes R,D,MK,cavi|cold ... | --eta --shapes R,D,K1+K2+...,cavi|cold ...]
+        [--shapes R,D,MK,cavi|cold ... | --eta --shapes R,D,K1+K2+...,cavi|cold ...
+         | --eta --crossovers]
         [--reps 20] [--out FILE]
 
-For each shape of SHAPES (with --eta ETA_SHAPES) or --shapes (R, D, MK or
+For each shape of SHAPES (with --eta ETA_SHAPES, with --crossovers
+CROSSOVER_SHAPES) or --shapes (R, D, MK or
 the topic counts K, and the solver budgets), on chip_smoke.py's seeded
 problems (λ: its SPD problems, at the CAVI budgets from its warm start near
 the optimum; η: `eta_problem`), it prints the kernel's time as the wrapper
@@ -59,8 +61,13 @@ BUDGETS = {"cavi": dict(n_iter=3, cg_iter=4, polish_iter=1), "cold": {}}
 # MK 16 to 32 at R = 100 by D = 560 for the pair/thread ranges; the calls
 # of few problems: R = 1 at D = 560 (stage 2, MMCTM.fit), 448 and 112
 # (inference), 280 (a data rank) and 2800 (PCAWG), and R = 1 … 32 at
-# D = 560 for the few-problem crossovers at MK 14, 19 and 32; and the
-# BRCA main path, (100, 560, (7, 7)) and (1000, 560, (7, 7)).
+# D = 560 for the few-problem crossovers at MK 14, 19 and 32; the BRCA
+# main path, (100, 560, (7, 7)) and (1000, 560, (7, 7)); then MK 33–128:
+# MK 33 to 128 at R = 100 by D = 560 (and MK 32, 33 either side of the
+# boundary), three modalities (20, 12, 8) at PCAWG's D = 2800, K = (20, 20)
+# at R = 1000, R = 1 at D = 112, 448, 560 and 2800, and R = 2 … 32 at
+# D = 560 for the few-problem crossover at MK 40 and 128, and at MK 65 R = 1
+# at D = 112, 448 and 560 (split8 at P = 10 against BlockGroup<128>).
 ETA_SHAPES = (
     (100, 448, (9, 9)), (100, 2800, (7, 7, 5)), (1000, 2800, (7, 7, 5)),
     *((100, 560, K) for K in ((8, 8), (9, 8), (10, 9), (10, 10), (11, 10), (11, 11), (12, 12),
@@ -70,7 +77,21 @@ ETA_SHAPES = (
     *((R, 560, K) for K in ((7, 7), (7, 7, 5), (16, 16)) for R in (2, 3, 4, 6, 8, 12, 16, 32)),
     (1, 560, (7, 7, 5)), (1, 560, (16, 16)),
     (100, 560, (7, 7)), (1000, 560, (7, 7)),
+    *((100, 560, K) for K in ((17, 16), (20, 20), (24, 24), (32, 32), (33, 32), (48, 48),
+                              (64, 64))),
+    (100, 2800, (20, 12, 8)), (1000, 560, (20, 20)),
+    *((1, D, K) for K in ((20, 20), (64, 64)) for D in (112, 448, 560, 2800)),
+    *((R, 560, K) for K in ((20, 20), (64, 64)) for R in (2, 4, 8, 16, 32)),
+    *((1, D, (33, 32)) for D in (112, 448, 560)),
 )
+# (R, D, K) of --crossovers, at the CAVI budgets: above MK 32, where the
+# block layout gives way to split4 or split8 (`BLOCK_MAX_PROBLEMS`), at
+# each P of the split layouts by R·D from 560 to 5,600.
+CROSSOVER_SHAPES = tuple(
+    (R, D, K) for K in ((20, 20), (24, 24), (28, 28), (32, 32), (33, 32), (40, 40), (48, 48),
+                        (56, 56), (64, 64))
+    for R, D in ((1, 560), (1, 840), (1, 1120), (2, 560), (1, 1680), (3, 560), (1, 2240),
+                 (4, 560), (1, 2800), (1, 3360), (6, 560), (1, 4480), (8, 560), (1, 5600)))
 ETA_BUDGETS = {"cavi": dict(n_iter=3, cg_iter=4, polish_iter=1, nu_n_iter=4), "cold": {}}
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -178,6 +199,8 @@ def main(argv=None):
     p.add_argument("--eta", action="store_true", help="time the η kernel (B3)")
     p.add_argument("--tree", help="import the package from this directory")
     p.add_argument("--layouts", action="store_true", help="time every candidate layout")
+    p.add_argument("--crossovers", action="store_true",
+                   help="with --eta: time CROSSOVER_SHAPES in place of ETA_SHAPES")
     p.add_argument("--shapes", nargs="+", metavar="R,D,MK,BUDGETS",
                    help="time these shapes in place of SHAPES, e.g. 100,560,19,cavi "
                    "(with --eta: 100,560,7+7,cavi)")
@@ -202,7 +225,8 @@ def main(argv=None):
     if args.shapes:
         shapes = [parse_shape(a, args.eta) for a in args.shapes]
     else:
-        shapes = [(*s, "cavi") for s in ETA_SHAPES] if args.eta else SHAPES
+        eta_shapes = CROSSOVER_SHAPES if args.crossovers else ETA_SHAPES
+        shapes = [(*s, "cavi") for s in eta_shapes] if args.eta else SHAPES
     for shape in shapes:
         fields, (bms, by), plain_ms, runs, error = (eta_runs if args.eta else lambda_runs)(
             torch, kernel, gen, shape, args.layouts)

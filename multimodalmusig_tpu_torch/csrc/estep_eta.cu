@@ -46,12 +46,23 @@
 //    of the other's; both threads add the same two floats, so both hold the
 //    same ζ bits, and N/ζ, the step choice and the NaN rule agree without a
 //    vote. Up to 64 documents (128 threads) a block, whole warps of pairs.
+//  * "split4", MK 33–64, and "split8", MK 65–128: 4 or 8 neighbouring
+//    threads per problem, ThreadProblem<P, ·, Split>, P = 10, 12, 14 or 16
+//    (the least with Split·P ≥ MK), up to 128 threads a block (32 or 16
+//    documents of one restart). ζ is the pair's: each thread's partial sums,
+//    then a butterfly of log2(Split) xor-shuffles that leaves every thread
+//    the same bits. A block stages Σ_r⁻¹ once for its 16–32 documents, in
+//    the tile of SigmaTile (part blocks on banks of their own; no separate
+//    diagonal, so that two blocks at P = 16 fit an SM's 228 KB), and a
+//    matvec reads it as 16-byte broadcasts in Split rounds of shuffled
+//    operands (lambda_solve.cuh). No barrier inside the solve.
 //  * "warp": one WarpGroup<16 or 32> per problem, one coordinate per lane,
 //    `docs` problems a block; for calls with too few problems to fill the
 //    card one per thread (stage 2, inference, single-model fits, ranks),
 //    where the time is one problem's chain of dependent steps.
 //  * "block", MK 33–128: one BlockGroup<64 or 128> per problem, 256 threads
-//    a block.
+//    a block; for calls of few problems above MK 32, where its short chain
+//    (one coordinate a lane) beats a split layout's longer one.
 //  In both group layouts each lane finds its modality from the block
 //  offsets; ζ is one masked group sum per modality, M of them in every
 //  group (in WarpGroup<16> a butterfly of width 16, inside the group), so
@@ -75,7 +86,14 @@
 // (100, 560, 14) on the thread layout, 6.7x the bound; 0.10–0.13 ms at
 // MK 17–20 on the pair (P = 10), against 0.36–0.45 ms for the WarpGroup<32>
 // it replaced there; 0.014 ms at R = 1, D = 560, MK 14 on WarpGroup<16>,
-// against 0.034 ms for one thread per problem.
+// against 0.034 ms for one thread per problem. Above MK 32 (lambda_bench.py
+// --eta, the same card, PERF.md §6): split4 0.40 ms at (100, 560, (20, 20)),
+// 5.0x its bound, against 1.45 ms for BlockGroup<64>; split8 3.46 ms at
+// (100, 560, (64, 64)), 5.0x, against 5.44 ms for BlockGroup<128>. The
+// split layouts are bound like the pair. The matvec's operand written to a
+// per-problem shared vector and read back as 16-byte loads, in place of
+// the shuffles, ran no faster at Split 4 and slower at Split 8, P = 12
+// and 16, where the vector costs a block an SM: it was not kept.
 //
 // Full-precision float32 throughout: expf, sqrtf and IEEE divisions, and no
 // --use_fast_math.
@@ -91,18 +109,32 @@ constexpr int kNuPolish = 4;            // solvers.NU_POLISH_ITERS
 constexpr float kExtrapClip = 4.f;      // solvers.EXTRAP_CLIP
 constexpr int kMaxThreadDocs = 64;     // documents a block of the thread and pair layouts, at most
 
-enum Layout { kThreadLayout = 0, kPairLayout = 1, kWarpLayout = 2, kBlockLayout = 3 };
+enum Layout {
+  kThreadLayout = 0, kPairLayout = 1, kWarpLayout = 2, kBlockLayout = 3, kSplit4Layout = 4,
+  kSplit8Layout = 5
+};
 
-// Column stride of the thread and pair layouts: a block's threads, plus one.
+// Documents a block of ThreadProblem<·, ·, Split>s, at most: 64 in the
+// thread and pair layouts; blocks of 128 threads at Split 4 and 8.
+__host__ __device__ constexpr int max_docs(int Split) {
+  return Split <= 2 ? kMaxThreadDocs : 128 / Split;
+}
+
+// Column stride of the ThreadProblem layouts: a block's threads, plus one.
 template <int Split>
-__host__ __device__ constexpr int col_stride() { return kMaxThreadDocs * Split + 1; }
+__host__ __device__ constexpr int col_stride() { return max_docs(Split) * Split + 1; }
 
 // Blocks an SM holds: in the thread layout 6 at P ≤ 14 (168 registers a
 // thread), 5 at P = 16, the compiler's choice at P = 32 (255 registers, 4
 // blocks: shared memory bounds it); in the pair layout 3 blocks of 128
 // threads at P = 10 (156 registers), 2 above (167, 193 and 212 at P = 12,
-// 14, 16). ptxas reports no spill in any instantiation.
+// 14, 16). ptxas reports no spill in any instantiation. At Split 4 and 8,
+// 3 blocks of 128 threads at P ≤ 12, 2 above (ptxas: 127, 167, 168 and
+// 227 registers at Split 4, P = 10, 12, 14, 16; 117, 167, 167 and 227 at
+// Split 8); shared memory allows as many (at Split 8, P = 16, 2 × 113 KB:
+// the whole 228 KB of an SM).
 __host__ __device__ constexpr int min_blocks(int P, int Split) {
+  if (Split >= 4) return P <= 12 ? 3 : 2;
   return Split == 2 ? (P <= 10 ? 3 : 2) : P <= 14 ? 6 : P <= 16 ? 5 : 1;
 }
 
@@ -175,7 +207,7 @@ __device__ __forceinline__ void nu_solve_vec(const float (&a)[P], const float (&
 // The thread and pair layouts.
 
 template <int P, int Split>
-__global__ void __launch_bounds__(kMaxThreadDocs * Split, min_blocks(P, Split))
+__global__ void __launch_bounds__(max_docs(Split) * Split, min_blocks(P, Split))
 estep_eta_thread_kernel(const float* __restrict__ lam0, const float* __restrict__ nu0,
                         const float* __restrict__ N, const float* __restrict__ st,
                         const float* __restrict__ mu, const float* __restrict__ inv_sigma,
@@ -185,11 +217,12 @@ estep_eta_thread_kernel(const float* __restrict__ lam0, const float* __restrict_
                         int polish_iter, int nu_n_iter, float extrap) {
   constexpr int Stride = col_stride<Split>();
   using Problem = ThreadProblem<P, Stride, Split>;
+  using Tile = typename Problem::Tile;
   constexpr int NP = Problem::N, P4 = Problem::P4;
   extern __shared__ float4 smem4[];
-  float* S = reinterpret_cast<float*>(smem4);  // [NP][P4]
-  float* diag = S + NP * P4;                   // [P4]
-  float* mu_s = diag + P4;                     // [P4]
+  float* S = reinterpret_cast<float*>(smem4);  // the Σ⁻¹ tile
+  float* diag = S + Tile::kFloats;             // [P4] (Split 1 and 2)
+  float* mu_s = diag + Tile::kDiagFloats;      // [P4]
   float* cols = mu_s + P4;                     // [kColumns][P][Stride]
   const int T = blockDim.x, t = threadIdx.x, per_block = T / Split;
   const int r = blockIdx.y, d0 = blockIdx.x * per_block;
@@ -201,11 +234,13 @@ estep_eta_thread_kernel(const float* __restrict__ lam0, const float* __restrict_
   };
 
   const float* S_r = inv_sigma + static_cast<size_t>(r) * MK * MK;
-  for (int idx = t; idx < NP * P4; idx += T) {
-    const int i = idx / P4, k = idx % P4;
-    const float s = (i < MK && k < MK) ? S_r[i * MK + k] : (i == k ? 1.f : 0.f);
+#pragma unroll 4
+  for (int idx = t; idx < Tile::kFloats; idx += T) {
+    int i, k;
+    const bool element = Tile::element(idx, i, k);
+    const float s = !element ? 0.f : (i < MK && k < MK) ? S_r[i * MK + k] : (i == k ? 1.f : 0.f);
     S[idx] = s;
-    if (i == k) diag[i] = s;
+    if (Split <= 2 && i == k) diag[i] = s;
   }
   for (int j = t; j < P4; j += T) mu_s[j] = j < MK ? mu[static_cast<size_t>(r) * MK + j] : 0.f;
   for (int idx = t; idx < NP * per_block; idx += T) {  // the inert padding
@@ -227,7 +262,7 @@ estep_eta_thread_kernel(const float* __restrict__ lam0, const float* __restrict_
   __syncthreads();
 
   const int part = t % Split;
-  Problem prob{S + part * P * P4, diag + part * P, mu_s + part * P, cols + t, part};
+  Problem prob{S + part * Tile::PS, diag + part * P, mu_s + part * P, cols + t, part};
   const bool live = t / Split < docs;
   const int d = d0 + t / Split;
 
@@ -427,12 +462,14 @@ int launch_thread_layout(int P, const Args& a, const Blocks& blk, int docs, cuda
   }
 }
 
-int launch_pair_layout(int P, const Args& a, const Blocks& blk, int docs, cudaStream_t s) {
+// The pair, Split 4 and Split 8 layouts: P = 10, 12, 14 or 16 each.
+template <int Split>
+int launch_split_layout(int P, const Args& a, const Blocks& blk, int docs, cudaStream_t s) {
   switch (P) {
-    case 10: return launch_thread<10, 2>(a, blk, docs, s);
-    case 12: return launch_thread<12, 2>(a, blk, docs, s);
-    case 14: return launch_thread<14, 2>(a, blk, docs, s);
-    case 16: return launch_thread<16, 2>(a, blk, docs, s);
+    case 10: return launch_thread<10, Split>(a, blk, docs, s);
+    case 12: return launch_thread<12, Split>(a, blk, docs, s);
+    case 14: return launch_thread<14, Split>(a, blk, docs, s);
+    case 16: return launch_thread<16, Split>(a, blk, docs, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -449,7 +486,9 @@ int launch_pair_layout(int P, const Args& a, const Blocks& blk, int docs, cudaSt
 //  0 (thread): P ≥ MK one of 2, 4, …, 16, 32; 1 ≤ docs ≤ 64;
 //  1 (pair): P one of 10, 12, 14, 16, 2P ≥ MK; docs 16, 32, 48 or 64;
 //  2 (warp): P = 16 or 32, P ≥ MK; docs·P a multiple of 32, at most 256;
-//  3 (block): P = 64 or 128, P ≥ MK; docs = 256 / P.
+//  3 (block): P = 64 or 128, P ≥ MK; docs = 256 / P;
+//  4 (split4), 5 (split8): P one of 10, 12, 14, 16, Split·P ≥ MK; docs·Split
+//    a multiple of 32, at most 128.
 // Launches on `stream` without synchronising and returns the CUDA error code
 // (0 = launched).
 extern "C" int estep_eta_launch(const float* lam0, const float* nu, const float* N,
@@ -475,7 +514,12 @@ extern "C" int estep_eta_launch(const float* lam0, const float* nu, const float*
   if (layout == kThreadLayout && P >= MK && docs <= kMaxThreadDocs)
     return launch_thread_layout(P, a, blk, docs, s);
   if (layout == kPairLayout && 2 * P >= MK && docs <= kMaxThreadDocs && docs % 16 == 0)
-    return launch_pair_layout(P, a, blk, docs, s);
+    return launch_split_layout<2>(P, a, blk, docs, s);
+  // whole warps of problems, up to the instantiation's documents a block
+  if (layout == kSplit4Layout && 4 * P >= MK && docs <= max_docs(4) && docs % 8 == 0)
+    return launch_split_layout<4>(P, a, blk, docs, s);
+  if (layout == kSplit8Layout && 8 * P >= MK && docs <= max_docs(8) && docs % 4 == 0)
+    return launch_split_layout<8>(P, a, blk, docs, s);
   if (layout == kWarpLayout && (P == 16 || P == 32) && P >= MK && docs * P % 32 == 0 &&
       docs * P <= kThreads)
     return P == 16 ? launch(estep_eta_warp_kernel<16>, a, blk, docs, docs * P, 0, s)

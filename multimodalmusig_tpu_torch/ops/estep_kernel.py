@@ -53,19 +53,33 @@ LAUNCHES = 0
 # work of the layout it gives way to. Above it: one thread per problem at
 # MK ≤ 16; a pair of threads at MK 17–28, and at MK 29–32 up to
 # PAIR16_MAX_PROBLEMS (three waves of the pair at P = 16: 2 blocks of 64
-# problems on each of 132 SMs); one thread (P = 32) beyond.
+# problems on each of 132 SMs); one thread (P = 32) beyond. Above MK 32:
+# below `_few_problems(MK)` problems the block layout (a BlockGroup of 64 or
+# 128 lanes per problem), else 4 threads per problem at MK 33–64 and 8 at
+# MK 65–128 ("split4", "split8").
 GROUP_MAX_MK = 32
 THREAD_MAX_MK = 16
 PAIR_MAX_MK = 28
+SPLIT4_MAX_MK = 64
 PAIR16_MAX_PROBLEMS = 3 * 2 * 64 * 132
+# Above MK 32, the problems R·D below which the block layout beats split4
+# or split8, by the split layout's P: the crossover measured at MK 40, 48,
+# 56, 64, 65, 80, 96, 112 and 128 (R·D from 560 to 5,600). It grows with
+# the work of one thread's chain, which sets a split layout's time until
+# its first wave is full, and falls where the block layout pads (split8 at
+# P = 10 beat BlockGroup<128> from 560 problems on).
+BLOCK_MAX_PROBLEMS = {("split4", 10): 1000, ("split4", 12): 1500, ("split4", 14): 2000,
+                      ("split4", 16): 3000, ("split8", 10): 500, ("split8", 12): 700,
+                      ("split8", 14): 1000, ("split8", 16): 1500}
 WARP_DOCS = {16: 4, 32: 8}
 THREAD_DOCS = 64
 # The kernel's instantiations: the thread layout's coordinates per thread
-# (P ≥ MK), the pair layout's per thread of a pair (2P ≥ MK).
+# (P ≥ MK), the pair's, split4's and split8's per thread of a problem
+# (Split·P ≥ MK).
 THREAD_P = (2, 4, 6, 8, 10, 12, 14, 16, 32)
 PAIR_P = (10, 12, 14, 16)
 # The kernel's layout codes (csrc/estep_eta.cu).
-_LAYOUTS = {"thread": 0, "pair": 1, "warp": 2, "block": 3}
+_LAYOUTS = {"thread": 0, "pair": 1, "warp": 2, "block": 3, "split4": 4, "split8": 5}
 
 # lam0, nu, N, sumtheta, mu, invSigma, lam_prev (or null), zeta, nu_out,
 # lam_out, K; M, R, D, MK, n_iter, cg_iter, polish_iter, nu_n_iter; extrap;
@@ -76,10 +90,11 @@ _ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float]
 
 class EtaGeometry(NamedTuple):
     """The η kernel's launch: `layout` "thread" (one thread per (restart,
-    document) problem, holding P ≥ MK coordinates), "pair" (two threads per
-    problem, P ≥ MK/2 coordinates each), "warp" (a P-lane group per problem
-    inside one warp) or "block" (a P-lane group of whole warps);
-    `docs_per_block` documents of one restart per block."""
+    document) problem, holding P ≥ MK coordinates), "pair", "split4" or
+    "split8" (2, 4 or 8 threads per problem, P ≥ MK/2, MK/4 or MK/8
+    coordinates each), "warp" (a P-lane group per problem inside one warp)
+    or "block" (a P-lane group of whole warps); `docs_per_block` documents
+    of one restart per block."""
 
     layout: str
     P: int
@@ -95,8 +110,21 @@ def _thread_P(MK):
     return min(p for p in THREAD_P if p >= MK)
 
 
-def _pair_P(MK):
-    return min(p for p in PAIR_P if 2 * p >= MK)
+def _pair_P(MK, split=2):
+    return min(p for p in PAIR_P if split * p >= MK)
+
+
+def _split_docs(split):
+    """Documents a block of split4 and split8 (csrc/estep_eta.cu
+    max_docs): blocks of 128 threads."""
+    return 128 // split
+
+
+def _split_geometry(MK):
+    """split4 at MK 33–64, split8 at MK 65–128, each at its least P."""
+    split = 4 if MK <= SPLIT4_MAX_MK else 8
+    P = _pair_P(MK, split)
+    return EtaGeometry(f"split{split}", P, _split_docs(split))
 
 
 def _group_P(MK):
@@ -104,12 +132,17 @@ def _group_P(MK):
 
 
 def _few_problems(MK):
-    """The problems R·D below which a call at MK ≤ 32 takes the warp layout:
-    at MK ≤ 14 650 per coordinate of the thread layout's P (the crossover
-    measured at P = 4, 8, 10, 12 and 14); at MK 15 the same, at MK 16
-    (the 16-lane group full) 20,480; at MK 17–24 3,168, the warp's one wave
-    (132 SMs × 3 blocks × 8 problems); at MK 25–28 4,352; at MK 29–31
-    6,144, at MK 32 (the 32-lane group full) 10,240."""
+    """The problems R·D below which a call takes the warp layout (MK ≤ 32)
+    or the block layout (MK > 32): at MK ≤ 14 650 per coordinate of the
+    thread layout's P (the crossover measured at P = 4, 8, 10, 12 and 14);
+    at MK 15 the same, at MK 16 (the 16-lane group full) 20,480; at MK
+    17–24 3,168, the warp's one wave (132 SMs × 3 blocks × 8 problems); at
+    MK 25–28 4,352; at MK 29–31 6,144, at MK 32 (the 32-lane group full)
+    10,240; above MK 32 BLOCK_MAX_PROBLEMS of the split layout that takes
+    over."""
+    if MK > GROUP_MAX_MK:
+        geo = _split_geometry(MK)
+        return BLOCK_MAX_PROBLEMS[geo.layout, geo.P]
     if MK <= THREAD_MAX_MK:
         return 20480 if MK == 16 else 650 * _thread_P(MK)
     if MK <= 24:
@@ -121,19 +154,22 @@ def _few_problems(MK):
 
 @functools.lru_cache(maxsize=None)
 def launch_geometry(R: int, D: int, MK: int) -> EtaGeometry:
-    """MK > 32: a BlockGroup of 64 or 128 lanes per problem, 256 threads a
-    block. MK ≤ 32: below `_few_problems(MK)` problems R·D (stage 2,
-    inference, single-model fits, ranks), a warp group of 16 or 32 lanes per
-    problem; else one thread per problem at MK ≤ 16 (P = MK rounded up to
+    """Below `_few_problems(MK)` problems R·D (stage 2, inference,
+    single-model fits, ranks): a warp group of 16 or 32 lanes per problem
+    at MK ≤ 32, a BlockGroup of 64 or 128 lanes (256 threads a block)
+    above. Else one thread per problem at MK ≤ 16 (P = MK rounded up to
     even), a pair of threads at MK 17–28 (P the least of PAIR_P with
     2P ≥ MK) and at MK 29–32 up to PAIR16_MAX_PROBLEMS, one thread (P = 32)
-    beyond; 64 documents a block (D = 560 fills 560 of 576 threads)."""
+    beyond, 64 documents a block (D = 560 fills 560 of 576 threads); 4
+    threads per problem at MK 33–64 and 8 at MK 65–128 (`_split_geometry`)."""
     _check_mk(MK)
     if not (R >= 1 and D >= 1):
         raise ValueError(f"R={R} and D={D} must be positive")
     P = _group_P(MK)
     if MK > GROUP_MAX_MK:
-        return EtaGeometry("block", P, 256 // P)
+        if R * D < _few_problems(MK):
+            return EtaGeometry("block", P, 256 // P)
+        return _split_geometry(MK)
     if R * D < _few_problems(MK):
         return EtaGeometry("warp", P, WARP_DOCS[P])
     if MK <= THREAD_MAX_MK or (MK > PAIR_MAX_MK and R * D > PAIR16_MAX_PROBLEMS):
@@ -145,11 +181,12 @@ def _candidate_geometries(MK: int) -> Tuple[EtaGeometry, ...]:
     """Every layout the kernel can run an MK with, each at its smallest P,
     for measurements and tests: at MK ≤ 32 the thread layout, the pair at
     MK 17–32 (64 documents a block) and the warp layout in blocks of 64 and
-    of 256 threads; above, the block layout."""
+    of 256 threads; above, split4 (MK ≤ 64) or split8, and the block
+    layout."""
     _check_mk(MK)
     P = _group_P(MK)
     if MK > GROUP_MAX_MK:
-        return (EtaGeometry("block", P, 256 // P),)
+        return (_split_geometry(MK), EtaGeometry("block", P, 256 // P))
     pair = (EtaGeometry("pair", _pair_P(MK), THREAD_DOCS),) if MK > 16 else ()
     return (EtaGeometry("thread", _thread_P(MK), THREAD_DOCS), *pair,
             EtaGeometry("warp", P, 64 // P), EtaGeometry("warp", P, 256 // P))
@@ -162,6 +199,9 @@ def _check_geometry(geo: EtaGeometry, MK: int):
     ok = {
         "thread": P in THREAD_P and P >= MK and 1 <= docs <= THREAD_DOCS,
         "pair": P in PAIR_P and 2 * P >= MK and docs in (16, 32, 48, 64),
+        # whole warps of problems, at most 128 threads a block
+        "split4": P in PAIR_P and 4 * P >= MK and 1 <= docs <= 32 and docs % 8 == 0,
+        "split8": P in PAIR_P and 8 * P >= MK and 1 <= docs <= 16 and docs % 4 == 0,
         "warp": P in (16, 32) and P >= MK and docs >= 1 and docs * P % 32 == 0
         and docs * P <= 256,
         "block": P in (64, 128) and P >= MK and docs == 256 // P,

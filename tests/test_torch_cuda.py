@@ -199,6 +199,9 @@ def _eta_problem(seed, R, D, K, device, zero_count=False):
 
 
 CAVI = dict(n_iter=3, cg_iter=4, polish_iter=1, nu_n_iter=4)
+# launch_geometry's few-problem crossover at MK 40 and 128 (the block
+# layout below, split4 or split8 from there)
+BLOCK_CROSS = {40: ek.BLOCK_MAX_PROBLEMS["split4", 10], 128: ek.BLOCK_MAX_PROBLEMS["split8", 16]}
 
 
 @pytest.mark.parametrize("R, D, K, budgets, zero_count", [
@@ -249,7 +252,20 @@ def test_eta_kernel_keeps_a_dead_lane_dead_and_apart(cuda):
     (100, 560, (15, 14), {}, "thread"),  # MK 29: one thread at P = 32
     (90, 560, (16, 16), {}, "pair"),  # MK 32, three waves of the pair at P = 16
     (3, 50, (16, 16), {}, "warp"),  # MK 32: the warp layout's last
-    (3, 50, (17, 16), {}, "block"),  # MK 33: the block layout's first
+    (3, 50, (17, 16), {}, "block"),  # MK 33 at few problems: the block layout
+    # MK 33–128 on restart batches: split4 to MK 64, split8 beyond, each P
+    (30, 557, (17, 16), CAVI, "split4"),  # MK 33: split4's first, P = 10
+    (30, 557, (20, 20), CAVI, "split4"),  # MK 40: P = 10's last
+    (30, 557, (21, 20), CAVI, "split4"),  # MK 41: P = 12
+    (30, 557, (32, 32), CAVI, "split4"),  # MK 64: split4's last, P = 16
+    (30, 557, (33, 32), CAVI, "split8"),  # MK 65: split8's first, P = 10
+    (30, 557, (56, 56), CAVI, "split8"),  # MK 112: P = 14
+    (30, 557, (64, 64), CAVI, "split8"),  # MK 128: P = 16
+    # either side of the few-problem crossover at MK 40 and 128
+    (1, BLOCK_CROSS[40] - 1, (20, 20), CAVI, "block"),
+    (1, BLOCK_CROSS[40], (20, 20), CAVI, "split4"),
+    (1, BLOCK_CROSS[128] - 1, (64, 64), CAVI, "block"),
+    (1, BLOCK_CROSS[128], (64, 64), CAVI, "split8"),
     (1, 560, (7, 7), CAVI, "warp"),  # R = 1: WarpGroup<16>
     (1, 9, (7, 7), {}, "warp"),  # a single block with padding documents
     (16, 560, (7, 7), CAVI, "warp"),  # either side of the crossover at MK 14
@@ -302,9 +318,35 @@ def test_eta_kernel_at_a_line_search_tie(cuda):
     assert len(tie) == 1 and apart["thread64"] == [] and apart["warp2"] == apart["warp8"] == tie
 
 
+def test_eta_kernel_at_a_line_search_tie_above_MK_32(cuda):
+    """At the CAVI budgets from a cold start, one problem of these 560,000
+    at MK 40 sits at a near-tie of the line search: the plain version in
+    float32 and in float64 and split4 take one step, the block layout the
+    other. Every other problem agrees within ATOL on both layouts, and with
+    the cold defaults (Newton 7) that problem's restart does too."""
+    R, D, K = 1000, 560, (20, 20)
+    tie = 115616  # restart 206, document 256
+    args = _eta_problem(2, R, D, K, cuda)
+    want = ek.estep_eta_fused_plain(*args, K, **CAVI)[2]
+    want64 = ek.estep_eta_fused_plain(*(a.double() for a in args), K, **CAVI)[2]
+    assert float((want64 - want.double()).abs().max()) <= ATOL
+    cold_want = ek.estep_eta_fused_plain(*args, K)[2][tie // D]
+    apart = {}
+    for geo in ek._candidate_geometries(sum(K)):
+        gap = (ek._launch_at(geo, *args, K, **CAVI)[2] - want).abs().amax(-1).flatten()
+        apart[geo.layout] = torch.nonzero(gap > ATOL).flatten().tolist()
+        assert float(gap.max()) < 1e-2, geo
+        cold = ek._launch_at(geo, *args, K)[2][tie // D] - cold_want
+        assert float(cold.abs().max()) <= ATOL, geo
+    assert apart == {"split4": [], "block": [tie]}
+
+
 # thread and warp; pair P = 10 (modality 1 straddling the pair) with thread
-# P = 20 and warp; pair P = 16 with thread P = 32 and warp; block
-@pytest.mark.parametrize("K", [(7, 7), (10, 10), (9, 9), (16, 16), (20, 20)])
+# P = 20 and warp; pair P = 16 with thread P = 32 and warp; split4 at P =
+# 10, 12, 14, 16 and split8 at the same P, each with block; D = 70 ragged
+# in every layout
+@pytest.mark.parametrize("K", [(7, 7), (10, 10), (9, 9), (16, 16), (20, 20), (24, 24), (28, 28),
+                               (32, 32), (33, 32), (48, 48), (56, 56), (64, 64)])
 def test_eta_kernel_keeps_a_dead_lane_dead_on_every_layout(cuda, K):
     """On every layout of _candidate_geometries: an all-NaN Σ⁻¹ makes its
     lane's ν and λ NaN and leaves the other lanes' bits as they are
@@ -331,6 +373,18 @@ def test_eta_kernel_keeps_a_dead_lane_dead_on_every_layout(cuda, K):
     (1, 560, (7, 7), CAVI, False),  # R = 1: thread P = 14, warp 16
     (1, 9, (7, 7), {}, False),  # one block, padding documents on every layout
     (3, 37, (3, 4, 5), {}, False),  # M = 3 in a warp group of 16
+    # split4 at P = 10, 12, 14, 16 and split8 at the same P, and block, at
+    # a ragged D; three modalities straddling the parts
+    (3, 37, (20, 20), {}, False),
+    (2, 70, (24, 24), {}, False),
+    (3, 50, (28, 28), {}, False),
+    (2, 41, (32, 32), {}, False),
+    (3, 37, (33, 32), {}, False),
+    (2, 29, (48, 48), {}, False),
+    (3, 19, (56, 56), {}, False),
+    (2, 23, (64, 64), {}, False),
+    (3, 101, (20, 12, 8), CAVI, False),
+    (2, 9, (20, 20), {}, True),  # a zero-count modality, padding documents
 ])
 def test_eta_kernel_matches_plain_on_every_layout(cuda, R, D, K, budgets, zero_count):
     """Each launch of _candidate_geometries: the tolerances of
@@ -925,7 +979,9 @@ def _extrap_problem(seed, R, D, K, swing, device):
 @pytest.mark.parametrize("R, D, K, budgets", [
     (100, 560, (7, 7), CAVI),  # MK 14: the thread layout
     (100, 560, (10, 9), CAVI),  # MK 19: the pair layout
-    (3, 70, (20, 20), {}),  # MK 40: the block layout
+    (3, 70, (20, 20), {}),  # MK 40 at few problems: the block layout
+    (30, 557, (20, 20), CAVI),  # MK 40: split4
+    (30, 557, (64, 64), CAVI),  # MK 128: split8
     (1, 560, (7, 7), CAVI),  # R = 1: the warp layout
 ])
 @pytest.mark.parametrize("swing", [0.3, 8.0])
@@ -967,6 +1023,8 @@ def test_eta_kernel_without_lam_prev_is_the_call_without_it(cuda, K):
     (3, 37, (11, 10), {}),
     (3, 50, (16, 16), {}),
     (1, 112, (7, 7), CAVI),
+    (3, 70, (20, 20), {}),  # split4 and block
+    (2, 41, (64, 64), {}),  # split8 and block
 ])
 def test_eta_kernel_with_lam_prev_on_every_layout(cuda, R, D, K, budgets):
     """The secant start on each launch of _candidate_geometries, with the ±4
@@ -1009,8 +1067,10 @@ def _digest_problem(seed, R, D, K):
 # `_digest_problem(seed, R, D, K)`, in the layout `launch_geometry` picks:
 # (seed, R, D, K, budgets) -> digest. Keys whose layout is the one the
 # kernel had before it took lam_prev keep that kernel's bits (the thread
-# layout at 100, 101 and 103, the warp at 105, the block at 106–108); 102,
-# 109 and 110 now take the warp layout and 104 the pair, pinned from it.
+# layout at 100, 101 and 103, the warp at 105, the block at 106 and 108);
+# 102, 109 and 110 now take the warp layout, 104 the pair and 107 split4,
+# pinned from it; 111–116 pin split4 at P = 10, 12, 16 and split8 at P =
+# 10, 12, 16.
 ETA_DIGESTS = {
     (100, 100, 560, (7, 7), "cavi"): "d43dd87f2ca3ac30",
     (101, 100, 560, (7, 7), "cold"): "d9e29a5aca0fc757",
@@ -1019,18 +1079,25 @@ ETA_DIGESTS = {
     (104, 100, 560, (9, 8), "cavi"): "bd3d687132ecab93",
     (105, 3, 50, (16, 16), "cold"): "44715636e2d5c74c",
     (106, 3, 50, (17, 16), "cold"): "4c262521f3098e07",
-    (107, 100, 560, (20, 20), "cavi"): "7a1ffe90ce3fb897",
+    (107, 100, 560, (20, 20), "cavi"): "96b41dec7c3368e0",
     (108, 3, 29, (40, 50, 38), "cold"): "336de164f56b75e9",
     (109, 1, 9, (7, 7), "cold"): "b93f82baa54b3c09",
     (110, 3, 37, (3, 4, 5), "cold"): "83e7bcfe41f750f4",
+    (111, 30, 557, (17, 16), "cavi"): "ea3f90ff2b537e1a",
+    (112, 30, 557, (24, 24), "cavi"): "8ff071ff2a1c43a6",
+    (113, 30, 557, (29, 28), "cavi"): "5f07d618e83a83c7",
+    (114, 30, 557, (33, 32), "cavi"): "35b27d94c3862859",
+    (115, 30, 557, (48, 48), "cavi"): "06108bae7ed9ac55",
+    (116, 30, 557, (64, 64), "cavi"): "47a968175f045d75",
 }
-# The four re-pinned keys launched in the layout they had before: the
-# digests of the kernel before it took lam_prev.
+# The five re-pinned keys launched in the layout they had before: the
+# digests of the kernel before it took lam_prev (107: before split4).
 OLD_LAYOUT_DIGESTS = {
     (102, 1, 560, (7, 7), "cavi", ("thread", 14, 64)): "4e4316f15342c2e0",
     (104, 100, 560, (9, 8), "cavi", ("warp", 32, 8)): "a18470b3f3259ff9",
     (109, 1, 9, (7, 7), "cold", ("thread", 14, 64)): "eeae18d7d82cd7bf",
     (110, 3, 37, (3, 4, 5), "cold", ("thread", 12, 64)): "d762e4cdb7c2ead8",
+    (107, 100, 560, (20, 20), "cavi", ("block", 64, 4)): "7a1ffe90ce3fb897",
 }
 
 

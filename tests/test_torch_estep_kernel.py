@@ -64,9 +64,39 @@ def test_plain_matches_the_jax_kernel_per_lane(rng, R, B, K):
                                        err_msg=label)
 
 
-def test_plain_matches_the_jax_xla_sequence_in_float64(rng):
-    """ζ → N/ζ → ν → λ of the JAX package (update_zeta, calculate_Ndivzeta,
-    maximize_nu, maximize_lambda) per lane, at the same budgets."""
+# the JAX suite's bound between its Pallas λ kernel and its jnp solver
+# (tests/test_pallas_kernels.py:131), the card tests' bound for λ
+LAM_ATOL32 = 5e-5
+
+
+@pytest.mark.parametrize("R, B, K", [
+    (1, 5, (20, 20)), (2, 5, (20, 20)),  # MK 40: split4 on the card
+    (1, 3, (40, 50, 38)), (2, 3, (40, 50, 38)),  # MK 128: split8
+])
+def test_plain_matches_the_jax_kernel_per_lane_above_MK_32(rng, R, B, K):
+    """As test_plain_matches_the_jax_kernel_per_lane, ζ and ν at the same
+    tolerance. λ at LAM_ATOL32: over 40 to 128 coordinates the float32
+    rounding of the 7 Newton steps of 10 PCG iterations moves λ by about
+    1e-5 on either side, both as far from the float64 solve (at (1, 5,
+    (20, 20)): the port 2.2e-5, the JAX kernel 1.1e-5); the float64 test
+    below holds the plain version against the JAX package's XLA sequence at
+    1e-10 at MK 40."""
+    from pallas_experiments.estep_kernel import estep_eta_fused as jax_fused
+
+    lam, nu, N, st, mu, invS = _inputs(rng, R, B, K)
+    got = ek.estep_eta_fused_plain(*map(torch.as_tensor, (lam, nu, N, st, mu, invS)), K)
+    for r in range(R):
+        want = jax_fused(jnp.asarray(lam[r]), jnp.asarray(nu[r]), jnp.asarray(N),
+                         jnp.asarray(st[r]), jnp.asarray(mu[r]), jnp.asarray(invS[r]), K,
+                         tile_b=128, interpret=True)
+        for g, w, label in zip(got[:2], want[:2], ("zeta", "nu")):
+            np.testing.assert_allclose(g[r].numpy(), np.asarray(w), rtol=RTOL32, atol=ATOL32,
+                                       err_msg=label)
+        np.testing.assert_allclose(got[2][r].numpy(), np.asarray(want[2]), rtol=0,
+                                   atol=LAM_ATOL32, err_msg="lam")
+
+
+def _matches_the_jax_xla_sequence_in_float64(rng, K, R, B):
     from multimodalmusig_tpu.models.ctm_base import (
         CTMBaseConfig,
         calculate_Ndivzeta,
@@ -74,7 +104,6 @@ def test_plain_matches_the_jax_xla_sequence_in_float64(rng):
     )
     from multimodalmusig_tpu.ops.solvers import maximize_lambda, maximize_nu
 
-    K, R, B = (3, 4), 3, 17
     MK = sum(K)
     lam, nu, N, st, mu, invS = _inputs(rng, R, B, K, dtype=np.float64)
     budgets = dict(n_iter=7, cg_iter=MK, polish_iter=2)
@@ -90,6 +119,17 @@ def test_plain_matches_the_jax_xla_sequence_in_float64(rng):
                                jnp.asarray(mu[r]), jnp.asarray(invS[r]), **budgets)
         for g, w, label in zip(got, (zeta, nu2, lam2), ("zeta", "nu", "lam")):
             np.testing.assert_allclose(g[r].numpy(), np.asarray(w), rtol=1e-10, err_msg=label)
+
+
+def test_plain_matches_the_jax_xla_sequence_in_float64(rng):
+    """ζ → N/ζ → ν → λ of the JAX package (update_zeta, calculate_Ndivzeta,
+    maximize_nu, maximize_lambda) per lane, at the same budgets."""
+    _matches_the_jax_xla_sequence_in_float64(rng, (3, 4), 3, 17)
+
+
+def test_plain_matches_the_jax_xla_sequence_in_float64_at_MK_40(rng):
+    """The same at K = (20, 20), split4's range on the card."""
+    _matches_the_jax_xla_sequence_in_float64(rng, (20, 20), 2, 5)
 
 
 def test_zero_count_modality(rng):
@@ -209,10 +249,34 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(rng):
     (1, 50688, 29, "pair", 16, 64),  # the pair at P = 16 to its third wave
     (1, 50689, 29, "thread", 32, 64),
     (90, 560, 32, "pair", 16, 64),
-    (100, 560, 33, "block", 64, 4),
-    (100, 560, 64, "block", 64, 4),
-    (100, 560, 65, "block", 128, 2),
+    # above MK 32: 4 threads a problem to MK 64, 8 beyond, each at its least P
+    (100, 560, 33, "split4", 10, 32),
+    (100, 560, 40, "split4", 10, 32),  # K = (20, 20): stage 1 of the two-stage fit
+    (1000, 560, 40, "split4", 10, 32),
+    (100, 2800, 40, "split4", 10, 32),  # K = (20, 12, 8)
+    (100, 560, 41, "split4", 12, 32),
+    (100, 560, 48, "split4", 12, 32),
+    (100, 560, 49, "split4", 14, 32),
+    (100, 560, 57, "split4", 16, 32),
+    (100, 560, 64, "split4", 16, 32),
+    (100, 560, 65, "split8", 10, 16),
+    (100, 560, 80, "split8", 10, 16),
+    (100, 560, 81, "split8", 12, 16),
+    (100, 560, 97, "split8", 14, 16),
+    (100, 560, 113, "split8", 16, 16),
+    (100, 560, 128, "split8", 16, 16),
+    # few problems above MK 32: the block layout
     (1, 9, 128, "block", 128, 2),
+    (1, 560, 40, "block", 64, 4),  # K = (20, 20): stage 2, MMCTM.fit
+    (1, 112, 40, "block", 64, 4),
+    (1, 448, 40, "block", 64, 4),
+    (1, 2800, 40, "split4", 10, 32),
+    (1, 560, 64, "block", 64, 4),
+    (1, 448, 65, "block", 128, 2),
+    (1, 560, 65, "split8", 10, 16),
+    (1, 560, 128, "block", 128, 2),
+    (1, 2800, 128, "split8", 16, 16),
+    (32, 560, 128, "split8", 16, 16),
     # calls of few problems: R = 1 (stage 2, MMCTM.fit, inference, ranks)
     (1, 560, 14, "warp", 16, 4),
     (1, 448, 14, "warp", 16, 4),
@@ -235,17 +299,30 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(rng):
     (1, 4351, 25, "warp", 32, 8), (1, 4352, 25, "pair", 14, 64),
     (1, 6143, 31, "warp", 32, 8), (1, 6144, 31, "pair", 16, 64),
     (1, 10239, 32, "warp", 32, 8), (1, 10240, 32, "pair", 16, 64),
+    (1, 999, 33, "block", 64, 4), (1, 1000, 33, "split4", 10, 32),
+    (1, 999, 40, "block", 64, 4), (1, 1000, 40, "split4", 10, 32),
+    (1, 1499, 48, "block", 64, 4), (1, 1500, 48, "split4", 12, 32),
+    (1, 1999, 56, "block", 64, 4), (1, 2000, 56, "split4", 14, 32),
+    (1, 2999, 64, "block", 64, 4), (1, 3000, 64, "split4", 16, 32),
+    (1, 499, 65, "block", 128, 2), (1, 500, 65, "split8", 10, 16),
+    (1, 699, 96, "block", 128, 2), (1, 700, 96, "split8", 12, 16),
+    (1, 999, 112, "block", 128, 2), (1, 1000, 112, "split8", 14, 16),
+    (1, 1499, 128, "block", 128, 2), (1, 1500, 128, "split8", 16, 16),
+    (4, 560, 128, "split8", 16, 16), (6, 560, 64, "split4", 16, 32), (5, 560, 64, "block", 64, 4),
 ])
 def test_launch_geometry_picks_the_layout_by_MK(R, D, MK, layout, P, docs):
     geo = ek.launch_geometry(R, D, MK)
     assert (geo.layout, geo.P, geo.docs_per_block) == (layout, P, docs)
     ek._check_geometry(geo, MK)  # a launch the kernel takes
     assert geo in ek._candidate_geometries(MK)
-    assert (2 if layout == "pair" else 1) * geo.P >= MK
+    threads = {"pair": 2, "split4": 4, "split8": 8}.get(layout, 1)  # a problem's
+    assert threads * geo.P >= MK
     if layout == "block":  # blocks of 256 threads, P a problem
         assert geo.docs_per_block * geo.P == 256
     if layout == "warp":  # whole warps of 16- or 32-lane groups
         assert geo.docs_per_block * geo.P % 32 == 0
+    if layout in ("split4", "split8"):  # blocks of 128 threads
+        assert geo.docs_per_block * threads == 128
 
 
 @pytest.mark.parametrize("R, D, MK, blocks", [
@@ -264,6 +341,10 @@ def test_launch_geometry_picks_the_layout_by_MK(R, D, MK, layout, P, docs):
     (1, 2800, 14, 700),
     (1, 2800, 19, 350),  # 8 documents of 32 lanes
     (3, 50, 40, 13),  # the block group, 4 documents
+    (100, 560, 40, 18),  # split4: 32 documents of 4 threads
+    (100, 2800, 40, 88),
+    (100, 560, 128, 35),  # split8: 16 documents of 8 threads
+    (1, 2800, 128, 175),
 ])
 def test_thread_layout_blocks_cover_every_document_once(R, D, MK, blocks):
     """The kernel's grid is ⌈D / docs_per_block⌉ blocks per restart, so
@@ -290,6 +371,17 @@ def test_every_candidate_is_a_launch_the_kernel_takes():
         ek._check_geometry(ek.EtaGeometry("pair", 10, 20), 19)
     with pytest.raises(ValueError, match="no launch"):
         ek._check_geometry(ek.EtaGeometry("warp", 16, 4), 17)
+    # split4 and split8: P one of 10, 12, 14, 16 with Split·P ≥ MK, whole
+    # warps of problems, at most 128 threads a block
+    for geo, MK in (("split4", 10, 32), 41), (("split4", 9, 32), 33), (("split4", 10, 36), 40), \
+            (("split4", 10, 12), 40), (("split4", 10, 0), 40), (("split8", 16, 20), 128), \
+            (("split8", 16, 6), 128), (("split8", 14, 16), 113), (("split2", 16, 16), 32), \
+            (("split8", 18, 16), 128):
+        with pytest.raises(ValueError, match="no launch"):
+            ek._check_geometry(ek.EtaGeometry(*geo), MK)
+    for geo, MK in (("split4", 10, 8), 40), (("split4", 16, 24), 64), (("split8", 16, 4), 128), \
+            (("split8", 10, 12), 65), (("split8", 10, 16), 33):
+        ek._check_geometry(ek.EtaGeometry(*geo), MK)
 
 
 @pytest.mark.parametrize("R, D", [(0, 5), (2, 0)])

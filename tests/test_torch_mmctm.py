@@ -157,12 +157,13 @@ def test_fit_matches_jax_on_the_reference_fixture(mmctm_fixture):
 
 
 @requires_brca_data
-def test_fit_matches_jax_on_brca_for_five_iterations():
+@pytest.mark.parametrize("K", [(7, 7), (20, 20)])  # MK 14 and 40, B3's split4 range on the card
+def test_fit_matches_jax_on_brca_for_five_iterations(K):
     from multimodalmusig_tpu_torch.utils.data import BRCA_FILES, brca_counts_path
     from multimodalmusig_tpu_torch.utils.fast_tsv import read_counts_tsv
 
     Xnp = [read_counts_tsv(brca_counts_path(f))[0].T for f in BRCA_FILES]
-    got, want = _fit_both(Xnp, (7, 7), [0.1, 0.1], maxiter=5, tol=0.0, seed=3)
+    got, want = _fit_both(Xnp, K, [0.1, 0.1], maxiter=5, tol=0.0, seed=3)
     _assert_same_fit(got, want, 1e-9)
 
 
