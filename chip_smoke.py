@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (multimodalmusig_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--theta-parent DIR]
 
 Phases, each of which fails the run (non-zero exit) on any error:
   1. device: a CUDA card must be present; prints its name and power limit;
@@ -52,10 +52,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
      (3, 33, 128, 11), (2, 8, 5, 2) and (7, 101, 96, 7), at phase 16's
      rank shapes (1, 280, 96, 7), (1, 560, 48, 7) and (1, 560, 24, 7), at the K
      selection's (1, 560, 96, 9) and (100, 448, 48, 5) with log-weights near
-     -30 on rare terms, and at (100, 560, 96, 7) with LDA's logits (digammas
+     -30 on rare terms, at (100, 560, 96, 7) with LDA's logits (digammas
      of γ = α + counts and of λ = η + counts, down to about -17 and -22),
-     with bit-identical repeat launches; prints both times at the (100, ...)
-     shapes;
+     and above K = 8 (the split layout) at (100, 560, 96 and 48, 20), (100,
+     560, 96, 64), both with rare terms at V = 96, (1000, 560, 96, 20),
+     (1, 560, 96, 20), (1, 560, 96, 64) with rare terms, (7, 101, 48, 33)
+     and (3, 29, 128, 128) with rare terms, with bit-identical repeat
+     launches; prints both times and the bound at the (100, ...) shapes;
   6. main path: the best-of-100 MMCTM K=(7, 7), α=0.1 restart fit on the
      bundled BRCA-EU SNV+SV counts (D=560), float32, tol 1e-5, maxiter 1000,
      through `fit_restarts(...)` on the card, warm, then timed in turns on
@@ -183,6 +186,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
      selected lane converged, one η and two θ launches per CAVI iteration,
      the selected ll per modality no more than 5e-3 below the JAX
      package's two-stage fit of the same call (JAX_CPU_TWO_STAGE_LL_K20).
+ 20. K = 20 on the θ kernel's split layout, after phase 14: (a) `fit_restarts(SEED,
+     X, config, [0.1, 0.1], restarts=1000)` with K=(20, 20) on the BRCA-EU
+     counts, f32, tol 1e-5, maxiter 1000, uncut; (b) `fit_lda_restarts(20,
+     0.1, 0.1, docs_snv, restarts=100)`; each warm and then timed in turns
+     with an earlier commit's θ kernel when `--theta-parent DIR` names one
+     (`git archive` of it unpacked at DIR; parent, this, this, parent), else
+     this kernel twice; prints each run's wall, CAVI steps, ms per step and
+     peak memory. Gates: at least 99% finite lanes; the pick (the picked
+     lane's ll per modality; LDA's selected ll) within LL_SLACK of the
+     parent's run in this call and of PARENT_K20_PICKS; launches per step:
+     (a) one η and two θ, (b) two θ, and nothing else.
 The last two lines of standard output are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
 """
@@ -230,6 +244,12 @@ JAX_CPU_TWO_STAGE_LL = (-3.9388527870178223, -3.034494638442993)
 #                      dtype=jnp.float32)   # multimodalmusig_tpu.parallel.restarts
 K20 = (20, 20)
 JAX_CPU_TWO_STAGE_LL_K20 = (-3.930232048034668, -3.015367031097412)
+# Phase 20's picks with the θ kernel before its chunk layout (the tile
+# layout padded to a power of two at K > 8), on an NVIDIA H100 80GB HBM3 at
+# 700 W: the R=1000 MMCTM K=(20, 20) fit's picked lane, ll per modality, and
+# the R=100 LDA K=20 fit's selected ll.
+PARENT_K20_PICKS = {"MMCTM K=(20, 20) R=1000": [-3.929126739501953, -3.0120770931243896],
+                    "LDA K=20 R=100": [-3.9291162490844727]}
 # The selected ll of the JAX package's best-of-16 LDA and ILDA fits of the
 # BRCA-EU SNV counts on the CPU, float32 (16/16 lanes finite in each; the
 # ILDA features as `brca_features` gives them for SNV, J = (6, 16)):
@@ -778,6 +798,23 @@ def lda_logits(gen, R, D, V, K, X):
                                                                                 keepdim=True))
 
 
+def theta_problem(gen, R, D, V, K, logits="ctm"):
+    """The θ kernel's inputs on the card: those of tests/test_pallas_kernels.py
+    per restart lane ("ctm": λ ~ 2·N(0, 1), log ϕ ~ N(0, 1) - 4, counts 0..29),
+    with log ϕ about -30 on every fifth (rare) term in all topics but the
+    first ("rare"), or LDA's logits (`lda_logits`, "lda")."""
+    import torch
+
+    lam = 2.0 * torch.randn(R, D, K, generator=gen)
+    logw = torch.randn(R, V, K, generator=gen) - 4.0
+    if logits == "rare":  # log ϕ about -30 in all topics but the one that owns it
+        logw[:, ::5, 1:] -= 26.0
+    X = torch.randint(0, 30, (D, V), generator=gen).float()
+    if logits == "lda":
+        lam, logw = lda_logits(gen, R, D, V, K, X)
+    return [t.to("cuda") for t in (lam, logw, X)]
+
+
 def theta_phase(tk):
     import torch
 
@@ -785,26 +822,26 @@ def theta_phase(tk):
     max_err = 0.0
     timings = {}
     # (R, D, V, K, logits): the K selection's two with rare terms, K = 9 (the
-    # 16-wide instantiation) and K = 5; the LDA and ILDA fits' with LDA's;
-    # phase 16 (c)'s data ranks' and (e)'s vocab ranks' (V = 48 and 24)
+    # split layout) and K = 5; the LDA and ILDA fits' with LDA's; phase 16
+    # (c)'s data ranks' and (e)'s vocab ranks' (V = 48 and 24); K 20–128
+    # (the split layout): phase 19's and 20's K = 20 and K = 64 at R = 100,
+    # with rare terms too, R = 1000, R = 1, ragged D and V = 128
     for R, D, V, K, logits in ((RESTARTS, 560, 96, 7, "ctm"), (RESTARTS, 560, 48, 7, "ctm"),
                                (3, 33, 128, 11, "ctm"), (2, 8, 5, 2, "ctm"),
                                (1, 560, 96, 7, "ctm"), (7, 101, 96, 7, "ctm"),
                                (1, 280, 96, 7, "ctm"), (1, 560, 48, 7, "ctm"),
                                (1, 560, 24, 7, "ctm"),
                                (1, 560, 96, 9, "rare"), (RESTARTS, 448, 48, 5, "rare"),
-                               (RESTARTS, 560, 96, 7, "lda")):
-        # the inputs of tests/test_pallas_kernels.py, per restart lane
-        lam = 2.0 * torch.randn(R, D, K, generator=gen)
-        logw = torch.randn(R, V, K, generator=gen) - 4.0
-        if logits == "rare":  # log ϕ about -30 in all topics but the one that owns it
-            logw[:, ::5, 1:] -= 26.0
-        X = torch.randint(0, 30, (D, V), generator=gen).float()
+                               (RESTARTS, 560, 96, 7, "lda"),
+                               (RESTARTS, 560, 96, 20, "ctm"), (RESTARTS, 560, 48, 20, "ctm"),
+                               (RESTARTS, 560, 96, 64, "ctm"), (RESTARTS, 560, 96, 20, "rare"),
+                               (RESTARTS, 560, 96, 64, "rare"), (1000, 560, 96, 20, "ctm"),
+                               (1, 560, 96, 20, "ctm"), (1, 560, 96, 64, "rare"),
+                               (7, 101, 48, 33, "ctm"), (3, 29, 128, 128, "rare")):
+        args = theta_problem(gen, R, D, V, K, logits)
         if logits == "lda":
-            lam, logw = lda_logits(gen, R, D, V, K, X)
-            print(f"θ kernel LDA logits: E[ln θ] down to {float(lam.min()):.2f}, E[ln β] down "
-                  f"to {float(logw.min()):.2f}")
-        args = [t.to("cuda") for t in (lam, logw, X)]
+            print(f"θ kernel LDA logits: E[ln θ] down to {float(args[0].min()):.2f}, E[ln β] "
+                  f"down to {float(args[1].min()):.2f}")
         got = tk.theta_moments_fused(*args)
         again = tk.theta_moments_fused(*args)
         want = tk.theta_moments_fused_plain(*args)
@@ -2102,6 +2139,117 @@ def k20_two_stage_phase(mt, kernels, docs):
     return total
 
 
+def parent_theta_kernel(tree):
+    """The θ kernel module of an earlier commit unpacked at `tree` (e.g. a
+    `git archive` of the parent), imported as a package of its own, so its
+    kernel builds from its sources into its own _build/ and counts its own
+    launches."""
+    import importlib
+    import importlib.util
+
+    root = os.path.join(os.path.abspath(tree), "multimodalmusig_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "theta_parent", os.path.join(root, "__init__.py"), submodule_search_locations=[root])
+    package = importlib.util.module_from_spec(spec)
+    sys.modules["theta_parent"] = package
+    spec.loader.exec_module(package)
+    return importlib.import_module("theta_parent.ops.theta_kernel")
+
+
+def with_theta_kernel(module, fn):
+    """`fn()` with every θ call of the fits launched through `module`'s
+    wrapper (ctm_base.theta_moments_one calls theta_kernel.theta_moments_fused)."""
+    from multimodalmusig_tpu_torch.ops import theta_kernel as tk
+
+    wrapper = tk.theta_moments_fused
+    tk.theta_moments_fused = module.theta_moments_fused
+    try:
+        return fn()
+    finally:
+        tk.theta_moments_fused = wrapper
+
+
+def k20_theta_phase(mt, kernels, X, docs_snv, parent_tk):
+    """Phase 20: B4 above K = 8 on two fits, each warm and then timed in
+    turns with the parent's B4 (`parent_tk`, from --theta-parent) where
+    given (parent, this, this, parent), else this B4 twice: (a) the R=1000
+    MMCTM K=(20, 20) fit of the BRCA-EU counts, uncut; (b) the R=100 LDA
+    K=20 fit of the SNV counts (two B4 launches a step, no B3). Prints each
+    run's wall, steps, ms per step and peak memory. Gates: at least 99% of
+    the lanes finite; the pick (the picked lane's ll per modality, LDA's
+    selected ll) within LL_SLACK of the parent's run in this call, and of
+    PARENT_K20_PICKS (recorded with the parent's B4); the launches per step:
+    (a) one η, two θ, no λ; (b) two θ."""
+    import numpy as np
+    import torch
+
+    ek, lk, tk = kernels
+    config = mt.MMCTMConfig(K=K20, V=(96, 48), D=560, dtype=torch.float32)
+    arms = {"this": tk, "parent": parent_tk} if parent_tk is not None else {"this": tk}
+    order = ("parent", "this", "this", "parent") if parent_tk is not None else ("this", "this")
+
+    def mmctm_run():
+        res = mt.fit_restarts(SEED, X, config, [0.1, 0.1], restarts=1000, maxiter=MAXITER,
+                              tol=TOL)
+        ll = res.ll.cpu().double().numpy()
+        lane = int(mt.pick_optimal_restart(res.ll))
+        return dict(steps=loop_iterations(res.n_iters.max()), finite=int(
+            np.isfinite(ll).all(axis=1).sum()), lanes=len(ll), pick=ll[lane].tolist())
+
+    def lda_run():
+        with counting_fits() as count:
+            model = mt.fit_lda_restarts(20, 0.1, 0.1, docs_snv, restarts=RESTARTS,
+                                        maxiter=MAXITER, tol=TOL)
+        ll = model.restart_result.ll.cpu().double().numpy()
+        return dict(steps=count["steps"], finite=int(np.isfinite(ll).sum()), lanes=len(ll),
+                    pick=[float(model.ll)])
+
+    fits = {"MMCTM K=(20, 20) R=1000": (mmctm_run, True), "LDA K=20 R=100": (lda_run, False)}
+    total = {"estep_eta": 0, "lambda_newton": 0, "theta_moments": 0}
+    for label, (run, eta) in fits.items():
+        for arm, module in arms.items():
+            t0 = time.perf_counter()
+            with_theta_kernel(module, run)
+            print(f"phase 20 {label} warm-up run, {arm} B4: {time.perf_counter() - t0:.3f} s")
+        picks, walls = {}, {arm: [] for arm in arms}
+        for arm in order:
+            module = arms[arm]
+            torch.cuda.synchronize()
+            reset_counts(kernels)
+            module.LAUNCHES = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = with_theta_kernel(module, run)
+            wall = time.perf_counter() - t0
+            n = out["steps"]
+            launches = {"estep_eta": ek.LAUNCHES, "lambda_newton": lk.LAUNCHES,
+                        "theta_moments": module.LAUNCHES}
+            walls[arm].append(wall)
+            picks.setdefault(arm, out["pick"])
+            print(f"phase 20 {label}, {arm} B4: wall {wall:.4f} s, {n} CAVI iterations, "
+                  f"{1000 * wall / n:.4f} ms per CAVI iteration, peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; finite lanes "
+                  f"{out['finite']}/{out['lanes']}; pick {out['pick']}; kernel launches "
+                  f"{launches}")
+            if out["finite"] < 0.99 * out["lanes"]:
+                fail(f"phase 20 {label} ({arm} B4): only {out['finite']}/{out['lanes']} lanes "
+                     f"finite")
+            want = {"estep_eta": n if eta else 0, "lambda_newton": 0, "theta_moments": 2 * n}
+            if n <= 0 or launches != want:
+                fail(f"phase 20 {label} ({arm} B4): launches {launches}, not {want} for {n} "
+                     f"CAVI iterations")
+            for ref_label, ref in (("the parent's B4 in this run", picks.get("parent")),
+                                   ("PARENT_K20_PICKS", PARENT_K20_PICKS[label])):
+                if ref is not None and not np.allclose(out["pick"], ref, rtol=0, atol=LL_SLACK):
+                    fail(f"phase 20 {label} ({arm} B4): pick {out['pick']} not within "
+                         f"{LL_SLACK} of {ref_label}, {ref}")
+            if arm == "this":
+                total = {k: total[k] + launches[k] for k in total}
+        print(f"phase 20 {label} walls in turns: " + ", ".join(
+            f"{arm} B4 {walls[arm]} s" for arm in arms))
+    return total
+
+
 def lda_short_fit(mt, X_snv, features=None):
     """A short LDA fit (ILDA with `features`) of the SNV counts, 2 lanes x
     10 iterations from SEED, for `reference_phase`."""
@@ -2299,9 +2447,16 @@ def lda_inference_phase(mt, kernels, docs, features):
     return total
 
 
-def main():
+def main(argv=None):
+    import argparse
+
     import torch
 
+    p = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
+    p.add_argument("--theta-parent", metavar="DIR",
+                   help="an earlier commit unpacked at DIR: phase 20 runs its θ kernel in turns "
+                        "with this one")
+    args = p.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -2319,8 +2474,9 @@ def main():
         t0 = time.perf_counter()
         return kernel.build(), time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source, started together
-        builds = list(pool.map(timed_build, kernels))
+    parent_tk = parent_theta_kernel(args.theta_parent) if args.theta_parent else None
+    with ThreadPoolExecutor(4) as pool:  # one nvcc per source, started together
+        builds = list(pool.map(timed_build, [*kernels, *([parent_tk] if parent_tk else [])]))
     for lib, sec in builds:
         print(f"build: {sec:.2f} s ({lib})")
         with open(lib.rsplit("/", 1)[0] + "/build.log") as f:
@@ -2357,6 +2513,7 @@ def main():
         "K=(20, 20) two-stage": k20_two_stage_phase(mt, kernels, docs),
         "LDA and ILDA": lda_phase(mt, kernels, docs_snv, features[0]),
         "inference, LDA and ILDA": lda_inference_phase(mt, kernels, docs_snv, features[0]),
+        "K=20 θ (phase 20)": k20_theta_phase(mt, kernels, X, docs_snv, parent_tk),
     }
     cli_subprocess_phase()
     theta_launch_check(tk)

@@ -1,9 +1,9 @@
-"""Times the λ kernel (B1, and B2 at R = 1) or the η kernel (B3) on a CUDA
-card, layout by layout.
+"""Times the λ kernel (B1, and B2 at R = 1), the η kernel (B3) or the θ
+kernel (B4) on a CUDA card, layout by layout.
 
-    python3 lambda_bench.py [--eta] [--tree DIR] [--layouts]
+    python3 lambda_bench.py [--eta | --theta] [--tree DIR] [--layouts]
         [--shapes R,D,MK,cavi|cold ... | --eta --shapes R,D,K1+K2+...,cavi|cold ...
-         | --eta --crossovers]
+         | --theta --shapes R,D,V,K ... | --eta --crossovers]
         [--reps 20] [--out FILE]
 
 For each shape of SHAPES (with --eta ETA_SHAPES, with --crossovers
@@ -15,7 +15,12 @@ launches it (`launch_geometry`), its max |kernel − plain| and its bound
 (the larger of the bytes over the card's memory rate and the float
 operations over its float32 rate: chip_smoke.py's `lambda_bound` and
 `eta_bound`); with --eta also the plain version's time (CUDA events around
-eager calls). With --layouts it does the same for every layout of
+eager calls). With --theta it times B4 at THETA_SHAPES on chip_smoke.py's
+`theta_problem` inputs, with the plain version's time, its bound
+(`theta_bound`) and, as the yardstick a hand-written kernel must beat, the
+factorized schedule (`ctm_base.theta_moments_one`'s "factorized" route:
+three batched cuBLAS matmuls, TF32 off), timed as the kernel is. With
+--layouts it does the same for every layout of
 `_candidate_geometries(MK)`, each launched through the module's private
 `_launch_at`. Two times per call, each the median over 5 runs of CUDA
 events around `--reps` calls, divided by `--reps`: "eager", the calls back
@@ -92,6 +97,17 @@ CROSSOVER_SHAPES = tuple(
                         (56, 56), (64, 64))
     for R, D in ((1, 560), (1, 840), (1, 1120), (2, 560), (1, 1680), (3, 560), (1, 2240),
                  (4, 560), (1, 2800), (1, 3360), (6, 560), (1, 4480), (8, 560), (1, 5600)))
+# (R, D, V, K) of --theta: the BRCA vocabularies (V = 96 and 48) at R = 100
+# by D = 560 for K 7–128 (either side of the power-of-two and multiple-of-8
+# paddings), K = 20 at R = 1000 and at PCAWG's D = 2800, K selection's
+# (9, 9) on the 448 training documents, R = 1 (stage 2, inference) and the
+# small restart batches R = 8 and 32.
+THETA_SHAPES = (
+    *((100, 560, V, K) for V in (96, 48)
+      for K in (7, 9, 12, 16, 20, 24, 32, 33, 40, 48, 64, 65, 96, 128)),
+    (1000, 560, 96, 20), (100, 2800, 96, 20), (100, 448, 48, 9),
+    (1, 560, 96, 20), (1, 560, 96, 64), (8, 560, 96, 20), (32, 560, 96, 64),
+)
 ETA_BUDGETS = {"cavi": dict(n_iter=3, cg_iter=4, polish_iter=1, nu_n_iter=4), "cold": {}}
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -189,7 +205,43 @@ def eta_runs(torch, ek, gen, shape, layouts):
     return {"R": R, "D": D, "K": list(K), "MK": MK, "budgets": budget}, bnd, plain_ms, runs, err
 
 
+def theta_runs(torch, tk, gen, shape, layouts):
+    """B4 at one (R, D, V, K): (label fields, bound, plain ms, runs), the
+    factorized schedule's run last, labelled "factorized"."""
+    from multimodalmusig_tpu_torch.models import ctm_base
+
+    R, D, V, K = shape
+    data = chip_smoke.theta_problem(gen, R, D, V, K)
+    want = tk.theta_moments_fused_plain(*data)
+    plain_ms = eager_ms(torch, lambda: tk.theta_moments_fused_plain(*data), 5)
+    bnd = chip_smoke.theta_bound(R, D, V, K)
+    default = lambda: tk.theta_moments_fused(*data)  # noqa: E731
+    if hasattr(tk, "_launch_at"):
+        picked = tk.launch_geometry(R, D, V, K)
+        runs = [(tuple(picked), default)]
+        if layouts:
+            runs += [(tuple(g), lambda g=g: tk._launch_at(g, *data))
+                     for g in tk._candidate_geometries(R, D, V, K) if g != picked]
+    else:  # an earlier tree: the geometry its launch_geometry picks
+        runs = [(tuple(tk.launch_geometry(R, D, V, K)), default)]
+
+    def factorized():
+        route = ctm_base._theta_route
+        ctm_base._theta_route = lambda *a: "factorized"
+        try:
+            with ctm_base.full_f32_matmuls():
+                return ctm_base.theta_moments_one(*data)
+        finally:
+            ctm_base._theta_route = route
+
+    runs.append(("factorized", factorized))
+    err = lambda got: max(float((g - w).abs().max()) for g, w in zip(got, want))  # noqa: E731
+    return {"R": R, "D": D, "V": V, "K": K}, bnd, plain_ms, runs, err
+
+
 def parse_shape(text, eta):
+    if eta == "theta":
+        return tuple(int(a) for a in text.split(","))
     R, D, mk, budget = text.split(",")
     return (int(R), int(D), tuple(int(k) for k in mk.split("+")) if eta else int(mk), budget)
 
@@ -197,6 +249,7 @@ def parse_shape(text, eta):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--eta", action="store_true", help="time the η kernel (B3)")
+    p.add_argument("--theta", action="store_true", help="time the θ kernel (B4)")
     p.add_argument("--tree", help="import the package from this directory")
     p.add_argument("--layouts", action="store_true", help="time every candidate layout")
     p.add_argument("--crossovers", action="store_true",
@@ -213,23 +266,26 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         sys.exit("lambda_bench: needs a CUDA card")
-    module = "estep_kernel" if args.eta else "lambda_kernel"
+    mode = "theta" if args.theta else "eta" if args.eta else ""
+    module = {"theta": "theta_kernel", "eta": "estep_kernel", "": "lambda_kernel"}[mode]
     kernel = importlib.import_module(f"multimodalmusig_tpu_torch.ops.{module}")
     kernel.build()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    name = "η" if args.eta else "λ"
+    name = {"theta": "θ", "eta": "η", "": "λ"}[mode]
     print(f"{name} kernel of {root}: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     gen = torch.Generator().manual_seed(4)
     out = open(args.out, "a") if args.out else None
     if args.shapes:
-        shapes = [parse_shape(a, args.eta) for a in args.shapes]
+        shapes = [parse_shape(a, mode) for a in args.shapes]
+    elif mode == "theta":
+        shapes = THETA_SHAPES
     else:
         eta_shapes = CROSSOVER_SHAPES if args.crossovers else ETA_SHAPES
         shapes = [(*s, "cavi") for s in eta_shapes] if args.eta else SHAPES
+    runner = {"theta": theta_runs, "eta": eta_runs, "": lambda_runs}[mode]
     for shape in shapes:
-        fields, (bms, by), plain_ms, runs, error = (eta_runs if args.eta else lambda_runs)(
-            torch, kernel, gen, shape, args.layouts)
+        fields, (bms, by), plain_ms, runs, error = runner(torch, kernel, gen, shape, args.layouts)
         for i, (geo, fn) in enumerate(runs):
             got = fn()
             torch.cuda.synchronize()
@@ -240,7 +296,8 @@ def main(argv=None):
                     "bound_ms": bms, "bound_by": by, "over_bound": device / bms, "card": smi,
                     "tree": root}
             plain = f", plain {plain_ms:.4f} ms" if plain_ms is not None and i == 0 else ""
-            print(f"{shape[:3]} {shape[3]:4s} {str(geo):32s} {'picked' if i == 0 else '      '} "
+            label = shape if mode == "theta" else f"{shape[:3]} {shape[3]:4s}"
+            print(f"{label} {str(geo):32s} {'picked' if i == 0 else '      '} "
                   f"eager {eager:.5f}, device {device:.5f} ms per call, {device / bms:6.1f}x its "
                   f"bound {bms:.6f} ms ({by}){plain}; max|kernel - plain| {err:.3e}", flush=True)
             if out:

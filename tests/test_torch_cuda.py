@@ -661,6 +661,133 @@ def test_theta_kernel_at_the_k_selection_shapes(cuda, R, D, V, K):
         torch.testing.assert_close(g, w, rtol=2e-5, atol=1e-4)
 
 
+# K above 8: the chunk layout (csrc/theta_moments.cu), every candidate the
+# rule weighs (ops/theta_kernel._candidate_geometries)
+CHUNK_K = (9, 12, 20, 33, 40, 64, 65, 128)
+
+
+def _theta_holds(got, again, want, label):
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a), label
+        assert torch.isfinite(g).all(), label
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=1e-4, msg=lambda m: f"{label}: {m}")
+
+
+@pytest.mark.parametrize("K", CHUNK_K)
+@pytest.mark.parametrize("R, D, V, rare", [(3, 101, 96, False), (1, 560, 48, False),
+                                           (2, 37, 24, False), (7, 101, 96, True),
+                                           (1, 560, 96, True)])
+def test_theta_kernel_above_K_8_matches_plain_on_every_candidate(cuda, R, D, V, K, rare):
+    """Ragged D, R = 1, the vocab ranks' V = 24, and log-weights near -30
+    on every fifth (rare) term in all topics but the first; each candidate
+    layout within rtol 2e-5, atol 1e-4 of plain, a repeat bit-identical."""
+    lam, logw, X = _theta_inputs(R * D + V + K, R, D, V, K, cuda)
+    if rare:
+        logw[:, ::5, 1:] -= 26.0
+    want = tk.theta_moments_fused_plain(lam, logw, X)
+    for geo in tk._candidate_geometries(R, D, V, K):
+        got = tk._launch_at(geo, lam, logw, X)
+        again = tk._launch_at(geo, lam, logw, X)
+        torch.cuda.synchronize()
+        _theta_holds(got, again, want, tuple(geo))
+
+
+@pytest.mark.parametrize("K", [20, 64, 128])
+def test_theta_kernel_above_K_8_reads_strided_views(cuda, K):
+    """λ's block of a wider (R, D, MK) tensor, and logw as E[ln ϕ]ᵀ."""
+    lam, logw, X = _theta_inputs(K, 3, 50, 48, K, cuda)
+    full = torch.cat([torch.randn(3, 50, 4, device=cuda), lam], dim=-1)
+    got = tk.theta_moments_fused(full[..., 4:], logw.mT.contiguous().mT, X)
+    want = tk.theta_moments_fused(lam, logw, X)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("R, D, V, K", [(2, 90, 96, 20), (1, 560, 48, 64), (3, 41, 24, 128)])
+def test_theta_kernel_above_K_8_on_cells_far_below_their_row_maxima(cuda, R, D, V, K):
+    """Cells whose best topic sits 100 nats below max_k λ + max_k logw: the
+    factorized products underflow, so their blocks take the exact path
+    (the joint max per cell), and match plain; a dead lane (NaN λ) is NaN
+    and leaves the other lanes' bits as they were."""
+    lam, logw, X = _theta_inputs(R + D + V + K, R, D, V, K, cuda)
+    lam[0, 1, :], lam[0, 1, 0] = -100.0, 0.0
+    logw[0, 2, :], logw[0, 2, 0] = 0.0, -100.0
+    want = tk.theta_moments_fused_plain(lam, logw, X)
+    for geo in tk._candidate_geometries(R, D, V, K):
+        got = tk._launch_at(geo, lam, logw, X)
+        again = tk._launch_at(geo, lam, logw, X)
+        torch.cuda.synchronize()
+        _theta_holds(got, again, want, tuple(geo))
+    if R > 1:
+        dead = lam.clone()
+        dead[1, 3, 0] = torch.nan
+        got = tk.theta_moments_fused(dead, logw, X)
+        alive = tk.theta_moments_fused(lam, logw, X)
+        others = [i for i in range(R) if i != 1]
+        assert torch.isnan(got[0][1, 3]).all() and torch.isnan(got[1][1]).all()
+        assert torch.equal(got[0][others], alive[0][others])
+        assert torch.equal(got[1][others], alive[1][others])
+
+
+@pytest.mark.parametrize("K", [20, 64])
+def test_theta_kernel_above_K_8_is_one_device_kernel_per_call(cuda, K):
+    """The clusters' sums and the last cluster's: no second kernel, no
+    memset of the arrival counters."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _theta_inputs(9, 100, 560, 96, K, cuda)
+    tk.theta_moments_fused(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tk.theta_moments_fused(*args)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "theta_moments_kernel" in kernels[0]
+
+
+def _lda_theta_inputs(seed, R, D, V, K, device):
+    """LDA's θ-kernel inputs, E[ln θ] and E[ln β], from γ = α + counts and
+    λ = η + counts split over the topics by weights u^8 (α = η = 0.1), and
+    counts 0..29, from NumPy."""
+    rng = np.random.default_rng(seed)
+    X = rng.integers(0, 30, (D, V)).astype(np.float64)
+
+    def split(totals, shape):
+        w = rng.uniform(size=shape) ** 8
+        return 0.1 + totals * w / w.sum(axis=-1, keepdims=True)
+
+    gamma = torch.as_tensor(split(X.sum(axis=1)[None, :, None], (R, D, K)))
+    lam = torch.as_tensor(split(X.sum(axis=0)[None, :, None], (R, V, K)))
+    dg = torch.special.digamma
+    elog_theta = dg(gamma) - dg(gamma.sum(dim=-1, keepdim=True))
+    elog_beta = dg(lam) - dg(lam.sum(dim=-2, keepdim=True))
+    return [torch.as_tensor(a, dtype=torch.float32, device=device)
+            for a in (elog_theta, elog_beta, X)]
+
+
+# sha256 (first 16 hex digits) of the θ kernel's sumθ then scatter bytes at
+# K ≤ 8 from the kernel before the chunk layout (NVIDIA H100 80GB HBM3,
+# nvcc 12.9): the tile layout is unchanged, so are its bits.
+THETA_TILE_DIGESTS = {
+    (100, 560, 96, 7, "ctm"): "98a1e069484a19ae",
+    (100, 560, 48, 7, "ctm"): "0806d8e6492d5a46",
+    (100, 560, 96, 7, "lda"): "f574511c86db80d4",
+}
+
+
+def _theta_digest(key, device):
+    R, D, V, K, logits = key
+    make = _lda_theta_inputs if logits == "lda" else _theta_inputs
+    args = make(R * D + V + K, R, D, V, K, device)
+    st, sc = tk.theta_moments_fused(*args)
+    data = st.cpu().numpy().tobytes() + sc.cpu().numpy().tobytes()
+    return hashlib.sha256(data).hexdigest()[:16]
+
+
+@pytest.mark.parametrize("key", sorted(THETA_TILE_DIGESTS))
+def test_theta_kernel_at_K_8_or_less_keeps_its_bits(cuda, key):
+    assert _theta_digest(key, cuda) == THETA_TILE_DIGESTS[key]
+
+
 def mmctm_state_to(state, device, dtype=torch.float32):
     """An MMCTM state's tensors on `device` in `dtype`."""
     return type(state)(*(tuple(t.to(device, dtype) for t in x) if isinstance(x, tuple)

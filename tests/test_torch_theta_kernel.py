@@ -37,7 +37,8 @@ def _inputs(rng, R, D, V, K, dtype=np.float32):
     return [a.astype(dtype) for a in (lam, logw, X)]
 
 
-@pytest.mark.parametrize("D, V, K", [(17, 96, 7), (560, 48, 7), (33, 128, 11), (8, 5, 2)])
+@pytest.mark.parametrize("D, V, K", [(17, 96, 7), (560, 48, 7), (33, 128, 11), (8, 5, 2),
+                                     (21, 96, 20), (9, 48, 64)])
 def test_plain_matches_jax_kernel_per_lane(rng, D, V, K):
     from pallas_experiments.theta_kernel import theta_moments_fused as jax_fused
 
@@ -145,37 +146,79 @@ def test_launch_geometry_at_the_brca_and_ragged_shapes(R, D, V, K, want):
     assert geo.scratch == R * geo.grid[0] * K * V and geo.counter == R
 
 
+# the BRCA shapes, ragged ones, and K 9–128 (the chunk layout) at R = 1, 100
+# and 1000 by D = 560 and V = 96, 48 and 24 (the vocab ranks' slices)
+CHUNK_K = (9, 12, 20, 33, 40, 64, 65, 128)
 SHAPES = [(100, 560, 96, 7), (100, 560, 48, 7), (1, 560, 96, 7), (100, 561, 96, 7),
           (3, 33, 128, 11), (2, 8, 5, 2), (2, 40, 24, 128), (3, 29, 128, 128), (7, 101, 96, 7),
-          (1, 1, 1, 1), (4, 70, 97, 8), (2, 50, 20, 16), (2, 50, 64, 33)]
+          (1, 1, 1, 1), (4, 70, 97, 8), (2, 50, 20, 16), (2, 50, 64, 33),
+          *((R, 560, V, K) for K in CHUNK_K for R in (1, 100, 1000) for V in (96, 48, 24))]
 
 
 @pytest.mark.parametrize("R, D, V, K", SHAPES)
 def test_launch_geometry_invariants(R, D, V, K):
-    geo = tk.launch_geometry(R, D, V, K)
-    assert geo.item_groups == -(-V // geo.tile_items)
-    assert geo.item_groups * geo.doc_rows <= tk.MAX_THREADS
-    assert geo.docs_per_block == geo.doc_rows * geo.tile_docs <= tk.BLOCK_DOCS
-    assert geo.grid == (-(-D // geo.docs_per_block), R)
-    assert (geo.grid[0] - 1) * geo.docs_per_block < D  # no block without a document
-    smem = tk._smem_bytes(K, geo.item_groups, geo.doc_rows, geo.tile_docs, geo.tile_items)
-    assert smem <= 227 * 1024  # a block's shared memory on the H100
-    if geo.tile_docs > 1:
-        assert smem <= tk.MAX_SMEM
+    """The tile layout at K ≤ 8; above, the chunk layout's limits: the chunk
+    within the Z tiles' reach, whole clusters of at most MAX_CLUSTER blocks, empty
+    blocks only in the last cluster, at least BLOCK_MIN_DOCS documents a
+    block at R·D ≥ FEW_DOCS, the scratch within R·⌈D/32⌉·K·V, and a block's
+    shared memory under the H100's 227 KB; for every candidate the rule
+    weighs."""
+    for geo in tk._candidate_geometries(R, D, V, K):
+        assert geo.grid[1] == R and geo.counter == R
+        if K <= 8:
+            smem = tk._smem_bytes(K, geo.item_groups, geo.doc_rows, geo.tile_docs,
+                                  geo.tile_items)
+            assert smem <= 227 * 1024  # a block's shared memory on the H100
+            assert geo.layout == "tile" and geo.cluster == 1
+            assert geo.item_groups == -(-V // geo.tile_items)
+            assert geo.item_groups * geo.doc_rows <= tk.MAX_THREADS
+            assert geo.docs_per_block == geo.doc_rows * geo.tile_docs <= tk.BLOCK_DOCS
+            assert geo.grid == (-(-D // geo.docs_per_block), R)
+            assert (geo.grid[0] - 1) * geo.docs_per_block < D  # no block without a document
+            assert geo.scratch == R * geo.grid[0] * K * V
+            if geo.tile_docs > 1:
+                assert smem <= tk.MAX_SMEM
+            continue
+        assert geo.layout == "chunk" and geo.doc_rows == 1 and geo.tile_items == 0
+        assert tk._chunk_smem_bytes(V, K, geo.chunk_docs) <= 227 * 1024
+        assert geo.item_groups in (256, 512)
+        _, zn = tk._chunk_tiles(V, geo.item_groups)
+        assert 1 <= geo.chunk_docs <= min(geo.docs_per_block, zn * tk.Z_DOCS, tk.CHUNK_DOCS)
+        assert 1 <= geo.cluster <= tk.MAX_CLUSTER and geo.grid[0] % geo.cluster == 0
+        assert geo.docs_per_block == geo.tile_docs and geo.grid[0] * geo.docs_per_block >= D
+        assert (geo.grid[0] - geo.cluster) * geo.docs_per_block < D
+        if R * D >= tk.FEW_DOCS:
+            assert geo.docs_per_block >= tk.BLOCK_MIN_DOCS
+        clusters = geo.grid[0] // geo.cluster
+        assert geo.scratch == (R * clusters * K * V if clusters > 1 else 0)
+        assert geo.scratch <= R * -(-D // 32) * K * V
 
 
 @pytest.mark.parametrize("R, D, V, K", SHAPES)
 def test_the_geometry_covers_every_cell_once(R, D, V, K):
     """The kernel's map from (block, thread, tile slot) to (d, v), replayed
-    in NumPy: every cell of the (D, V) counts falls in exactly one slot."""
-    g = tk.launch_geometry(1, D, V, K)
-    b, tid, j, i = np.meshgrid(np.arange(g.grid[0]), np.arange(g.item_groups * g.doc_rows),
-                               np.arange(g.tile_docs), np.arange(g.tile_items), indexing="ij")
-    vg, dg = tid % g.item_groups, tid // g.item_groups
-    d = b * g.docs_per_block + dg * g.tile_docs + j
-    v = vg + i * g.item_groups
-    live = (d < D) & (v < V)
+    in NumPy: every cell of the (D, V) counts falls in exactly one slot; in
+    the chunk layout, that of the Z tiles, chunk by chunk."""
+    g = tk.launch_geometry(R, D, V, K)
     hits = np.zeros((D, V), np.int64)
+    if g.layout == "tile":
+        b, tid, j, i = np.meshgrid(np.arange(g.grid[0]), np.arange(g.item_groups * g.doc_rows),
+                                   np.arange(g.tile_docs), np.arange(g.tile_items), indexing="ij")
+        vg, dg = tid % g.item_groups, tid // g.item_groups
+        d = b * g.docs_per_block + dg * g.tile_docs + j
+        v = vg + i * g.item_groups
+        live = (d < D) & (v < V)
+    else:
+        nvz, zn = tk._chunk_tiles(V, g.item_groups)
+        chunks = -(-g.tile_docs // g.chunk_docs)
+        b, c, tid, i, j = np.meshgrid(np.arange(g.grid[0]), np.arange(chunks),
+                                      np.arange(g.item_groups), np.arange(tk.Z_DOCS),
+                                      np.arange(tk.Z_ITEMS), indexing="ij")
+        dl = tid // nvz + i * zn
+        d = b * g.docs_per_block + c * g.chunk_docs + dl
+        v = tid % nvz + j * nvz
+        block_end = np.minimum(D, (b + 1) * g.docs_per_block)
+        live = (tid // nvz < zn) & (dl < g.chunk_docs) & (d < block_end) & (v < V)
     np.add.at(hits, (d[live], v[live]), 1)
     assert (hits == 1).all()
 
