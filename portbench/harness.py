@@ -1,0 +1,261 @@
+"""One run of one cell: set-up, the measured window, the traced fits, the
+check, and the result line.
+
+The window is a closed loop with one client: the cell's job (one call of
+the entry point the traffic mix names) runs back to back, fit i with a
+restart seed drawn from (--seed, i), until the first fit that ends after
+--seconds. Two fits of the window, sampled from the seed as they start
+(reservoir sampling), keep what the check compares (portbench/check.py).
+"""
+
+from __future__ import annotations
+
+import os
+import statistics
+import sys
+import tempfile
+import time
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from . import check, corpus, trace as trace_mod, yardstick
+from .instrument import Recorder
+
+SAMPLED_FITS = 2
+TRACE_SEED_OFFSET = 1 << 20
+FORBIDDEN = ("jax", "jaxlib", "flax", "multimodalmusig_tpu")
+
+
+def program():
+    """The modules of the package under test that the harness drives."""
+    from multimodalmusig_tpu_torch import cli
+    from multimodalmusig_tpu_torch.models import mmctm
+    from multimodalmusig_tpu_torch.ops import estep_kernel, theta_kernel
+    from multimodalmusig_tpu_torch.parallel import restarts
+    return SimpleNamespace(cli=cli, mmctm=mmctm, estep_kernel=estep_kernel,
+                           theta_kernel=theta_kernel, restarts=restarts)
+
+
+def _entropy(seed):
+    return int(seed) & 0xFFFFFFFFFFFFFFFF
+
+
+def fit_seed(seed, i):
+    """The restart seed of fit i of a run with --seed `seed`."""
+    ss = np.random.SeedSequence([_entropy(seed), int(i) + 1])
+    return int(ss.generate_state(1, dtype=np.uint32)[0])
+
+
+def forbidden_modules():
+    """Loaded modules whose top-level name is one of FORBIDDEN."""
+    return sorted({name.split(".")[0] for name in list(sys.modules)} & set(FORBIDDEN))
+
+
+class Job:
+    """One call of the traffic mix's entry point on the configuration's
+    corpus."""
+
+    def __init__(self, prog, config, traffic, data, outdir, device, span):
+        self.p, self.config, self.traffic, self.data = prog, config, traffic, data
+        self.outdir, self.device, self.span = outdir, device, span
+        self.entry = traffic["entry"]
+        if self.entry == "fit_mmctm_restarts":
+            self.docs = corpus.sparse_docs(data["X"])
+        elif self.entry == "cli":
+            corpus.write_tsvs(data, config, os.path.join(outdir, "counts"))
+            os.makedirs(outdir, exist_ok=True)
+            self.tables = {k: os.path.join(outdir, f"{k}.tsv") for k in ("sigs", "props")}
+        else:
+            raise ValueError(f"unknown entry {self.entry!r}")
+
+    def run(self, seed):
+        """Fit once; True when the entry point returned a finite answer."""
+        c = self.config
+        if self.entry == "fit_mmctm_restarts":
+            model = self.p.restarts.fit_mmctm_restarts(
+                c["K"], c["alpha"], self.docs, V=c["V"], seed=seed, device=self.device,
+                **self.traffic.get("kwargs", {}))
+            return bool(np.all(np.isfinite(model.ll)))
+        argv = [*self.data["tsv"], "-k", *map(str, c["K"]), "-m", *c["modalities"],
+                "--alpha", str(c["alpha"][0]), *self.traffic.get("argv", []),
+                "--sigs", self.tables["sigs"], "--props", self.tables["props"],
+                "--seed", str(seed), "--device", "cuda" if self.device == "cuda" else "cpu"]
+        with self.span("cli.main"):
+            return self.p.cli.main(argv) == 0
+
+    def read_tables(self):
+        """The CLI's written signatures [(K_m, V_m)] and proportions (MK, D)."""
+        if self.entry != "cli":
+            return None
+        c = self.config
+        sigs = [np.zeros((k, v)) for k, v in zip(c["K"], c["V"])]
+        mods = {name: m for m, name in enumerate(c["modalities"])}
+        with open(self.tables["sigs"]) as f:
+            next(f)
+            for line in f:
+                mod, topic, value, _, prob = line.rstrip("\n").split("\t")
+                sigs[mods[mod]][int(topic) - 1, int(value) - 1] = float(prob)
+        with open(self.tables["props"]) as f:
+            next(f)
+            props = np.array([[float(x) for x in line.rstrip("\n").split("\t")[1:]]
+                              for line in f])
+        return {"sigs": sigs, "props": props}
+
+
+def _sync(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _launches(prog):
+    return {"eta": prog.estep_kernel.LAUNCHES, "theta": prog.theta_kernel.LAUNCHES}
+
+
+def run_cell(resolved, seed, seconds, trace, device="cuda", t_start=None, log=sys.stderr):
+    """Run the cell once; returns the result line's dict."""
+    t_start = time.perf_counter() if t_start is None else t_start
+    config, traffic, cell = resolved["config"], resolved["traffic"], resolved["cell"]
+    prog = program()
+    recorder = Recorder(prog)
+    recorder.install()
+    try:
+        t_data = time.perf_counter()
+        data = corpus.load(config)
+        outdir = os.path.join(tempfile.gettempdir(), "portbench", cell["name"])
+        job = Job(prog, config, traffic, data, outdir, device, recorder.span)
+        # set-up: one fit warms the cell's shapes and builds or loads the kernels
+        t_warm = time.perf_counter()
+        job.run(fit_seed(seed, -1))
+        _sync(device)
+        t_end = time.perf_counter()
+        setup_s = t_end - t_start
+        print(f"portbench: set-up {setup_s!r} s: start and imports {t_data - t_start!r}, "
+              f"corpus {t_warm - t_data!r}, warm fit {t_end - t_warm!r}", file=log)
+
+        # the measured window
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        recorder.reset()
+        chooser = np.random.default_rng(np.random.SeedSequence([_entropy(seed), 0xC0FFEE]))
+        samples, walls, failed = [None] * SAMPLED_FITS, [], 0
+        t_w0 = time.perf_counter()
+        while True:
+            i = len(walls)
+            slot = i if i < SAMPLED_FITS else int(chooser.integers(0, i + 1))
+            sampled = slot < SAMPLED_FITS
+            recorder.begin_fit(np.random.default_rng(np.random.SeedSequence(
+                [_entropy(seed), 0x5A3D, i])) if sampled else None)
+            t0 = time.perf_counter()
+            try:
+                ok = job.run(fit_seed(seed, i))
+            except Exception as exc:  # a failing fit is counted, and the run goes on
+                print(f"portbench: fit {i} raised {type(exc).__name__}: {exc}", file=log)
+                ok = False
+            _sync(device)
+            walls.append(time.perf_counter() - t0)
+            rec = recorder.end_fit()
+            if rec is not None and ok:
+                tables = job.read_tables()
+                if tables is not None:
+                    rec["tables"] = tables
+                samples[slot] = rec
+            failed += not ok
+            if time.perf_counter() - t_w0 >= seconds:
+                break
+        window_s = time.perf_counter() - t_w0
+        mem_peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+        run = {
+            "workload": cell["name"], "config": config, "traffic": traffic,
+            "fits": len(walls), "window_s": window_s, "fit_walls": walls,
+            "restarts_s": recorder.restarts_s, "steps": recorder.steps,
+            "lane_steps": recorder.lane_steps, "loop_s": recorder.loop_s,
+            "lane_iters_needed": recorder.lane_iters_needed(), "yardstick": yardstick,
+        }
+
+        summary = None
+        if trace:
+            summary = _traced_fits(prog, recorder, job, seed, traffic, device, run)
+        job = None
+    finally:
+        recorder.uninstall()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    found = forbidden_modules()
+    if found:
+        raise SystemExit(f"portbench: the run loaded {', '.join(found)}")
+
+    samples = [s for s in samples if s is not None]
+    values = check.numbers(samples, data["X"], config["K"], device)
+    ok, checks = check.judge(values, config["limits"], check.required(traffic["entry"]))
+    correct = ok and failed == 0 and len(samples) > 0
+
+    metrics = {}
+    if trace:
+        for entry, read in resolved["per_layer"]:
+            value = read(run)
+            if value is not None:
+                metrics[entry["name"]] = {"value": value, "unit": entry["unit"]}
+    else:
+        e2e = {
+            "fit_s": window_s / len(walls),
+            "fit_s_p90": (statistics.quantiles(walls, n=10)[-1] if len(walls) >= 2
+                          else walls[0]),
+            "peak_mem_gib": mem_peak / 2**30,
+            "setup_s": setup_s,
+        }
+        for entry in resolved["end_to_end"]:
+            if entry["name"] in e2e:
+                metrics[entry["name"]] = {"value": e2e[entry["name"]], "unit": entry["unit"]}
+    dev = {"platform": "gpu" if device == "cuda" else "cpu",
+           "kind": torch.cuda.get_device_name(0) if device == "cuda" else "cpu",
+           "count": 1, "memory_peak_bytes": int(mem_peak)}
+    result = {"correct": bool(correct), "attempted": len(walls), "failed": failed,
+              "metrics": metrics, "device": dev}
+    if summary is not None:
+        dev["busy_s"] = summary["busy_s"]
+        dev["window_s"] = summary["window_s"]
+        result["breakdown"] = {"device_ops": summary["device_ops"],
+                               "idle_gaps": summary["idle_gaps"]}
+    result["checks"] = checks
+    return result
+
+
+def _run_traced(recorder, job, seed, n, device):
+    for j in range(n):
+        with recorder.span("portbench.fit"):
+            job.run(fit_seed(seed, TRACE_SEED_OFFSET + j))
+            _sync(device)
+
+
+def _traced_fits(prog, recorder, job, seed, traffic, device, run):
+    """Profile a bounded run of whole fits after the window; add to `run`
+    the trace's summary and what the kernels' wrappers counted."""
+    n = int(traffic.get("traced_fits", 2))
+    recorder.reset()
+    recorder.tracing = True
+    before = _launches(prog)
+    try:
+        if device == "cuda":
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                _run_traced(recorder, job, seed, n, device)
+            events = prof.profiler.kineto_results.events()
+        else:  # no device activity to record
+            _run_traced(recorder, job, seed, n, device)
+            events = []
+    finally:
+        recorder.tracing = False
+    after = _launches(prog)
+    fits = [sp for sp in recorder.spans if sp[2] == "portbench.fit"]
+    summary = trace_mod.summarize(events, recorder.spans, fits[0][0], fits[-1][1])
+    print(f"portbench: traced {n} fits; the first device event {summary['first_device_s']!r} s "
+          "after the first fit began", file=sys.stderr)
+    run["trace"] = summary
+    run["traced"] = {"eta": dict(recorder.kernels["eta"], launches=after["eta"] - before["eta"]),
+                     "theta": dict(recorder.kernels["theta"],
+                                   launches=after["theta"] - before["theta"]),
+                     "lane_steps": recorder.lane_steps}
+    return summary
