@@ -143,8 +143,16 @@ def main(argv=None) -> int:
         )
         return 1
 
-    from .parallel.restarts import fit_mmctm_restarts
-    from .utils import io as io_mod
+    from .utils import profiling
+
+    with profiling.entry():
+        return _fit_and_write(args)
+
+
+def _read_inputs(args):
+    """(sample names, each file's terms, X[doc][modality] in the reference's
+    sparse (index, count) form, V) from the TSVs; None, after the message,
+    when a file lacks a sample of the first."""
     from .utils.fast_tsv import read_counts_tsv
     from .utils.formatting import make_count_matrix
 
@@ -164,15 +172,28 @@ def main(argv=None) -> int:
                 f"{'...' if len(missing) > 5 else ''}",
                 file=sys.stderr,
             )
-            return 1
+            return None
         col_of.append(index)
-    # X[doc][modality] in the reference's sparse (index, count) form
     counts = [
         [make_count_matrix(loaded[m][0][:, col_of[m][name]]) for m in range(len(loaded))]
         for name in samples
     ]
+    return samples, terms, counts, [mat.shape[0] for mat, _, _ in loaded]
+
+
+def _fit_and_write(args) -> int:
+    """`main` past its checks: read the TSVs, fit, write the outputs. The
+    tracer's spans `cli.read` and `cli.write` cover the first and the last."""
+    from .parallel.restarts import fit_mmctm_restarts
+    from .utils import io as io_mod
+    from .utils import profiling
+
+    with profiling.span("cli.read"):
+        inputs = _read_inputs(args)
+    if inputs is None:
+        return 1
+    samples, terms, counts, V = inputs
     alpha = [args.alpha] * len(args.k)
-    V = [mat.shape[0] for mat, _, _ in loaded]
 
     # The analogue of the reference's restart progress bar
     # (run_mmctm.jl:101-104): the fit calls it at each boundary, and once
@@ -225,18 +246,19 @@ def main(argv=None) -> int:
     if args.verbose:
         print(f"Log-likelihoods: {model.ll}")
 
-    if args.model:
-        io_mod.save_model(args.model, model)
-    if args.mean:
-        io_mod.write_mean(args.mean, model)
-    if args.cov:
-        io_mod.write_cov(args.cov, model)
-    if args.cor:
-        io_mod.write_cor(args.cor, model)
-    if args.sigs:
-        io_mod.write_sigs(args.sigs, model, terms, args.modalities)
-    if args.props:
-        io_mod.write_props(args.props, model, samples, args.modalities)
+    with profiling.span("cli.write"):
+        if args.model:
+            io_mod.save_model(args.model, model)
+        if args.mean:
+            io_mod.write_mean(args.mean, model)
+        if args.cov:
+            io_mod.write_cov(args.cov, model)
+        if args.cor:
+            io_mod.write_cor(args.cor, model)
+        if args.sigs:
+            io_mod.write_sigs(args.sigs, model, terms, args.modalities)
+        if args.props:
+            io_mod.write_props(args.props, model, samples, args.modalities)
     return 0
 
 

@@ -40,6 +40,7 @@ from ..ops.solvers import (
     maximize_lambda,
     maximize_nu,
 )
+from ..utils import profiling
 
 __all__ = [
     "CTMBaseConfig",
@@ -530,13 +531,19 @@ def run_cavi_from(carry, maxiter: int, tol: float, step_fn, max_new_iters=None,
     the loop stops on the first process's `done`, so no process leaves a
     collective that the others still enter. Returns the new carry."""
     state, ll_buf, n_iters, done = carry
+    lanes = ll_buf.shape[0]
+    t = profiling.begin("loop.sync") if profiling.ON else None
     running = n_iters[~done].unique().tolist()
+    if t is not None:
+        profiling.end(t)
+        profiling.count("loop.syncs")
     if len(running) > 1:
         raise ValueError(f"the running lanes are at different iterations {running}")
     it0 = running[0] if running else maxiter
     it_end = maxiter if max_new_iters is None else min(maxiter, it0 + int(max_new_iters))
     for it in range(it0, it_end):
         new_state, ll_i = step_fn(state)
+        t = profiling.begin("loop.freeze") if profiling.ON else None
         active = ~done
         state = _select_lanes(active, new_state, state)
         ll_buf[:, it] = _select_lanes(active, ll_i, ll_buf[:, it])
@@ -546,15 +553,23 @@ def run_cavi_from(carry, maxiter: int, tol: float, step_fn, max_new_iters=None,
             # ll_buf[:, -1] at it = 0 wraps, as in the JAX loop
             stop = stop | (relative_change(_per_lane(ll_buf[:, it - 1]), _per_lane(ll_i)) < tol)
         done = done | (active & stop)
-        if verbose:
-            if bool(active.any()):
-                lls = ll_i[0] if ll_i.shape[0] == 1 else ll_i
-                print(f"{it + 1}\t{verbose_label}: {lls.cpu().numpy()}")
-        elif (it + 1) % DONE_CHECK_EVERY != 0:
+        if t is not None:
+            profiling.end(t)
+            profiling.count("loop.steps")
+            profiling.count("loop.lane_steps", lanes)
+        if not verbose and (it + 1) % DONE_CHECK_EVERY != 0:
             continue
+        t = profiling.begin("loop.sync") if profiling.ON else None
+        if verbose and bool(active.any()):
+            lls = ll_i[0] if ll_i.shape[0] == 1 else ll_i
+            print(f"{it + 1}\t{verbose_label}: {lls.cpu().numpy()}")
         if reduce is not None:
             done = reduce.agree(done)
-        if bool(done.all()):
+        finished = bool(done.all())
+        if t is not None:
+            profiling.end(t)
+            profiling.count("loop.syncs")
+        if finished:
             break
     return state, ll_buf, n_iters, done
 
@@ -601,15 +616,27 @@ def run_cavi(state, config, maxiter: int, tol: float, step_fn, compact_schedule=
     `progress(done, total)` is called at every boundary and once at the
     end, with the number of finished lanes (converged, non-finite or at
     maxiter) out of R; an uncut fit calls it once, with (R, R). `verbose`,
-    `verbose_label` and `reduce` are `run_cavi_from`'s."""
+    `verbose_label` and `reduce` are `run_cavi_from`'s.
+
+    An entry point of the tracer (utils/profiling.py): the span `loop.run`,
+    and `loop.boundary` around each boundary's host work (after every
+    segment the (n_iters, done) read and the gathers; after the last one
+    the read and the final gather, so an uncut loop has one)."""
+    with profiling.entry("loop.run"):
+        return _run_segments(state, config, maxiter, tol, step_fn, compact_schedule, progress,
+                             dict(verbose=verbose, verbose_label=verbose_label, reduce=reduce))
+
+
+def _run_segments(state, config, maxiter, tol, step_fn, compact_schedule, progress, loud):
+    """`run_cavi`'s loop: its segments and the boundaries between them."""
     carry = make_cavi_carry(state, config, maxiter)
     R, device = lanes_of(state)
-    loud = dict(verbose=verbose, verbose_label=verbose_label, reduce=reduce)
     budgets = (int(c) for c in (() if compact_schedule is None else compact_schedule))
     order = np.arange(R)
     groups, group_orders = [], []
     carry = run_cavi_from(carry, maxiter, tol, step_fn, next(budgets, None), **loud)
     while True:
+        b = profiling.begin("loop.boundary") if profiling.ON else None
         it, done = (t.cpu().numpy() for t in (carry[2], carry[3]))
         done = done | (it >= maxiter)
         done_pos, active_pos = np.nonzero(done)[0], np.nonzero(~done)[0]
@@ -625,11 +652,19 @@ def run_cavi(state, config, maxiter: int, tol: float, step_fn, compact_schedule=
             group_orders.append(order[done_pos])
             carry = _index_lanes(carry, torch.as_tensor(active_pos, device=device))
             order = order[active_pos]
+        if b is not None:
+            profiling.end(b)
+            profiling.count("loop.boundaries")
         carry = run_cavi_from(carry, maxiter, tol, step_fn, budget, **loud)
     if len(groups) == 1:  # no lane left the batch: restart order already
-        return groups[0]
-    inv = np.argsort(np.concatenate(group_orders))
-    return _index_lanes(_cat_lanes(groups), torch.as_tensor(inv, device=device))
+        out = groups[0]
+    else:
+        inv = np.argsort(np.concatenate(group_orders))
+        out = _index_lanes(_cat_lanes(groups), torch.as_tensor(inv, device=device))
+    if b is not None:
+        profiling.end(b)
+        profiling.count("loop.boundaries")
+    return out
 
 
 def carry_converged(ll_buf, n_iters, done):

@@ -26,6 +26,7 @@ import torch
 
 from ..ops.solvers import maximize_alpha
 from ..ops.special import dirichlet_expectation, gammaln, logmvbeta_symmetric, safe_xlogy, xlogx
+from ..utils import profiling
 from ..utils.formatting import infer_vocab_size, sparse_to_dense
 from . import ctm_base
 from .ctm_base import (
@@ -454,21 +455,36 @@ def fit_step_fn(X, N, config: MMCTMConfig, autoalpha: bool = False, update_sigma
     X holds this process's vocabulary slice (N every slice's counts): sumθ,
     γ's row sums (reduced once a step, for both E[ln ϕ] and ϕ) and the lls
     reduce their vocabulary sums; autoα's sums over V are not reduced, so
-    it cannot be combined with the hook."""
+    it cannot be combined with the hook. The tracer's span `step` covers the
+    closure, its phases `step.estep` (θ moments, η), `step.mstep` (μ, Σ,
+    Σ⁻¹), `step.gamma` (γ, E[ln ϕ], α) and `step.ll`."""
     if autoalpha and vocab_reduce is not None:
         raise ValueError("autoalpha is not supported in a vocab-sharded fit")
     counts = None if vocab_reduce is None else _total_counts(X, vocab_reduce)
 
     def step(s):
+        on = profiling.ON
+        if on:
+            top, phase = profiling.begin("step"), profiling.begin("step.estep")
         s, scatters = e_step_moments(s, X, N, config, vocab_reduce=vocab_reduce)
+        if on:
+            phase = profiling.then(phase, "step.mstep")
         s = update_mu(s, config, reduce)
         if update_sigma:
             s = update_Sigma(s, config, reduce)
+        if on:
+            phase = profiling.then(phase, "step.gamma")
         s, totals = _update_gamma(s, config, scatters, reduce, vocab_reduce)
         if autoalpha:
             s = update_alpha(s, config)
-        return s, modality_loglikelihoods(X, props_from(s.lam, config), phi_point(s.gamma, totals),
-                                          reduce, vocab_reduce, counts)
+        if on:
+            phase = profiling.then(phase, "step.ll")
+        ll = modality_loglikelihoods(X, props_from(s.lam, config), phi_point(s.gamma, totals),
+                                     reduce, vocab_reduce, counts)
+        if on:
+            profiling.end(phase)
+            profiling.end(top)
+        return s, ll
 
     return step
 
@@ -502,7 +518,9 @@ def fit(state: MMCTMState, X, config: MMCTMConfig, maxiter: int = 100,
     `reduce` is ctm_base's data-parallel hook (parallel/sharding.py): the
     state's document fields and X then hold this process's documents.
     `vocab_reduce` is its vocab-sharded hook: γ, E[ln ϕ], logw_pre and X
-    then hold this process's vocabulary slice, the config's V stays global."""
+    then hold this process's vocabulary slice, the config's V stays global.
+    The tracer records `finalize_fit` as `restarts.finalize` and adds the
+    lanes' Σ n_iters to `loop.lane_iters`, kept on the device."""
     X = tuple(X)
     with full_f32_matmuls():
         N = counts_per_doc(X, vocab_reduce)
@@ -510,7 +528,11 @@ def fit(state: MMCTMState, X, config: MMCTMConfig, maxiter: int = 100,
         # the loop uses its hook only to agree on `done`, which either hook does
         carry = run_cavi(state, config, maxiter, tol, step, compact_schedule, progress, verbose,
                          reduce=reduce if reduce is not None else vocab_reduce)
-        return finalize_fit(carry, X, N, config, reduce, vocab_reduce)
+        with profiling.span("restarts.finalize"):
+            result = finalize_fit(carry, X, N, config, reduce, vocab_reduce)
+        if profiling.ON:
+            profiling.count("loop.lane_iters", result.n_iters)
+        return result
 
 
 # ---------------------------------------------------------------------------

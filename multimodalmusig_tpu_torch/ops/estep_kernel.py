@@ -27,6 +27,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..native_build import cuda_function
+from ..utils import profiling
 from .solvers import CG_ITER_F32_CAP, LAMBDA_POLISH_ITERS, NU_FP_ITERS, maximize_lambda
 
 __all__ = [
@@ -264,9 +265,14 @@ def estep_eta_fused(lam0, nu, N, sumtheta, mu, invSigma, K, n_iter: int = 7,
     kernel forms after ζ and ν have read λ; without both it starts at λ and
     the kernel runs exactly as it did before it took `lam_prev`. CPU tensors
     take the plain version; CUDA tensors must be float32 and launch the
-    kernel in the layout of `launch_geometry`."""
-    return _launch_at(None, lam0, nu, N, sumtheta, mu, invSigma, K, n_iter, cg_iter,
-                      polish_iter, nu_n_iter, lam_prev, extrap)
+    kernel in the layout of `launch_geometry`. The tracer's span
+    `kernel.eta_host` covers the call, the launch's return included."""
+    t = profiling.begin("kernel.eta_host") if profiling.ON else None
+    out = _launch_at(None, lam0, nu, N, sumtheta, mu, invSigma, K, n_iter, cg_iter,
+                     polish_iter, nu_n_iter, lam_prev, extrap)
+    if t is not None:
+        profiling.end(t)
+    return out
 
 
 def _launch_at(geometry, lam0, nu, N, sumtheta, mu, invSigma, K, n_iter: int = 7,

@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from ..native_build import cuda_function
+from ..utils import profiling
 
 __all__ = [
     "theta_moments_fused",
@@ -257,8 +258,13 @@ def theta_moments_fused(lam_block, logw, X):
     λ, E[ln ϕ]ᵀ), and X (D, V) shared by the lanes -> (sumθ (R, D, K),
     scatter (R, K, V)). V ≤ THETA_MAX_V and K ≤ THETA_MAX_K. CPU tensors
     take the plain version; CUDA tensors must be float32 and launch the
-    kernel."""
-    return _launch_at(None, lam_block, logw, X)
+    kernel. The tracer's span `kernel.theta_host` covers the call, the
+    launch's return included."""
+    t = profiling.begin("kernel.theta_host") if profiling.ON else None
+    out = _launch_at(None, lam_block, logw, X)
+    if t is not None:
+        profiling.end(t)
+    return out
 
 
 def _launch_at(geometry, lam_block, logw, X):

@@ -59,6 +59,7 @@ from ..models.ilda import ILDA, ILDAConfig, ILDAFitResult, ILDAState
 from ..models.immctm import IMMCTM, IMMCTMConfig, IMMCTMFitResult, IMMCTMState
 from ..models.lda import LDA, LDAConfig, LDAFitResult, LDAState
 from ..models.mmctm import MMCTM, MMCTMConfig, MMCTMFitResult, MMCTMState
+from ..utils import profiling
 from . import _ranks
 from .rescore import (
     rescore_ilda_f64,
@@ -398,17 +399,18 @@ def _fit_auto(state, fit_fn, maxiter: int, pilot_restarts: int = 64, max_boundar
         }
     P = max(2, min(int(pilot_restarts), R // 2))
     lanes = torch.arange(R, device=device)
-    _sync(device)
-    t0 = time.perf_counter()
-    pilot = fit_fn(ctm_base._index_lanes(state, lanes[:P]), None, None)
-    iters = pilot.n_iters.cpu().numpy()
-    t_warm = time.perf_counter() - t0
-    if progress is not None:
-        progress(P, R)
-    schedule, info = _derive_auto_schedule(
-        iters, t_warm, R - P, maxiter, max_boundaries,
-        (pilot.state, pilot.ll_history, pilot.n_iters, pilot.converged),
-    )
+    with profiling.span("restarts.pilot"):
+        _sync(device)
+        t0 = time.perf_counter()
+        pilot = fit_fn(ctm_base._index_lanes(state, lanes[:P]), None, None)
+        iters = pilot.n_iters.cpu().numpy()
+        t_warm = time.perf_counter() - t0
+        if progress is not None:
+            progress(P, R)
+        schedule, info = _derive_auto_schedule(
+            iters, t_warm, R - P, maxiter, max_boundaries,
+            (pilot.state, pilot.ll_history, pilot.n_iters, pilot.converged),
+        )
     rest = fit_fn(ctm_base._index_lanes(state, lanes[P:]), schedule,
                   None if progress is None else lambda d, t: progress(P + d, R))
     return ctm_base._cat_lanes([pilot, rest]), info
@@ -610,40 +612,45 @@ def two_stage_fit_from_states(state1: MMCTMState, X, config: MMCTMConfig, alpha,
         else:
             stage1 = mmctm_mod.fit(state1, X, config, maxiter=maxiter, tol=stage1_tol,
                                    compact_schedule=schedule1, progress=progress1)
-        if rescore_f64:
-            best_m, sel = select_modality_winners_f64(stage1, X, config)
-            cand = list(sel["rescored_lanes"])
-            winner_ll = [sel["ll_f64"][cand.index(best_m[m]), m] for m in range(config.M)]
-        else:
-            best_m = pick_optimal_modality_restarts(stage1.ll).cpu().numpy()
-            ll32 = stage1.ll.detach().to("cpu", torch.float64).numpy()
-            winner_ll = [ll32[best_m[m], m] for m in range(config.M)]
+        with profiling.span("restarts.rescore1"):
+            if rescore_f64:
+                best_m, sel = select_modality_winners_f64(stage1, X, config)
+                cand = list(sel["rescored_lanes"])
+                winner_ll = [sel["ll_f64"][cand.index(best_m[m]), m] for m in range(config.M)]
+            else:
+                best_m = pick_optimal_modality_restarts(stage1.ll).cpu().numpy()
+                ll32 = stage1.ll.detach().to("cpu", torch.float64).numpy()
+                winner_ll = [ll32[best_m[m], m] for m in range(config.M)]
         if selection_info is not None:
             selection_info["stage1_winners"] = np.asarray(best_m)
             selection_info["stage1_winner_ll"] = np.asarray(winner_ll)
 
         # graft the per-modality winners' topic-word posteriors
         # (run_mmctm.jl:126-130) over fresh inits
-        gen = torch.Generator().manual_seed(0) if generator is None else generator
-        state2 = mmctm_mod.init_with_alpha(
-            gen, config, X, alpha, restarts=stage2_restarts, init_method=init_method,
-            device=device,
-        )
-        def graft(field):
-            return tuple(
-                field[m][int(best_m[m])].expand(stage2_restarts, *field[m].shape[1:]).clone()
-                for m in range(config.M)
+        with profiling.span("restarts.graft"):
+            gen = torch.Generator().manual_seed(0) if generator is None else generator
+            state2 = mmctm_mod.init_with_alpha(
+                gen, config, X, alpha, restarts=stage2_restarts, init_method=init_method,
+                device=device,
             )
 
-        state2 = state2._replace(gamma=graft(stage1.state.gamma),
-                                 Elnphi=graft(stage1.state.Elnphi))
+            def graft(field):
+                return tuple(
+                    field[m][int(best_m[m])].expand(stage2_restarts, *field[m].shape[1:]).clone()
+                    for m in range(config.M)
+                )
+
+            state2 = state2._replace(gamma=graft(stage1.state.gamma),
+                                     Elnphi=graft(stage1.state.Elnphi))
         stage2 = mmctm_mod.fit(state2, X, config, maxiter=maxiter, tol=stage2_tol,
                                compact_schedule=schedule2, progress=progress2)
-        if rescore_f64:
-            best, _ = select_best_restart_f64(stage2, X, config)
-        else:
-            best = int(pick_optimal_restart(stage2.ll))
-    return lane(stage2, best), stage1, stage2, best
+        with profiling.span("restarts.rescore2"):
+            if rescore_f64:
+                best, _ = select_best_restart_f64(stage2, X, config)
+            else:
+                best = int(pick_optimal_restart(stage2.ll))
+            selected = lane(stage2, best)
+    return selected, stage1, stage2, best
 
 
 def two_stage_fit(seed_or_generator: Union[int, torch.Generator], X, config: MMCTMConfig,
@@ -663,11 +670,12 @@ def two_stage_fit(seed_or_generator: Union[int, torch.Generator], X, config: MMC
     selected stage-2 lane (R = 1), stage-1 result, stage-2 result, selected
     index)."""
     device = ctm_base.check_device(device)
-    gen = _generator(seed_or_generator)
-    Xt = mmctm_mod.counts_tensors(X, config, device)
-    state1 = mmctm_mod.init_with_alpha(gen, config, Xt, alpha, restarts=restarts,
-                                       init_method=init_method, device=device)
-    gen2 = torch.Generator().manual_seed(int(torch.randint(0, 2**62, (1,), generator=gen)))
+    with profiling.span("restarts.init"):
+        gen = _generator(seed_or_generator)
+        Xt = mmctm_mod.counts_tensors(X, config, device)
+        state1 = mmctm_mod.init_with_alpha(gen, config, Xt, alpha, restarts=restarts,
+                                           init_method=init_method, device=device)
+        gen2 = torch.Generator().manual_seed(int(torch.randint(0, 2**62, (1,), generator=gen)))
     return two_stage_fit_from_states(
         state1, Xt, config, alpha, stage2_restarts=stage2_restarts, maxiter=maxiter,
         stage1_tol=stage1_tol, stage2_tol=stage2_tol, init_method=init_method,
@@ -703,45 +711,57 @@ def fit_mmctm_restarts(k: Sequence[int], alpha: Sequence[float], X,
     in-fit lls) and `restart_result` (the batched stage-1 MMCTMFitResult).
     `verbose` prints the derived schedule and the lls the selection read.
     `lambda_extrap` and `lambda_solver` set the model config's options of
-    the λ solve (models/ctm_base.CTMBaseConfig) for both stages."""
-    args = (list(k), list(alpha)) + (() if V is None else (list(V),)) + (X,)
-    model = MMCTM(*args, dtype=dtype, device=device)
-    model.config = dataclasses.replace(model.config, lambda_extrap=lambda_extrap,
-                                       lambda_solver=lambda_solver)
-    auto_info: dict = {}
-    selection_info: dict = {}
-    best, stage1, _, _ = two_stage_fit(
-        seed, model.Xdense, model.config, [float(a) for a in alpha], restarts=restarts,
-        stage2_restarts=stage2_restarts, maxiter=maxiter, stage1_tol=stage1_tol,
-        stage2_tol=stage2_tol, chunk_iters=chunk_iters, compact_schedule=compact_schedule,
-        progress=progress, rescore_f64=rescore_f64, pilot_restarts=pilot_restarts,
-        auto_info=auto_info, selection_info=selection_info, device=model.device,
-    )
-    if auto_info:
-        model.compact_info = auto_info
+    the λ solve (models/ctm_base.CTMBaseConfig) for both stages.
+
+    An entry point of the tracer (utils/profiling.py): the span
+    `restarts.fit` and the counter `restarts.fits`, with the phases
+    `restarts.setup` (the wrapper, the dense counts), `restarts.init`,
+    `restarts.pilot` ("auto"), `restarts.rescore1`, `restarts.graft`,
+    `restarts.rescore2`, `restarts.finalize` (each `mmctm.fit`'s) and
+    `restarts.collect` (the selected model to the host)."""
+    with profiling.entry("restarts.fit"):
+        if profiling.ON:
+            profiling.count("restarts.fits")
+        with profiling.span("restarts.setup"):
+            args = (list(k), list(alpha)) + (() if V is None else (list(V),)) + (X,)
+            model = MMCTM(*args, dtype=dtype, device=device)
+            model.config = dataclasses.replace(model.config, lambda_extrap=lambda_extrap,
+                                               lambda_solver=lambda_solver)
+        auto_info: dict = {}
+        selection_info: dict = {}
+        best, stage1, _, _ = two_stage_fit(
+            seed, model.Xdense, model.config, [float(a) for a in alpha], restarts=restarts,
+            stage2_restarts=stage2_restarts, maxiter=maxiter, stage1_tol=stage1_tol,
+            stage2_tol=stage2_tol, chunk_iters=chunk_iters, compact_schedule=compact_schedule,
+            progress=progress, rescore_f64=rescore_f64, pilot_restarts=pilot_restarts,
+            auto_info=auto_info, selection_info=selection_info, device=model.device,
+        )
+        if auto_info:
+            model.compact_info = auto_info
+            if verbose:
+                print(
+                    f"auto-compact: schedule={auto_info['schedule']} "
+                    f"(pilot = first {auto_info['pilot_restarts']} production "
+                    f"lanes, median {auto_info['pilot_iters_median']:.0f} "
+                    f"iters; boundary {auto_info['boundary_s'] * 1e3:.3f} ms = "
+                    f"{auto_info['boundary_cost_lane_iters']:.0f} lane-iters at "
+                    f"{auto_info['lane_iters_per_s']:.0f} lane-iters/s)"
+                )
+        with profiling.span("restarts.collect"):
+            model.state = best.state
+            model.converged = bool(best.converged[0])
+            model.elbo = float(best.elbo[0])
+            model.ll = [float(v) for v in best.ll[0].cpu()]
+            n = int(best.n_iters[0])
+            model.ll_history = [[float(v) for v in row] for row in best.ll_history[0, :n].cpu()]
+            model.stage1_ll = stage1.ll.detach().to("cpu", torch.float64).numpy()
+            model.restart_result = stage1
         if verbose:
-            print(
-                f"auto-compact: schedule={auto_info['schedule']} "
-                f"(pilot = first {auto_info['pilot_restarts']} production "
-                f"lanes, median {auto_info['pilot_iters_median']:.0f} "
-                f"iters; boundary {auto_info['boundary_s'] * 1e3:.3f} ms = "
-                f"{auto_info['boundary_cost_lane_iters']:.0f} lane-iters at "
-                f"{auto_info['lane_iters_per_s']:.0f} lane-iters/s)"
-            )
-    model.state = best.state
-    model.converged = bool(best.converged[0])
-    model.elbo = float(best.elbo[0])
-    model.ll = [float(v) for v in best.ll[0].cpu()]
-    n = int(best.n_iters[0])
-    model.ll_history = [[float(v) for v in row] for row in best.ll_history[0, :n].cpu()]
-    model.stage1_ll = stage1.ll.detach().to("cpu", torch.float64).numpy()
-    model.restart_result = stage1
-    if verbose:
-        print("Modality optimal model log-likelihoods:")
-        for m in range(model.config.M):
-            print(f"{m + 1}: {selection_info['stage1_winner_ll'][m]}")
-        print("Seeded model log-likelihoods:")
-        print(np.asarray(model.ll))
+            print("Modality optimal model log-likelihoods:")
+            for m in range(model.config.M):
+                print(f"{m + 1}: {selection_info['stage1_winner_ll'][m]}")
+            print("Seeded model log-likelihoods:")
+            print(np.asarray(model.ll))
     return model
 
 

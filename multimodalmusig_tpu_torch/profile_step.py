@@ -7,10 +7,12 @@ bundled BRCA-EU counts) for `--restarts` lanes on the card and prints:
   * the host-clock time per iteration (synchronized), the kernel launches
     per iteration and the device-busy share (summed kernel time over wall
     time) from torch.profiler;
-  * the time per phase of the iteration (θ moments, the η kernel, or on the
-    split route ζ, ν solve and λ solve; M-step, γ, log-likelihoods, and the
-    rest: N/ζ, μ, lane freezing), each synchronized, so a phase's time
-    includes the launches it issues, on the fused and on the split η route;
+  * the host time per phase of the iteration, from the program's own spans
+    (utils/profiling.py, recorded under `profiling.tracing()`, with no
+    synchronization inside: what the host takes to issue each phase): the
+    E-step (θ moments and η), the M-step (μ, Σ, Σ⁻¹), γ, the
+    log-likelihoods, the kernels' wrappers, and the lane freeze outside the
+    step, on the fused and on the split η route;
   * the kernels by device time, and the device time per call of each of
     the port's kernels (η, λ, θ, the θ kernel also per modality), on both
     η routes;
@@ -35,21 +37,9 @@ import torch
 
 from .models import ctm_base, mmctm
 from .ops import estep_kernel, lambda_kernel, theta_kernel
+from .utils import profiling
 from .utils.data import BRCA_FILES, brca_counts_path
 from .utils.fast_tsv import read_counts_tsv
-
-# (label, module, function name) of the phases wrapped for timing
-_PHASES = (
-    ("theta moments", mmctm, "theta_moments"),
-    ("eta kernel (B3)", estep_kernel, "estep_eta_fused"),
-    ("zeta", ctm_base, "update_zeta"),
-    ("nu solve", ctm_base, "maximize_nu"),
-    ("lambda solve", ctm_base, "solve_lambda"),
-    ("M-step (mu, Sigma, Sigma^-1)", mmctm, "update_Sigma"),
-    ("gamma, E[ln phi]", mmctm, "update_gamma"),
-    ("log-likelihoods", mmctm, "modality_loglikelihoods"),
-)
-
 
 # The iteration's variants, in turns: the kernels (fused η route); the split
 # η route; the split route with the plain λ solver; the factorized θ schedule.
@@ -57,6 +47,12 @@ _ARMS = ("kernels", "split η", "plain η", "factorized θ",
          "factorized θ", "plain η", "split η", "kernels")
 # The port's kernels by the name of their device functions.
 _KERNELS = (("eta (B3)", "estep_eta"), ("lambda (B1)", "lambda_newton"), ("theta (B4)", "theta"))
+# The program's spans of one iteration, as printed per phase.
+_SPANS = (("E-step (theta moments, eta)", "step.estep"),
+          ("M-step (mu, Sigma, Sigma^-1)", "step.mstep"),
+          ("gamma, E[ln phi]", "step.gamma"), ("log-likelihoods", "step.ll"),
+          ("  eta kernel wrapper (B3)", "kernel.eta_host"),
+          ("  theta kernel wrapper (B4)", "kernel.theta_host"))
 
 
 def _setup(restarts: int):
@@ -177,39 +173,24 @@ def main(argv=None):
                         print(f"    modality {m} (V={V}): {sum(per) / len(per):9.2f} us per call")
             print(prof.key_averages().table(sort_by="device_time_total", row_limit=25))
 
-        timings = {label: 0.0 for label, _, _ in _PHASES}
-        originals = {}
-
-        def timed(label, fn):
-            def inner(*a, **k):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = fn(*a, **k)
-                torch.cuda.synchronize()
-                timings[label] += time.perf_counter() - t0
-                return out
-            return inner
-
         for route in ("fused", "split"):
-            for label in timings:
-                timings[label] = 0.0
             ctm_base._eta_route = eta_route if route == "fused" else split
-            for label, mod, name in _PHASES:
-                originals[(mod, name)] = getattr(mod, name)
-                setattr(mod, name, timed(label, originals[(mod, name)]))
+            profiling.reset()
             try:
-                wall = _wall_ms(iteration, state, steps)
+                with profiling.tracing():
+                    wall = _wall_ms(iteration, state, steps)
             finally:
-                for (mod, name), fn in originals.items():
-                    setattr(mod, name, fn)
                 ctm_base._eta_route = eta_route
-            print(f"per phase on the {route} η route, each synchronized ({wall:.4f} ms per "
-                  "iteration with the syncs):")
-            for label, sec in timings.items():
-                print(f"  {label:32s} {1000 * sec / steps:8.4f} ms")
-            rest = wall - 1000 * sum(timings.values()) / steps
-            print(f"  {'rest (N/zeta, mu, lane freezing)':32s} {rest:8.4f} ms")
-
+            spans = profiling.totals()["spans"]
+            profiling.reset()
+            print(f"host time per phase on the {route} η route, from the program's spans, "
+                  f"unsynchronized ({wall:.4f} ms per iteration, recording on):")
+            for label, name in _SPANS:
+                ms = 1000 * spans.get(name, {}).get("s", 0.0) / steps
+                print(f"  {label:32s} {ms:8.4f} ms")
+            step_ms = 1000 * spans["step"]["s"] / steps
+            print(f"  {'the step (the phases above)':32s} {step_ms:8.4f} ms")
+            print(f"  {'lane freeze and the wait':32s} {wall - step_ms:8.4f} ms")
 
 if __name__ == "__main__":
     main()

@@ -7,7 +7,10 @@ against the factorized schedule, their launches per iteration, and their
 restart fits; the restart fan-out and the data-parallel fit over ranks on
 the card, with each rank's launches; the η kernel with the secant start
 of `lambda_extrap` against its plain version, its bits without one against
-the kernel before it took one, and the routes of the λ solve's options.
+the kernel before it took one, and the routes of the λ solve's options;
+the program's spans and counters (utils/profiling.py) on the card: the
+same bits and the same device→host syncs recording or not, and recording
+under a torch.profiler session that traces the card alone.
 
 Every test is marked `cuda` and skips without a card. The file imports
 neither JAX nor the shared conftest fixtures, so it runs on a machine with
@@ -16,8 +19,10 @@ only PyTorch:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -o addopts="" -p no:cacheprovider
 """
 
+import collections
 import dataclasses
 import hashlib
+import warnings
 
 import numpy as np
 import pytest
@@ -29,6 +34,7 @@ from multimodalmusig_tpu_torch.ops import estep_kernel as ek
 from multimodalmusig_tpu_torch.ops import lambda_kernel as lk
 from multimodalmusig_tpu_torch.ops import theta_kernel as tk
 from multimodalmusig_tpu_torch.ops.solvers import lambda_grad
+from multimodalmusig_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -617,6 +623,83 @@ def test_two_stage_fit_on_the_card_matches_the_cpu_in_float64(cuda):
         picks.append((info["stage1_winners"], best.ll[0].cpu().double().numpy()))
     np.testing.assert_array_equal(picks[0][0], picks[1][0])
     np.testing.assert_allclose(picks[0][1], picks[1][1], rtol=2e-3)
+
+
+def _two_stage_on_the_card(cuda):
+    config = mt.MMCTMConfig(K=(2, 2), V=(10, 8), D=24, dtype=torch.float32)
+    best, stage1, _, idx = mt.two_stage_fit(8, _poisson_docs(), config, [0.1, 0.1], restarts=6,
+                                            maxiter=80, compact_schedule=(25,), device=cuda)
+    torch.cuda.synchronize()
+    return [best.ll, best.ll_history, best.n_iters, best.state.lam, *best.state.gamma,
+            stage1.ll_history, stage1.n_iters, stage1.state.lam, torch.tensor(idx)]
+
+
+def _same_bits(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_a_traced_two_stage_fit_keeps_its_bits_on_the_card(cuda):
+    """Off, on, off: the traced fit gives the bits of the fits around it."""
+    profiling.reset()
+    try:
+        first = _two_stage_on_the_card(cuda)
+        with profiling.tracing():
+            traced = _two_stage_on_the_card(cuda)
+        last = _two_stage_on_the_card(cuda)
+        t = profiling.totals()
+    finally:
+        profiling.reset()
+    assert _same_bits(first, last), "the card repeats a fit to the bit"
+    assert _same_bits(traced, first)
+    steps = t["counts"]["loop.steps"]
+    assert t["spans"]["step"]["calls"] == t["spans"]["kernel.eta_host"]["calls"] == steps > 0
+    assert t["spans"]["kernel.theta_host"]["calls"] == 2 * steps
+
+
+def _sync_warnings(cuda):
+    """The lines that made a synchronizing CUDA operation, with their
+    counts (the sync debug mode's one-time notice left out)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _two_stage_on_the_card(cuda)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return collections.Counter((w.filename, w.lineno) for w in caught
+                               if "synchronizing CUDA operation" in str(w.message))
+
+
+def test_recording_adds_no_device_to_host_sync(cuda):
+    profiling.reset()
+    try:
+        _two_stage_on_the_card(cuda)  # warm
+        off = _sync_warnings(cuda)
+        with profiling.tracing():
+            on = _sync_warnings(cuda)
+    finally:
+        profiling.reset()
+    assert off and on == off
+
+
+def test_a_fit_under_a_card_only_profiler_traces_itself(cuda):
+    """The harness profiles its traced fits with the card's activity alone;
+    the program's tracer must record there, and stop with the session."""
+    profiling.reset()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+            flags = (bool(torch._C._autograd._profiler_enabled()),
+                     bool(torch.autograd.profiler._is_profiler_enabled))
+            print(f"under a card-only profiler: _profiler_enabled() {flags[0]}, "
+                  f"_is_profiler_enabled {flags[1]}")
+            assert profiling.refresh()
+            _two_stage_on_the_card(cuda)
+        t = profiling.totals()
+        assert not profiling.refresh()
+    finally:
+        profiling.reset()
+    assert t["counts"]["loop.steps"] == t["spans"]["step"]["calls"] > 0
+    assert t["spans"]["loop.run"]["calls"] == 2
 
 
 @pytest.mark.parametrize("R, D, K", [
