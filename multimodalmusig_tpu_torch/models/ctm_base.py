@@ -40,7 +40,7 @@ from ..ops.solvers import (
     maximize_lambda,
     maximize_nu,
 )
-from ..utils import profiling
+from ..utils import graphs, profiling
 
 __all__ = [
     "CTMBaseConfig",
@@ -462,14 +462,6 @@ def props_from_lam(lam: torch.Tensor, config) -> Tuple[torch.Tensor, ...]:
     return tuple(torch.softmax(config.block(lam, m), dim=-1) for m in range(config.M))
 
 
-def _select_lanes(keep: torch.Tensor, new, old):
-    """Per-lane torch.where over a state (tensors and tuples of tensors)."""
-    if isinstance(new, tuple):
-        parts = [_select_lanes(keep, n, o) for n, o in zip(new, old)]
-        return type(new)(*parts) if hasattr(new, "_fields") else tuple(parts)
-    return torch.where(keep.view(-1, *([1] * (new.dim() - 1))), new, old)
-
-
 def lanes_of(state) -> Tuple[int, torch.device]:
     """(lanes R, device) of a batched state of any family, read from its γ
     (a tensor, or a nested tuple of them, each with the lanes first)."""
@@ -500,6 +492,86 @@ def _per_lane(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(t.shape[0], -1)
 
 
+class _LaneFreeze:
+    """The lane freeze of one `run_cavi_from` call, over device tensors
+    only, so that a CUDA graph can replay it (utils/graphs.py): after each
+    step the lanes still running (`active`: not done before the step) take
+    the step's state and ll, count the iteration and test for convergence,
+    and the others keep theirs, with torch.where, as the vmapped
+    `lax.while_loop` of the JAX package freezes them.
+
+    It writes in place into the call's own copy of the carry: the state's
+    fields, n_iters and done are cloned when the call starts, and ll_buf is
+    written in place, as it always was. The iteration is a device scalar:
+    the ll row is written at `it` and read at (it - 1) mod maxiter, which
+    wraps at it = 0 as the JAX loop does, and the convergence test's gate,
+    it + 1 > MIN_ITERS_BEFORE_CONVERGENCE, is a device comparison.
+
+    A field of the step's new state may share memory with another field
+    of the carry: the E-step's lam_pre is the carry's λ, its logw_pre the
+    carry's E[ln ϕ] (LDA's, its E[ln β]). Such a field is written before the
+    field it reads; a field that is the carry's own is left as it is."""
+
+    def __init__(self, carry, it0: int, maxiter: int, tol: float):
+        state, ll_buf, n_iters, done = carry
+        self.state = _map_tree(torch.clone, state)
+        self.fields = graphs.leaves(self.state)
+        self.ll_buf, self.n_iters, self.done = ll_buf, n_iters.clone(), done.clone()
+        self.active = torch.empty_like(self.done)
+        self.it = torch.full((), it0, dtype=torch.int64, device=ll_buf.device)
+        self.maxiter, self.tol = maxiter, tol
+        self._field_of = {f.untyped_storage().data_ptr(): i for i, f in enumerate(self.fields)}
+
+    def buffers(self) -> list:
+        """The tensors the freeze writes in place."""
+        return [*self.fields, self.ll_buf, self.n_iters, self.done, self.active, self.it]
+
+    def carry(self):
+        return self.state, self.ll_buf, self.n_iters, self.done
+
+    def _order(self, new) -> list:
+        """The indices of the new fields to write, each carry field read
+        before it is overwritten."""
+        if len(new) != len(self.fields):
+            raise ValueError("a step returned a state of another structure than its carry")
+        first, rest, read = [], [], set()
+        for i, (x, old) in enumerate(zip(new, self.fields)):
+            j = self._field_of.get(x.untyped_storage().data_ptr())
+            if j is None:
+                rest.append(i)
+            elif j != i:
+                first.append(i)
+                read.add(j)
+            elif x.data_ptr() != old.data_ptr() or x.stride() != old.stride():
+                raise ValueError("a step returned another view of a carry field in its place")
+        if read.intersection(first):
+            raise ValueError("the fields of a step's new state read each other's carry fields")
+        return first + rest
+
+    def __call__(self, new_state, ll_i) -> None:
+        new = graphs.leaves(new_state)
+        active = torch.logical_not(self.done, out=self.active)
+        for i in self._order(new):
+            old = self.fields[i]
+            torch.where(_lanes_view(active, old), new[i], old, out=old)
+        it = self.it.view(1)
+        ll = ll_i.unsqueeze(1)
+        row = self.ll_buf.index_select(1, it)
+        self.ll_buf.index_copy_(1, it, torch.where(_lanes_view(active, ll), ll, row))
+        self.n_iters.add_(active)
+        stop = ~torch.isfinite(_per_lane(ll_i)).all(dim=-1)
+        prev = self.ll_buf.index_select(1, (it - 1) % self.maxiter).squeeze(1)
+        converged = relative_change(_per_lane(prev), _per_lane(ll_i)) < self.tol
+        stop |= (self.it + 1 > MIN_ITERS_BEFORE_CONVERGENCE) & converged
+        self.done |= active & stop
+        self.it += 1
+
+
+def _lanes_view(keep: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-lane flag (R,) shaped to broadcast over `like` (R, ...)."""
+    return keep.view(-1, *([1] * (like.dim() - 1)))
+
+
 def run_cavi_from(carry, maxiter: int, tol: float, step_fn, max_new_iters=None,
                   verbose: bool = False, verbose_label: str = "Log-likelihoods", reduce=None):
     """Resume the CAVI loop from `carry` for up to `max_new_iters` more
@@ -516,13 +588,19 @@ def run_cavi_from(carry, maxiter: int, tol: float, step_fn, max_new_iters=None,
     iteration, so a verbose loop also stops as soon as every lane is done;
     without `verbose` the loop makes no read but the periodic `done.all()`.
 
-    Every lane steps every iteration; a finished lane is frozen with
-    torch.where, exactly as the vmapped `lax.while_loop` of the JAX package
-    freezes it, so results do not depend on when the loop notices that all
-    lanes are done (it reads `done.all()` every DONE_CHECK_EVERY
+    Every lane steps every iteration; a finished lane is frozen
+    (`_LaneFreeze`), so results do not depend on when the loop notices that
+    all lanes are done (it reads `done.all()` every DONE_CHECK_EVERY
     iterations) nor on how a fit is cut into calls. A lane whose ll goes
     non-finite stops too (a dead lane can never recover); `carry_converged`
-    reports it as not converged.
+    reports it as not converged. The call leaves `carry`'s state, n_iters
+    and done as they were; its ll_buf takes the new rows.
+
+    The call is one segment of CUDA graphs (utils/graphs.py) when the carry
+    is on the card: the freeze runs eagerly at the first step, is captured
+    at the second and replayed after that, and the step's own chains (the
+    MMCTM step's tail) do the same. The segment's graphs are released when
+    the call returns.
 
     The lanes still running must share one iteration count, as they do in a
     fresh carry and in the survivors of a compaction boundary (which all ran
@@ -530,7 +608,7 @@ def run_cavi_from(carry, maxiter: int, tol: float, step_fn, max_new_iters=None,
     the loop. With `reduce` (a data-parallel or vocab-sharded fit's hook)
     the loop stops on the first process's `done`, so no process leaves a
     collective that the others still enter. Returns the new carry."""
-    state, ll_buf, n_iters, done = carry
+    _, ll_buf, n_iters, done = carry
     lanes = ll_buf.shape[0]
     t = profiling.begin("loop.sync") if profiling.ON else None
     running = n_iters[~done].unique().tolist()
@@ -541,45 +619,52 @@ def run_cavi_from(carry, maxiter: int, tol: float, step_fn, max_new_iters=None,
         raise ValueError(f"the running lanes are at different iterations {running}")
     it0 = running[0] if running else maxiter
     it_end = maxiter if max_new_iters is None else min(maxiter, it0 + int(max_new_iters))
-    for it in range(it0, it_end):
-        new_state, ll_i = step_fn(state)
-        t = profiling.begin("loop.freeze") if profiling.ON else None
-        active = ~done
-        state = _select_lanes(active, new_state, state)
-        ll_buf[:, it] = _select_lanes(active, ll_i, ll_buf[:, it])
-        n_iters = n_iters + active
-        stop = ~torch.isfinite(_per_lane(ll_i)).all(dim=-1)
-        if it + 1 > MIN_ITERS_BEFORE_CONVERGENCE:
-            # ll_buf[:, -1] at it = 0 wraps, as in the JAX loop
-            stop = stop | (relative_change(_per_lane(ll_buf[:, it - 1]), _per_lane(ll_i)) < tol)
-        done = done | (active & stop)
-        if t is not None:
-            profiling.end(t)
-            profiling.count("loop.steps")
-            profiling.count("loop.lane_steps", lanes)
-        if not verbose and (it + 1) % DONE_CHECK_EVERY != 0:
-            continue
-        t = profiling.begin("loop.sync") if profiling.ON else None
-        if verbose and bool(active.any()):
-            lls = ll_i[0] if ll_i.shape[0] == 1 else ll_i
-            print(f"{it + 1}\t{verbose_label}: {lls.cpu().numpy()}")
-        if reduce is not None:
-            done = reduce.agree(done)
-        finished = bool(done.all())
-        if t is not None:
-            profiling.end(t)
-            profiling.count("loop.syncs")
-        if finished:
-            break
-    return state, ll_buf, n_iters, done
+    if it0 >= it_end:
+        return carry
+    freeze = _LaneFreeze(carry, it0, maxiter, tol)
+    with graphs.segment(ll_buf.device, freeze.buffers()) as seg:
+        graph = None if seg is None else seg.chain("freeze", freeze)
+        for it in range(it0, it_end):
+            new_state, ll_i = step_fn(freeze.state)
+            t = profiling.begin("loop.freeze") if profiling.ON else None
+            if graph is not None and graph.warm:
+                graph(new_state, ll_i)
+            else:
+                freeze(new_state, ll_i)
+                if graph is not None:
+                    graph.warm = True
+            if t is not None:
+                profiling.end(t)
+                profiling.count("loop.steps")
+                profiling.count("loop.lane_steps", lanes)
+            if not verbose and (it + 1) % DONE_CHECK_EVERY != 0:
+                continue
+            t = profiling.begin("loop.sync") if profiling.ON else None
+            if verbose and bool(freeze.active.any()):
+                lls = ll_i[0] if ll_i.shape[0] == 1 else ll_i
+                print(f"{it + 1}\t{verbose_label}: {lls.cpu().numpy()}")
+            if reduce is not None:
+                freeze.done.copy_(reduce.agree(freeze.done))
+            finished = bool(freeze.done.all())
+            if t is not None:
+                profiling.end(t)
+                profiling.count("loop.syncs")
+            if finished:
+                break
+    return freeze.carry()
+
+
+def _map_tree(fn, tree):
+    """`fn` of every tensor of a (nested) state or carry, in its structure."""
+    if isinstance(tree, tuple):
+        parts = [_map_tree(fn, x) for x in tree]
+        return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+    return fn(tree)
 
 
 def _index_lanes(tree, idx: torch.Tensor):
     """Lanes `idx` of every tensor of a (nested) state or carry."""
-    if isinstance(tree, tuple):
-        parts = [_index_lanes(x, idx) for x in tree]
-        return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
-    return tree.index_select(0, idx)
+    return _map_tree(lambda t: t.index_select(0, idx), tree)
 
 
 def _cat_lanes(trees):

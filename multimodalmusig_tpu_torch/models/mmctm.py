@@ -26,7 +26,7 @@ import torch
 
 from ..ops.solvers import maximize_alpha
 from ..ops.special import dirichlet_expectation, gammaln, logmvbeta_symmetric, safe_xlogy, xlogx
-from ..utils import profiling
+from ..utils import graphs, profiling
 from ..utils.formatting import infer_vocab_size, sparse_to_dense
 from . import ctm_base
 from .ctm_base import (
@@ -455,34 +455,59 @@ def fit_step_fn(X, N, config: MMCTMConfig, autoalpha: bool = False, update_sigma
     X holds this process's vocabulary slice (N every slice's counts): sumθ,
     γ's row sums (reduced once a step, for both E[ln ϕ] and ϕ) and the lls
     reduce their vocabulary sums; autoα's sums over V are not reduced, so
-    it cannot be combined with the hook. The tracer's span `step` covers the
-    closure, its phases `step.estep` (θ moments, η), `step.mstep` (μ, Σ,
-    Σ⁻¹), `step.gamma` (γ, E[ln ϕ], α) and `step.ll`."""
+    it cannot be combined with the hook.
+
+    The step's tail, everything after the E-step, is a chain of small
+    PyTorch operations. Inside a fit loop's segment on the card
+    (utils/graphs.py) it runs eagerly at the segment's first step, is
+    captured as a CUDA graph at its second and replayed after that; the
+    E-step and its kernels stay eager. The step then returns the graph's
+    buffers, which the next step rewrites. Without a segment (the CPU, a
+    direct call), and with either hook, whose collectives stay eager, the
+    tail runs eagerly.
+
+    The tracer's span `step` covers the closure, its phases `step.estep`
+    (θ moments, η), then, eagerly, `step.mstep` (μ, Σ, Σ⁻¹), `step.gamma`
+    (γ, E[ln ϕ], α) and `step.ll`, or, in a graph, `step.tail`."""
     if autoalpha and vocab_reduce is not None:
         raise ValueError("autoalpha is not supported in a vocab-sharded fit")
     counts = None if vocab_reduce is None else _total_counts(X, vocab_reduce)
+    graphed = reduce is None and vocab_reduce is None
+
+    def tail(s, scatters, phase=None):
+        """μ → Σ, Σ⁻¹ → γ, E[ln ϕ] → α → the lls, from the E-step's state and
+        γ scatters; `phase`, the tracer's open phase span, or None."""
+        if phase is not None:
+            phase = profiling.then(phase, "step.mstep")
+        s = update_mu(s, config, reduce)
+        if update_sigma:
+            s = update_Sigma(s, config, reduce)
+        if phase is not None:
+            phase = profiling.then(phase, "step.gamma")
+        s, totals = _update_gamma(s, config, scatters, reduce, vocab_reduce)
+        if autoalpha:
+            s = update_alpha(s, config)
+        if phase is not None:
+            profiling.then(phase, "step.ll")
+        ll = modality_loglikelihoods(X, props_from(s.lam, config), phi_point(s.gamma, totals),
+                                     reduce, vocab_reduce, counts)
+        return s, ll
 
     def step(s):
         on = profiling.ON
         if on:
             top, phase = profiling.begin("step"), profiling.begin("step.estep")
         s, scatters = e_step_moments(s, X, N, config, vocab_reduce=vocab_reduce)
+        graph = graphs.chain("tail", tail, s.lam) if graphed else None
+        if graph is not None and graph.warm:
+            if on:
+                profiling.then(phase, "step.tail")
+            s, ll = graph(s, scatters)
+        else:
+            s, ll = tail(s, scatters, phase if on else None)
+            if graph is not None:
+                graph.warm = True
         if on:
-            phase = profiling.then(phase, "step.mstep")
-        s = update_mu(s, config, reduce)
-        if update_sigma:
-            s = update_Sigma(s, config, reduce)
-        if on:
-            phase = profiling.then(phase, "step.gamma")
-        s, totals = _update_gamma(s, config, scatters, reduce, vocab_reduce)
-        if autoalpha:
-            s = update_alpha(s, config)
-        if on:
-            phase = profiling.then(phase, "step.ll")
-        ll = modality_loglikelihoods(X, props_from(s.lam, config), phi_point(s.gamma, totals),
-                                     reduce, vocab_reduce, counts)
-        if on:
-            profiling.end(phase)
             profiling.end(top)
         return s, ll
 

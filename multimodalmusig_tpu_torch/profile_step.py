@@ -55,6 +55,15 @@ _SPANS = (("E-step (theta moments, eta)", "step.estep"),
           ("  theta kernel wrapper (B4)", "kernel.theta_host"))
 
 
+def _select_lanes(keep: torch.Tensor, new, old):
+    """Per-lane torch.where over a state (tensors and tuples of tensors):
+    the lane freeze of the fit loop, eagerly and out of place."""
+    if isinstance(new, tuple):
+        parts = [_select_lanes(keep, n, o) for n, o in zip(new, old)]
+        return type(new)(*parts) if hasattr(new, "_fields") else tuple(parts)
+    return torch.where(keep.view(-1, *([1] * (new.dim() - 1))), new, old)
+
+
 def _setup(restarts: int):
     X = [read_counts_tsv(brca_counts_path(f))[0].T for f in BRCA_FILES]
     config = mmctm.MMCTMConfig(K=(7, 7), V=(96, 48), D=560, dtype=torch.float32)
@@ -66,7 +75,7 @@ def _setup(restarts: int):
 
     def iteration(s):
         new, ll = step(s)
-        return ctm_base._select_lanes(active, new, s), ll
+        return _select_lanes(active, new, s), ll
 
     for _ in range(10):  # leave the cold start behind
         state, _ = iteration(state)

@@ -20,6 +20,7 @@ only PyTorch:
 """
 
 import collections
+import contextlib
 import dataclasses
 import hashlib
 import warnings
@@ -34,7 +35,7 @@ from multimodalmusig_tpu_torch.ops import estep_kernel as ek
 from multimodalmusig_tpu_torch.ops import lambda_kernel as lk
 from multimodalmusig_tpu_torch.ops import theta_kernel as tk
 from multimodalmusig_tpu_torch.ops.solvers import lambda_grad
-from multimodalmusig_tpu_torch.utils import profiling
+from multimodalmusig_tpu_torch.utils import graphs, profiling
 
 torch.set_num_threads(2)
 
@@ -1383,3 +1384,166 @@ def test_extrap_fit_on_the_card_matches_the_cpu_in_float64(cuda):
             assert ek.LAUNCHES - before == 10
         out.append(res.ll_history.cpu().double().numpy())
     np.testing.assert_allclose(out[0], out[1], rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of the step's tail and of the lane freeze (utils/graphs.py)
+# ---------------------------------------------------------------------------
+
+
+def _eager_loops(monkeypatch):
+    """No fit loop opens a segment: every chain runs eagerly."""
+    @contextlib.contextmanager
+    def no_segment(device, pinned=()):
+        yield None
+
+    monkeypatch.setattr(graphs, "segment", no_segment)
+
+
+def _segment_steps(monkeypatch):
+    """A list that receives the steps of every segment a fit loop opens."""
+    sizes, real = [], graphs.segment
+
+    @contextlib.contextmanager
+    def counted(device, pinned=()):
+        before = profiling._counts.get("loop.steps", 0)
+        with real(device, pinned) as seg:
+            yield seg
+        sizes.append(profiling._counts.get("loop.steps", 0) - before)
+
+    monkeypatch.setattr(graphs, "segment", counted)
+    return sizes
+
+
+def _graphed_and_eager(fit, monkeypatch):
+    """`fit()` with its loops' chains as graphs, traced, then eagerly: (the
+    graphed result, its counters, the steps of each of its segments, the
+    eager result, each one's peak allocated bytes)."""
+    profiling.reset()
+    peaks = []
+    try:
+        with monkeypatch.context() as mp:
+            sizes = _segment_steps(mp)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with profiling.tracing():
+                graphed = fit()
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated())
+            counts = dict(profiling._counts)
+        with monkeypatch.context() as mp:
+            _eager_loops(mp)
+            torch.cuda.reset_peak_memory_stats()
+            eager = fit()
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated())
+    finally:
+        profiling.reset()
+    return graphed, counts, sizes, eager, peaks
+
+
+def _assert_graph_counts(counts, sizes, kinds):
+    """Each segment warms its chains at its first step and captures them at
+    its second; every later step replays them."""
+    steps = counts["loop.steps"]
+    assert steps == sum(sizes)
+    warm, captures = sum(n >= 1 for n in sizes), sum(n >= 2 for n in sizes)
+    for kind in ("tail", "freeze"):
+        if kind in kinds:
+            assert counts[f"graph.captures.{kind}"] == captures, kind
+            assert counts[f"graph.replays.{kind}"] == steps - warm - captures, kind
+        else:
+            assert f"graph.captures.{kind}" not in counts, kind
+
+
+def _brca_docs():
+    X = [mt.read_counts_tsv(mt.brca_counts_path(f))[0].T
+         for f in ("brca-eu_snv_counts.tsv", "brca-eu_sv_counts.tsv")]
+    return [[mt.make_count_matrix(X[m][d]) for m in range(2)] for d in range(X[0].shape[0])]
+
+
+def _bits_equal(a, b):
+    """Two lists of tensors equal to the bit, NaN where NaN."""
+    def parts(x):
+        if not x.is_floating_point():
+            return (x,)
+        nan = torch.isnan(x)
+        return nan, torch.where(nan, 0.0, x)
+
+    return len(a) == len(b) and all(
+        x.shape == y.shape and all(torch.equal(p, q) for p, q in zip(parts(x), parts(y)))
+        for x, y in zip(a, b))
+
+
+def _model_leaves(model):
+    r = model.restart_result
+    return graphs.leaves((r.state, r.ll_history, r.n_iters, r.converged, r.elbo, r.ll,
+                          model.state)) + [torch.tensor(model.ll), torch.tensor(model.ll_history)]
+
+
+@pytest.mark.parametrize("schedule", [None, "auto"])
+def test_graphed_restart_fit_at_brca_shapes_keeps_the_eager_bits(cuda, monkeypatch, schedule):
+    """fit_mmctm_restarts at BRCA's shapes (R = 100, both stages; with
+    "auto" the pilot and the compaction segments, where R changes): with the
+    tail and the freeze as graphs, every bit of both stages and of the
+    selected model as eager, the replays all steps but the warm-ups and
+    captures, the peak allocated memory within 1% of eager and none left
+    allocated after the fit."""
+    docs = _brca_docs()
+
+    def fit():
+        return mt.fit_mmctm_restarts([7, 7], [0.1, 0.1], docs, seed=11, device=cuda,
+                                     restarts=100 if schedule is None else 1000,
+                                     compact_schedule=schedule)
+
+    fit()  # the kernels built, an "auto" schedule memoized
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    graphed, counts, sizes, eager, peaks = _graphed_and_eager(fit, monkeypatch)
+    assert _bits_equal(_model_leaves(graphed), _model_leaves(eager))
+    _assert_graph_counts(counts, sizes, ("tail", "freeze"))
+    # stage 1 and stage 2; "auto": the pilot, the other lanes' segments, stage 2
+    assert len(sizes) == 2 if schedule is None else len(sizes) >= 3
+    assert peaks[0] <= 1.01 * peaks[1], peaks
+    del graphed, eager
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() <= held
+
+
+def test_graphed_immctm_fit_keeps_the_eager_bits(cuda, monkeypatch):
+    """IMMCTM's step stays eager; its loop's freeze is a graph."""
+    from chip_smoke import brca_features, load_brca
+
+    X, terms = load_brca()
+    features = brca_features(*terms)
+
+    def fit():
+        return mt.fit_immctm_restarts([7, 7], [0.1, 0.1], features,
+                                      [[mt.make_count_matrix(X[m][d]) for m in range(2)]
+                                       for d in range(X[0].shape[0])],
+                                      restarts=20, maxiter=60, seed=3)
+
+    graphed, counts, sizes, eager, _ = _graphed_and_eager(fit, monkeypatch)
+    r, e = graphed.restart_result, eager.restart_result
+    assert _bits_equal(graphs.leaves((r.state, r.ll_history, r.n_iters, r.elbo)),
+                       graphs.leaves((e.state, e.ll_history, e.n_iters, e.elbo)))
+    _assert_graph_counts(counts, sizes, ("freeze",))
+
+
+@pytest.mark.parametrize("family", ["LDA", "ILDA"])
+def test_graphed_lda_fit_keeps_the_eager_bits(cuda, monkeypatch, family):
+    """LDA's and ILDA's steps stay eager; the freeze is a graph, in the fit
+    and in `transform`'s inference loop."""
+    docs, feats = _lda_problem()
+    args = (7, 0.1, 0.1) + ((feats,) if family == "ILDA" else ()) + (docs,)
+    fit = mt.fit_lda_restarts if family == "LDA" else mt.fit_ilda_restarts
+
+    def run():
+        model = fit(*args, restarts=8, maxiter=60, tol=1e-4, seed=5)
+        return model, torch.as_tensor(mt.transform(model, docs[:20], maxiter=30, tol=0.0))
+
+    (graphed, theta), counts, sizes, (eager, theta_e), _ = _graphed_and_eager(run, monkeypatch)
+    r, e = graphed.restart_result, eager.restart_result
+    assert _bits_equal(graphs.leaves((r.state, r.ll_history, r.n_iters, theta)),
+                       graphs.leaves((e.state, e.ll_history, e.n_iters, theta_e)))
+    _assert_graph_counts(counts, sizes, ("freeze",))

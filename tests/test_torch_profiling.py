@@ -4,7 +4,9 @@ ends with its block, `check_finite` against the JAX package's on the same
 NaN-holding state, the timer, and the program's spans and counters: off by
 default, nested with parents, self times and entry ids, in the harness's
 form, one `step` and one `loop.freeze` per CAVI step of a restart fit whose
-bits do not change, and in the Chrome trace."""
+bits do not change, and in the Chrome trace; and with the fit loops' chains
+run as graphs (emulated on the CPU), their capture and replay counters and
+the `step.tail` span."""
 
 import json
 import os
@@ -19,7 +21,7 @@ import multimodalmusig_tpu_torch as mt
 from multimodalmusig_tpu_torch import cli
 from multimodalmusig_tpu_torch.models import mmctm as tm
 from multimodalmusig_tpu_torch.parallel import _ranks
-from multimodalmusig_tpu_torch.utils import profiling
+from multimodalmusig_tpu_torch.utils import graphs, profiling
 
 torch.set_num_threads(2)
 
@@ -255,3 +257,57 @@ def test_a_profiled_fit_traces_itself_and_its_spans_reach_the_chrome_trace(tmp_p
     assert {"loop.run", "step", "step.estep", "loop.freeze"} <= names
     profiling.refresh()
     assert not profiling.ON
+
+
+class _Replay:
+    """A CUDA graph's semantics on the CPU (utils/graphs.py `_record`): a
+    replay runs the chain again on the capture's inputs and writes its
+    outputs into the capture's."""
+
+    def __init__(self, fn, args, out):
+        self.fn, self.args, self.out = fn, args, out
+
+    def replay(self):
+        for o, n in zip(graphs.leaves(self.out), graphs.leaves(self.fn(*self.args))):
+            if o is not n:
+                o.copy_(n)
+
+    def reset(self):
+        pass
+
+
+def test_graphed_chains_count_their_captures_and_replays_under_step_tail(monkeypatch):
+    """A restart fit whose loops run their chains as graphs (emulated on the
+    CPU; on the card they are CUDA graphs): per segment one warm-up and one
+    capture of the tail and of the freeze, a replay at every later step;
+    each replayed step's tail is one `step.tail` span in place of the eager
+    phases; the bits of the fit without graphs."""
+    _, docs = _tiny_docs()
+    plain = _restart_fit(docs)
+
+    def record(fn, args, device):
+        out = fn(*args)
+        return _Replay(fn, args, out), out
+
+    monkeypatch.setattr(graphs, "DEVICE_TYPES", ("cuda", "cpu"))
+    monkeypatch.setattr(graphs, "_record", record)
+    with profiling.tracing():
+        graphed = _restart_fit(docs)
+    t = profiling.totals()
+    spans, counts = t["spans"], t["counts"]
+    steps = counts["loop.steps"]
+    # stage 1 cut after 12 iterations, then stage 2: three segments
+    segments = counts["loop.boundaries"]
+    assert segments == 3
+    for kind in ("tail", "freeze"):
+        assert counts[f"graph.captures.{kind}"] == segments
+        assert counts[f"graph.replays.{kind}"] == steps - 2 * segments
+    assert spans["step.tail"]["calls"] == steps - segments
+    for phase in ("step.mstep", "step.gamma", "step.ll"):
+        assert spans[phase]["calls"] == segments
+    assert spans["step"]["calls"] == spans["step.estep"]["calls"] == steps
+    assert graphed.ll == plain.ll and graphed.ll_history == plain.ll_history
+    assert torch.equal(graphed.restart_result.ll_history, plain.restart_result.ll_history)
+    for a, b in zip(graphs.leaves(graphed.restart_result.state),
+                    graphs.leaves(plain.restart_result.state)):
+        assert torch.equal(a, b)

@@ -182,8 +182,10 @@ def test_extrap_clip_bounds_the_step(monkeypatch):
 
 
 def _spy_starts(monkeypatch):
-    """Record (λ given to solve_eta, lam_prev, λ₀ given to solve_lambda)
-    for every η side of a fit (JAX test_solvers.py _spy_lam0)."""
+    """Record (λ given to solve_eta, lam_prev, λ₀ given to solve_lambda,
+    whether λ₀ is that λ) for every η side of a fit (JAX test_solvers.py
+    _spy_lam0), as their values at the call: the fit loop writes its carry,
+    which holds λ and lam_prev, in place after each step."""
     calls, current = [], {}
     real_eta, real_lambda = tcb.solve_eta, tcb.solve_lambda
 
@@ -192,7 +194,9 @@ def _spy_starts(monkeypatch):
         return real_eta(lam, *a, **k)
 
     def spy_lambda(lam0, *a, **k):
-        calls.append((current["lam"], current["lam_prev"], lam0))
+        lam, prev = current["lam"], current["lam_prev"]
+        calls.append((lam.clone(), None if prev is None else prev.clone(), lam0.clone(),
+                      lam0 is lam))
         return real_lambda(lam0, *a, **k)
 
     monkeypatch.setattr(tcb, "solve_lambda", spy_lambda)
@@ -204,15 +208,15 @@ def test_default_start_is_the_incoming_lambda(monkeypatch, corpus):
     calls = _spy_starts(monkeypatch)
     _port_fit(corpus, 3)
     assert len(calls) == 3
-    assert all(lam0 is lam and prev is not None for lam, prev, lam0 in calls)
+    assert all(same and prev is not None for _, prev, _, same in calls)
 
 
 def test_extrap_start_is_the_secant_step(monkeypatch, corpus):
     calls = _spy_starts(monkeypatch)
     _port_fit(corpus, 4, lambda_extrap=0.5)
     assert len(calls) == 4
-    for lam, prev, lam0 in calls:
-        assert lam0 is not lam
+    for lam, prev, lam0, same in calls:
+        assert not same
         assert torch.equal(lam0, lam + torch.clamp(0.5 * (lam - prev), -4.0, 4.0))
 
 
