@@ -1,30 +1,22 @@
 """The comparison that decides `correct`, and its control.
 
-Every number compares what the timed path produced with the plain
-reference (portbench/reference.py), run in float64 on the fits sampled
-from the seed:
-  * `eta`, `theta`, `mstep`, `step_ll`: two early CAVI steps and the last
-    step of every `mmctm.fit` call of a sampled fit (each phase: stage 1,
-    or the pilot and the compacted rest, and stage 2), on a few lanes drawn
-    from the seed, recomputed from the captured input state
-    (`step_components`): the relative Frobenius gap, worst lane, of ζ, ν
-    and λ (the η kernel; λ where `holds_lambda` says); of sumθ and each
-    scatter (the θ kernel); of μ, Σ and γ (the M-step); and the relative
-    gap of the step's lls;
-  * `rescore`: the program's float64 scores of the stage-1 lanes it
-    shortlisted, against the reference's scores of their final states;
-  * `pick`: how far the program's stage-1 winner of each modality lies
-    below the best reference score over every stage-1 lane: an exact
-    comparison (limit 0);
-  * `model_ll`: the selected model's reported lls against the reference's
-    lls of its state;
-  * `outputs` (the CLI): the largest difference of a written signature
-    or proportion from the reference's, from the selected state.
+Every number compares what the timed path produced with a plain
+reference, run in float64 on the fits sampled from the seed. Which
+numbers a cell reads, and how, its entry says (portbench/entries/<entry>.py:
+`fit_numbers` and `REQUIRED`; MMCTM's in portbench/families/mmctm.py,
+against portbench/reference.py). Their names are `NUMBERS`, the set a
+configuration's `limits` draws on:
+  * `eta`, `theta`, `mstep`, `step_ll`: captured CAVI steps, recomputed
+    from their input state: the η side (ζ, ν, λ), the θ moments, the
+    M-step and γ, the step's lls;
+  * `rescore`, `pick`: the selection's float64 scores and the lane it
+    picked;
+  * `model_ll`: the selected model's reported lls;
+  * `outputs`: the tables a CLI writes.
 The control is the reference put in the program's place one precision
-below the program's: the steps and the model's lls in float32 with TF32
-products (the program's float32 runs with TF32 off), the scores in
-float32 (the program's are float64), the written tables, which the
-program forms elementwise in float32, in bfloat16.
+below the program's (`control=True` of `fit_numbers`): float32 with TF32
+products where the program runs float32 with TF32 off, float32 where it
+runs float64, bfloat16 for tables it forms elementwise in float32.
 """
 
 from __future__ import annotations
@@ -32,16 +24,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import reference as ref
-
 NUMBERS = ("eta", "theta", "mstep", "step_ll", "rescore", "pick", "model_ll", "outputs")
 
 
 def required(entry):
-    """The numbers that every run of a cell whose traffic calls `entry`
-    has to read: all, and the written tables only where the CLI writes
-    them. A required number that a run did not read fails it."""
-    return tuple(n for n in NUMBERS if n != "outputs" or entry == "cli")
+    """The numbers that every run of a cell whose traffic calls `entry` (its
+    loaded module) has to read: the entry's `REQUIRED`, each one of
+    `NUMBERS`. A required number that a run did not read fails it."""
+    names = tuple(entry.REQUIRED)
+    unknown = sorted(set(names) - set(NUMBERS))
+    if unknown:
+        raise ValueError(f"required numbers {unknown} are not among check.NUMBERS")
+    return names
 
 
 def rel(a, b):
@@ -57,7 +51,7 @@ def ll_gap(a, b):
     return float(((a - b).abs() / b.abs()).max())
 
 
-def _worst(values):
+def worst(values):
     """The largest of the readings, NaN if any is NaN, None if none."""
     values = [v for v in values if v is not None]
     if not values:
@@ -67,14 +61,14 @@ def _worst(values):
     return max(values)
 
 
-def _as(x, dtype, device):
+def as_dtype(x, dtype, device):
     if isinstance(x, (list, tuple)):
-        return [_as(t, dtype, device) for t in x]
+        return [as_dtype(t, dtype, device) for t in x]
     return torch.as_tensor(x).to(device=device, dtype=dtype)
 
 
-# The captured steps of every `mmctm.fit` call: one drawn from each range,
-# and the last.
+# The captured steps of every `fit` call of the model module: one drawn from
+# each range, and the last.
 CAPTURE_STEPS = ((1, 3), (3, 8))
 LAMBDA_STEPS = (1, 3)
 
@@ -91,126 +85,12 @@ def holds_lambda(t, final):
     return t >= LAMBDA_STEPS[0] and (final or t < LAMBDA_STEPS[1])
 
 
-def _mstep(lam, nu, alpha, scatter):
-    """μ, Σ and γ in float64 from an E-step's own λ, ν and scatters."""
-    D = lam.shape[1]
-    mu = lam.mean(dim=1)
-    E = lam - mu[:, None, :]
-    Sigma = (torch.diag_embed(nu.sum(dim=1)) + E.mT @ E) / D
-    return mu, Sigma, [alpha[:, m, None, None] + s for m, s in enumerate(scatter)]
-
-
-def step_components(capture, X, K, device, control=False):
-    """The gaps of one captured step, by component: the program's outputs
-    (or with `control` the reference's in float32 with TF32 products) against
-    the float64 reference: ζ, ν, λ, sumθ and the scatters from the step's
-    inputs; μ, Σ and γ against the M-step recomputed from the same step's
-    own λ, ν and scatters, and the lls against those of its own λ and γ, so
-    that each layer is held to its own inputs."""
-    X64 = _as(X, torch.float64, device)
-    inp64 = {k: _as(v, torch.float64, device) for k, v in capture["inp"].items()}
-    r = ref.cavi_step(inp64, X64, K)
-    if control:
-        inp32 = {k: _as(v, torch.float32, device) for k, v in capture["inp"].items()}
-        with ref.tf32_products():
-            out = ref.cavi_step(inp32, _as(X, torch.float32, device), K)
-    else:
-        out = capture["out"]
-    out = {k: _as(v, torch.float64, device) for k, v in out.items()}
-    mu, Sigma, gamma = _mstep(out["lam"], out["nu"], inp64["alpha"], out["scatter"])
-    ll = ref.modality_lls(X64, ref.proportions(out["lam"], K), ref.signatures(out["gamma"]))
-    return {
-        "zeta": rel(out["zeta"], r["zeta"]), "nu": rel(out["nu"], r["nu"]),
-        "lam": rel(out["lam"], r["lam"]), "sumtheta": rel(out["sumtheta"], r["sumtheta"]),
-        "scatter": max(rel(a, b) for a, b in zip(out["scatter"], r["scatter"])),
-        "mu": rel(out["mu"], mu), "Sigma": rel(out["Sigma"], Sigma),
-        "gamma": max(rel(a, b) for a, b in zip(out["gamma"], gamma)),
-        "ll": ll_gap(out["ll"], ll),
-    }
-
-
-def phase_captures(sample):
-    """[(capture, final)] over the fit's phases, `final` for the last phase's."""
-    phases = sample["phases"]
-    return [(c, i == len(phases) - 1) for i, p in enumerate(phases) for c in p["captures"]]
-
-
-def step_numbers(captures, X, K, device, control=False):
-    """(eta, theta, mstep, step_ll) over the captured steps of a fit
-    ([(capture, final)])."""
-    comps = [(holds_lambda(c["t"], final), step_components(c, X, K, device, control))
-             for c, final in captures]
-    if not comps:
-        return None, None, None, None
-    eta = _worst([c[k] for _, c in comps for k in ("zeta", "nu")]
-                 + [c["lam"] for held, c in comps if held])
-    theta = _worst([c[k] for _, c in comps for k in ("sumtheta", "scatter")])
-    mstep = _worst([c[k] for _, c in comps for k in ("mu", "Sigma", "gamma")])
-    return eta, theta, mstep, _worst([c["ll"] for _, c in comps])
-
-
-def _finite_rows(ll):
-    return torch.isfinite(ll).all(dim=-1)
-
-
-def fit_numbers(sample, X, K, device, control=False):
-    """The numbers of one sampled fit (a dict; a number that the fit has
-    nothing for is None)."""
-    out = dict.fromkeys(NUMBERS)
-    out["eta"], out["theta"], out["mstep"], out["step_ll"] = step_numbers(
-        phase_captures(sample), X, K, device, control)
-
-    X64 = _as(X, torch.float64, device)
-    s1 = sample["stage1"]
-    lam1 = _as(s1["lam"], torch.float64, device)
-    gamma1 = _as(s1["gamma"], torch.float64, device)
-    ll64 = ref.lls_of_states(lam1, gamma1, X64, K)
-    w = sample["winners"]
-    lanes = torch.as_tensor(w["lanes"], device=device)
-    if control:
-        X32 = _as(X, torch.float32, device)
-        scores = ref.lls_of_states(lam1.float()[lanes], [g.float()[lanes] for g in gamma1],
-                                   X32, K)
-    else:
-        scores = torch.as_tensor(w["ll_f64"], device=device)
-    out["rescore"] = ll_gap(scores, ll64[lanes])
-    best = torch.as_tensor(w["best"], device=device)
-    masked = torch.where(_finite_rows(ll64)[:, None], ll64, -torch.inf)
-    out["pick"] = float((masked.max(dim=0).values
-                         - ll64[best, torch.arange(len(K), device=device)]).max())
-
-    m = sample["model"]
-    lam = _as(m["lam"], torch.float64, device)[None]
-    gamma = [g[None] for g in _as(m["gamma"], torch.float64, device)]
-    model_ref = ref.modality_lls(X64, ref.proportions(lam, K), ref.signatures(gamma))[0]
-    if control:
-        with ref.tf32_products():
-            reported = ref.modality_lls(_as(X, torch.float32, device),
-                                        ref.proportions(lam.float(), K),
-                                        ref.signatures([g.float() for g in gamma]))[0]
-    else:
-        reported = torch.as_tensor(m["ll"], dtype=torch.float64, device=device)
-    out["model_ll"] = ll_gap(reported, model_ref)
-
-    if "tables" in sample:
-        props_ref = torch.cat(ref.proportions(lam, K), dim=-1)[0].T      # (MK, D)
-        sigs_ref = ref.signatures(gamma)
-        if control:
-            props = torch.cat(ref.proportions(lam.bfloat16(), K), dim=-1)[0].T
-            sigs = ref.signatures([g.bfloat16() for g in gamma])
-        else:
-            props = _as(sample["tables"]["props"], torch.float64, device)
-            sigs = [_as(s, torch.float64, device)[None] for s in sample["tables"]["sigs"]]
-        gaps = [float((props.double() - props_ref).abs().max())]
-        gaps += [float((a.double() - b).abs().max()) for a, b in zip(sigs, sigs_ref)]
-        out["outputs"] = max(gaps)
-    return out
-
-
-def numbers(samples, X, K, device, control=False):
-    """Each number's worst reading over the sampled fits."""
-    per_fit = [fit_numbers(s, X, K, device, control) for s in samples]
-    return {name: _worst([f[name] for f in per_fit]) for name in NUMBERS}
+def numbers(entry, samples, X, config, device, control=False):
+    """Each number's worst reading over the sampled fits, each fit's read by
+    the entry's `fit_numbers(sample, X, config, device, control)` (a dict;
+    a number it has nothing for is None or left out)."""
+    per_fit = [entry.fit_numbers(s, X, config, device, control) for s in samples]
+    return {name: worst([f.get(name) for f in per_fit]) for name in NUMBERS}
 
 
 def judge(values, limits, required=NUMBERS):

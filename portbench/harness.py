@@ -2,10 +2,11 @@
 check, and the result line.
 
 The window is a closed loop with one client: the cell's job (one call of
-the entry point the traffic mix names) runs back to back, fit i with a
-restart seed drawn from (--seed, i), until the first fit that ends after
---seconds. Two fits of the window, sampled from the seed as they start
-(reservoir sampling), keep what the check compares (portbench/check.py).
+the entry point the traffic mix names, portbench/entries/<entry>.py) runs
+back to back, fit i with a restart seed drawn from (--seed, i), until the
+first fit that ends after --seconds. Two fits of the window, sampled from
+the seed as they start (reservoir sampling), keep what the check compares
+(portbench/check.py).
 """
 
 from __future__ import annotations
@@ -28,14 +29,13 @@ TRACE_SEED_OFFSET = 1 << 20
 FORBIDDEN = ("jax", "jaxlib", "flax", "multimodalmusig_tpu")
 
 
-def program():
-    """The modules of the package under test that the harness drives."""
-    from multimodalmusig_tpu_torch import cli
-    from multimodalmusig_tpu_torch.models import mmctm
+def program(entry):
+    """The modules of the package under test that a run drives: the η and θ
+    kernels' wrappers, which every family's step launches, and those that
+    the cell's entry names (its `program()`)."""
     from multimodalmusig_tpu_torch.ops import estep_kernel, theta_kernel
-    from multimodalmusig_tpu_torch.parallel import restarts
-    return SimpleNamespace(cli=cli, mmctm=mmctm, estep_kernel=estep_kernel,
-                           theta_kernel=theta_kernel, restarts=restarts)
+    return SimpleNamespace(estep_kernel=estep_kernel, theta_kernel=theta_kernel,
+                           **entry.program())
 
 
 def _entropy(seed):
@@ -53,57 +53,6 @@ def forbidden_modules():
     return sorted({name.split(".")[0] for name in list(sys.modules)} & set(FORBIDDEN))
 
 
-class Job:
-    """One call of the traffic mix's entry point on the configuration's
-    corpus."""
-
-    def __init__(self, prog, config, traffic, data, outdir, device, span):
-        self.p, self.config, self.traffic, self.data = prog, config, traffic, data
-        self.outdir, self.device, self.span = outdir, device, span
-        self.entry = traffic["entry"]
-        if self.entry == "fit_mmctm_restarts":
-            self.docs = corpus.sparse_docs(data["X"])
-        elif self.entry == "cli":
-            corpus.write_tsvs(data, config, os.path.join(outdir, "counts"))
-            os.makedirs(outdir, exist_ok=True)
-            self.tables = {k: os.path.join(outdir, f"{k}.tsv") for k in ("sigs", "props")}
-        else:
-            raise ValueError(f"unknown entry {self.entry!r}")
-
-    def run(self, seed):
-        """Fit once; True when the entry point returned a finite answer."""
-        c = self.config
-        if self.entry == "fit_mmctm_restarts":
-            model = self.p.restarts.fit_mmctm_restarts(
-                c["K"], c["alpha"], self.docs, V=c["V"], seed=seed, device=self.device,
-                **self.traffic.get("kwargs", {}))
-            return bool(np.all(np.isfinite(model.ll)))
-        argv = [*self.data["tsv"], "-k", *map(str, c["K"]), "-m", *c["modalities"],
-                "--alpha", str(c["alpha"][0]), *self.traffic.get("argv", []),
-                "--sigs", self.tables["sigs"], "--props", self.tables["props"],
-                "--seed", str(seed), "--device", "cuda" if self.device == "cuda" else "cpu"]
-        with self.span("cli.main"):
-            return self.p.cli.main(argv) == 0
-
-    def read_tables(self):
-        """The CLI's written signatures [(K_m, V_m)] and proportions (MK, D)."""
-        if self.entry != "cli":
-            return None
-        c = self.config
-        sigs = [np.zeros((k, v)) for k, v in zip(c["K"], c["V"])]
-        mods = {name: m for m, name in enumerate(c["modalities"])}
-        with open(self.tables["sigs"]) as f:
-            next(f)
-            for line in f:
-                mod, topic, value, _, prob = line.rstrip("\n").split("\t")
-                sigs[mods[mod]][int(topic) - 1, int(value) - 1] = float(prob)
-        with open(self.tables["props"]) as f:
-            next(f)
-            props = np.array([[float(x) for x in line.rstrip("\n").split("\t")[1:]]
-                              for line in f])
-        return {"sigs": sigs, "props": props}
-
-
 def _sync(device):
     if device == "cuda":
         torch.cuda.synchronize()
@@ -117,14 +66,15 @@ def run_cell(resolved, seed, seconds, trace, device="cuda", t_start=None, log=sy
     """Run the cell once; returns the result line's dict."""
     t_start = time.perf_counter() if t_start is None else t_start
     config, traffic, cell = resolved["config"], resolved["traffic"], resolved["cell"]
-    prog = program()
-    recorder = Recorder(prog)
+    entry = resolved["entry"]
+    prog = program(entry)
+    recorder = Recorder(prog, entry.HOOKS)
     recorder.install()
     try:
         t_data = time.perf_counter()
         data = corpus.load(config)
         outdir = os.path.join(tempfile.gettempdir(), "portbench", cell["name"])
-        job = Job(prog, config, traffic, data, outdir, device, recorder.span)
+        job = entry.Job(prog, config, traffic, data, outdir, device, recorder.span)
         # set-up: one fit warms the cell's shapes and builds or loads the kernels
         t_warm = time.perf_counter()
         job.run(fit_seed(seed, -1))
@@ -157,9 +107,8 @@ def run_cell(resolved, seed, seconds, trace, device="cuda", t_start=None, log=sy
             walls.append(time.perf_counter() - t0)
             rec = recorder.end_fit()
             if rec is not None and ok:
-                tables = job.read_tables()
-                if tables is not None:
-                    rec["tables"] = tables
+                if hasattr(job, "read_tables"):
+                    rec["tables"] = job.read_tables()
                 samples[slot] = rec
             failed += not ok
             if time.perf_counter() - t_w0 >= seconds:
@@ -171,7 +120,8 @@ def run_cell(resolved, seed, seconds, trace, device="cuda", t_start=None, log=sy
             "fits": len(walls), "window_s": window_s, "fit_walls": walls,
             "restarts_s": recorder.restarts_s, "steps": recorder.steps,
             "lane_steps": recorder.lane_steps, "loop_s": recorder.loop_s,
-            "lane_iters_needed": recorder.lane_iters_needed(), "yardstick": yardstick,
+            "lane_iters_needed": recorder.lane_iters_needed(), "entry": entry,
+            "yardstick": yardstick,
         }
 
         summary = None
@@ -188,8 +138,8 @@ def run_cell(resolved, seed, seconds, trace, device="cuda", t_start=None, log=sy
         raise SystemExit(f"portbench: the run loaded {', '.join(found)}")
 
     samples = [s for s in samples if s is not None]
-    values = check.numbers(samples, data["X"], config["K"], device)
-    ok, checks = check.judge(values, config["limits"], check.required(traffic["entry"]))
+    values = check.numbers(entry, samples, data["X"], config, device)
+    ok, checks = check.judge(values, config["limits"], check.required(entry))
     correct = ok and failed == 0 and len(samples) > 0
 
     metrics = {}

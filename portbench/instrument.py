@@ -1,21 +1,25 @@
 """Spans, counters and captures the harness records around the program's
 calls, from outside: it replaces module attributes of the program by
 wrappers while a run lasts (`Recorder.install`, `Recorder.uninstall`), and
-the program looks them up at call time.
+the program looks them up at call time. What it wraps in a family's
+program, and what it captures there, the cell's entry names (`Hooks`,
+portbench/entries/<entry>.py); the η and θ kernels' wrappers are wrapped
+for every family.
 
 Recorded in every run (each a few host operations a CAVI step):
   * the CAVI steps and the restart lanes each step computes (the step
-    closures of `mmctm.fit_step_fn`), the lane-iterations the lanes needed
-    (Σ n_iters of every `mmctm.fit`), and the time of the fit loops
-    (`mmctm.run_cavi`);
-  * the time of `fit_mmctm_restarts` inside each call of the entry point;
+    closures of the model module's `fit_step_fn`), the lane-iterations
+    the lanes needed (Σ n_iters of every `fit` of the model module), and
+    the time of the fit loops (its `run_cavi`);
+  * the time of the restarts function inside each call of the entry point;
   * for the fits sampled for the check (`Recorder.begin_fit`): at one
     step drawn from each range of `capture_steps` and at the last step of
-    every `mmctm.fit` call, the input state and the outputs (ζ, ν, λ, μ, Σ,
-    γ, the lls, and the θ moments sumθ and the scatters) of a few lanes
-    drawn from the seed; the stage-1 winners and the float64 scores they
-    were read from; the stage-1 final λ and γ of every lane; the selected
-    model.
+    every `fit` call, the state fields the hooks name of the step's input
+    and output, its lls and its θ moments (sumθ and the scatters), on a few
+    lanes drawn from the seed; and what the hooks capture of the selection
+    functions' and the restarts function's results (for MMCTM: the
+    stage-1 winners and the float64 scores they were read from, the
+    stage-1 final λ and γ of every lane, the selected model).
 Recorded only while `tracing` is on (the profiled fits): a named span on
 the profiler's clock around each wrapped call, and the shapes, budgets
 and frozen bound (portbench/yardstick.py) of each η and θ kernel call.
@@ -24,20 +28,58 @@ and frozen bound (portbench/yardstick.py) of each η and θ kernel call.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import time
+from typing import Callable, Mapping, Optional, Tuple
 
-import numpy as np
 import torch
 
 from . import yardstick
 from .check import CAPTURE_STEPS
 
 
+@dataclasses.dataclass(frozen=True)
+class Hooks:
+    """What the Recorder wraps in one family's program, and what it
+    captures there; an entry's `HOOKS`.
+
+    `model`: the program's attribute (and the spans' prefix, `<model>.fit`)
+    of the model module whose `fit`, `fit_step_fn` and `run_cavi` are
+    wrapped; `theta`: the model module's attribute that its θ moments go
+    through, returning (sumθ, scatters); `lanes(state)`: (lanes, device) of
+    a batched state; `restarts`: the function of the program's `restarts`
+    module that one call of the entry runs (span `restarts.<restarts>`),
+    and `capture_model(model)`: what a sampled fit keeps of its result, a
+    dict; `selections`: {name: capture or None}, the restarts module's
+    selection functions (span `rescore.<name>`) and what a sampled fit
+    keeps of each one's result (`capture(result)`, a dict); `step_inputs`,
+    `step_outputs`: the state fields a captured step keeps of its input and
+    output state (a tuple field, per modality or per [m][i], as nested
+    lists)."""
+
+    model: str
+    theta: str
+    lanes: Callable
+    restarts: str
+    capture_model: Callable
+    selections: Mapping[str, Optional[Callable]]
+    step_inputs: Tuple[str, ...]
+    step_outputs: Tuple[str, ...]
+
 
 def eta_defaults(MK):
     """The η kernel wrapper's budgets for those a caller leaves out: its
     n_iter 7, and the plain solver's cold defaults min(MK, 10), 2 and 8."""
     return {"n_iter": 7, "cg_iter": min(MK, 10), "polish_iter": 2, "nu_n_iter": 8}
+
+
+def _take(x, idx):
+    """`x`'s lanes `idx`: a tensor, or nested tuples of them (as lists)."""
+    if x is None:
+        return None
+    if isinstance(x, (list, tuple)):
+        return [_take(t, idx) for t in x]
+    return x.index_select(0, idx)
 
 
 def _cpu(x):
@@ -51,7 +93,7 @@ def _cpu(x):
 
 
 class _Phase:
-    """One `mmctm.fit` call of a fit."""
+    """One call of the model module's `fit` in a fit."""
 
     def __init__(self, capture_at, lane_draws):
         self.capture_at = capture_at  # the step indices to capture
@@ -81,19 +123,22 @@ class _Phase:
 
 
 class Recorder:
-    def __init__(self, program, capture_steps=CAPTURE_STEPS, lanes_captured=4,
+    def __init__(self, program, hooks, capture_steps=CAPTURE_STEPS, lanes_captured=4,
                  capture_every=False):
-        """`capture_steps`: ranges [lo, hi) of step indices; a sampled fit
-        captures one step drawn from each in every `mmctm.fit` call, or every
-        step of them with `capture_every`."""
+        """`program`: the modules a run drives (portbench/harness.py
+        `program`); `hooks`: the entry's `Hooks`. `capture_steps`: ranges
+        [lo, hi) of step indices; a sampled fit captures one step drawn from
+        each in every `fit` call, or every step of them with
+        `capture_every`."""
         self.p = program
+        self.hooks = hooks
         self.capture_steps = [tuple(r) for r in capture_steps]
         self.capture_every = capture_every
         self.lanes_captured = int(lanes_captured)
         self.tracing = False
         self._saved = []
         self._fit = None       # the current fit's sample record, or None
-        self._phase = None     # the current `mmctm.fit` call's _Phase, or None
+        self._phase = None     # the current `fit` call's _Phase, or None
         self._theta_idx = None
         self._theta_out = None
         self.reset()
@@ -119,15 +164,16 @@ class Recorder:
         setattr(module, name, make(orig))
 
     def install(self):
-        p = self.p
-        self._patch(p.restarts, "fit_mmctm_restarts", self._wrap_restarts)
-        self._patch(p.restarts, "select_modality_winners_f64", self._wrap_winners)
-        self._patch(p.restarts, "select_best_restart_f64",
-                    lambda orig: self._spanned(orig, "rescore.select_best_restart_f64"))
-        self._patch(p.mmctm, "fit", self._wrap_fit)
-        self._patch(p.mmctm, "fit_step_fn", self._wrap_step_fn)
-        self._patch(p.mmctm, "run_cavi", self._wrap_run_cavi)
-        self._patch(p.mmctm, "theta_moments", self._wrap_theta_moments)
+        p, h = self.p, self.hooks
+        model = getattr(p, h.model)
+        self._patch(p.restarts, h.restarts, self._wrap_restarts)
+        for name, capture in h.selections.items():
+            self._patch(p.restarts, name,
+                        lambda orig, n=name, c=capture: self._wrap_selection(orig, n, c))
+        self._patch(model, "fit", self._wrap_fit)
+        self._patch(model, "fit_step_fn", self._wrap_step_fn)
+        self._patch(model, "run_cavi", self._wrap_run_cavi)
+        self._patch(model, h.theta, self._wrap_theta_moments)
         self._patch(p.estep_kernel, "estep_eta_fused", self._wrap_eta_kernel)
         self._patch(p.theta_kernel, "theta_moments_fused", self._wrap_theta_kernel)
 
@@ -165,39 +211,33 @@ class Recorder:
         return _cpu(rec)
 
     # -- wrappers --------------------------------------------------------
-    def _spanned(self, orig, name):
-        def spanned(*args, **kwargs):
-            with self.span(name):
-                return orig(*args, **kwargs)
-        return spanned
-
     def _wrap_restarts(self, orig):
-        def fit_mmctm_restarts(*args, **kwargs):
+        span = f"restarts.{self.hooks.restarts}"
+
+        def restarts(*args, **kwargs):
             t0 = time.perf_counter()
-            with self.span("restarts.fit_mmctm_restarts"):
+            with self.span(span):
                 model = orig(*args, **kwargs)
             self.restarts_s += time.perf_counter() - t0
             if self._fit is not None:
-                stage1 = model.restart_result.state
-                self._fit["model"] = {"ll": [float(v) for v in model.ll],
-                                      "lam": model.state.lam[0],
-                                      "gamma": [g[0] for g in model.state.gamma]}
-                self._fit["stage1"] = {"lam": stage1.lam, "gamma": list(stage1.gamma)}
+                self._fit.update(self.hooks.capture_model(model))
             return model
-        return fit_mmctm_restarts
+        return restarts
 
-    def _wrap_winners(self, orig):
-        def select_modality_winners_f64(*args, **kwargs):
-            with self.span("rescore.select_modality_winners_f64"):
-                best_m, info = orig(*args, **kwargs)
-            if self._fit is not None:
-                self._fit["winners"] = {"best": np.asarray(best_m).copy(),
-                                        "lanes": np.asarray(info["rescored_lanes"]).copy(),
-                                        "ll_f64": np.asarray(info["ll_f64"]).copy()}
-            return best_m, info
-        return select_modality_winners_f64
+    def _wrap_selection(self, orig, name, capture):
+        span = f"rescore.{name}"
+
+        def selection(*args, **kwargs):
+            with self.span(span):
+                result = orig(*args, **kwargs)
+            if self._fit is not None and capture is not None:
+                self._fit.update(capture(result))
+            return result
+        return selection
 
     def _wrap_fit(self, orig):
+        fit_span = f"{self.hooks.model}.fit"
+
         def fit(*args, **kwargs):
             phase = None
             if self._fit is not None:
@@ -209,7 +249,7 @@ class Recorder:
                 phase = _Phase(at, rng.random(max(0, self.lanes_captured - 2)))
                 self._fit["phases"].append(phase)
             self._phase = phase
-            with self.span("mmctm.fit"):
+            with self.span(fit_span):
                 result = orig(*args, **kwargs)
             self._needed.append(result.n_iters.sum())
             if phase is not None:
@@ -228,12 +268,14 @@ class Recorder:
         return run_cavi
 
     def _wrap_step_fn(self, orig):
+        h = self.hooks
+
         def fit_step_fn(*args, **kwargs):
             step = orig(*args, **kwargs)
             phase = self._phase
 
             def wrapped(s):
-                R = s.lam.shape[0]
+                R, device = h.lanes(s)
                 self.steps += 1
                 self.lane_steps += R
                 if phase is None:
@@ -243,19 +285,15 @@ class Recorder:
                 # the last; the drawn steps are kept, and the newest
                 t = phase.steps
                 phase.steps += 1
-                pos, idx = phase.lanes(R, s.lam.device)
-                inp = {k: getattr(s, k).index_select(0, idx)
-                       for k in ("lam", "nu", "mu", "invSigma", "alpha")}
-                inp["Elnphi"] = [e.index_select(0, idx) for e in s.Elnphi]
+                pos, idx = phase.lanes(R, device)
+                inp = {k: _take(getattr(s, k), idx) for k in h.step_inputs}
                 self._theta_idx = idx
                 try:
                     with self.span("cavi.step"):
                         new, ll = step(s)
                 finally:
                     self._theta_idx = None
-                out = {k: getattr(new, k).index_select(0, idx)
-                       for k in ("zeta", "nu", "lam", "mu", "Sigma")}
-                out["gamma"] = [g.index_select(0, idx) for g in new.gamma]
+                out = {k: _take(getattr(new, k), idx) for k in h.step_outputs}
                 out["ll"] = ll.index_select(0, idx)
                 out.update(self._theta_out or {})
                 self._theta_out = None
@@ -272,10 +310,8 @@ class Recorder:
             sumtheta, scatters = orig(*args, **kwargs)
             idx = self._theta_idx
             if idx is not None:
-                self._theta_out = {
-                    "sumtheta": sumtheta.index_select(0, idx),
-                    "scatter": None if scatters is None else [s.index_select(0, idx)
-                                                              for s in scatters]}
+                self._theta_out = {"sumtheta": _take(sumtheta, idx),
+                                   "scatter": _take(scatters, idx)}
             return sumtheta, scatters
         return theta_moments
 

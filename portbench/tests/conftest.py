@@ -35,9 +35,9 @@ def read(run):
 def tiny(tmp_path):
     """(a BENCHMARK dict with the cells tiny_mmctm.api and tiny_mmctm.cli and
     a per-layer metric dummy.fits, a copy of portbench/'s configurations,
-    traffic mixes and readers with their files added). The configuration
-    keeps the limits of brca_mmctm_k7."""
-    for sub in ("configs", "traffic", "metrics"):
+    traffic mixes, entry points and readers with their files added). The
+    configuration keeps the limits of brca_mmctm_k7."""
+    for sub in ("configs", "traffic", "entries", "metrics"):
         shutil.copytree(os.path.join(spec.HERE, sub), tmp_path / sub,
                         ignore=shutil.ignore_patterns("__pycache__"))
     with open(spec.find("configs", "brca_mmctm_k7", ".json")) as f:

@@ -18,21 +18,21 @@ from portbench.instrument import Recorder
 def test_the_control_is_not_correct(cuda_card, seed, tmp_path):
     bench = spec.load_benchmark()
     r = spec.resolve(bench, "brca_mmctm_k7.two_stage_r100")
-    config = r["config"]
+    config, entry = r["config"], r["entry"]
     traffic = dict(r["traffic"], kwargs={"restarts": 16})
-    prog = harness.program()
-    recorder = Recorder(prog)
+    prog = harness.program(entry)
+    recorder = Recorder(prog, entry.HOOKS)
     recorder.install()
     try:
         data = corpus.load(config)
-        job = harness.Job(prog, config, traffic, data, str(tmp_path), "cuda", recorder.span)
+        job = entry.Job(prog, config, traffic, data, str(tmp_path), "cuda", recorder.span)
         recorder.begin_fit(np.random.default_rng(seed))
         assert job.run(harness.fit_seed(seed, 0))
         sample = recorder.end_fit()
     finally:
         recorder.uninstall()
-    program = check.numbers([sample], data["X"], config["K"], "cuda")
-    control = check.numbers([sample], data["X"], config["K"], "cuda", control=True)
-    required = check.required(traffic["entry"])
+    program = check.numbers(entry, [sample], data["X"], config, "cuda")
+    control = check.numbers(entry, [sample], data["X"], config, "cuda", control=True)
+    required = check.required(entry)
     assert check.judge(program, config["limits"], required)[0], program
     assert not check.judge(control, config["limits"], required)[0], control

@@ -82,12 +82,12 @@ def test_a_tiny_run_with_graphed_chains_is_correct_and_reads_its_graph_share(
     r = spec.resolve(bench, "tiny_mmctm.api", base=base)
     result = harness.run_cell(r, 2**31 + 17, 0.5, 0, device="cpu")
     assert result["correct"], result["checks"]
-    prog = harness.program()
-    recorder = Recorder(prog)
+    prog = harness.program(r["entry"])
+    recorder = Recorder(prog, r["entry"].HOOKS)
     recorder.install()
     try:
-        job = harness.Job(prog, r["config"], r["traffic"], corpus.load(r["config"]),
-                          str(tmp_path / "out"), "cpu", recorder.span)
+        job = r["entry"].Job(prog, r["config"], r["traffic"], corpus.load(r["config"]),
+                             str(tmp_path / "out"), "cpu", recorder.span)
         with profiling.tracing():
             assert job.run(harness.fit_seed(2**31 + 17, 0))
     finally:

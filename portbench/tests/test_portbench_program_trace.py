@@ -85,12 +85,12 @@ def test_the_programs_counts_equal_the_harness_wrappers(tiny, tmp_path, cell):
     every new reader but the kernels' (no kernel runs on the CPU) reads."""
     bench, base = tiny
     r = spec.resolve(bench, cell, base=base)
-    prog = harness.program()
-    recorder = Recorder(prog)
+    prog = harness.program(r["entry"])
+    recorder = Recorder(prog, r["entry"].HOOKS)
     recorder.install()
     try:
-        job = harness.Job(prog, r["config"], r["traffic"], corpus.load(r["config"]),
-                          str(tmp_path / "out"), "cpu", recorder.span)
+        job = r["entry"].Job(prog, r["config"], r["traffic"], corpus.load(r["config"]),
+                             str(tmp_path / "out"), "cpu", recorder.span)
         with profiling.tracing():
             assert job.run(harness.fit_seed(2**31 + 11, 0))
     finally:

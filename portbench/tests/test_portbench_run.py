@@ -182,17 +182,18 @@ def test_a_step_the_harness_cannot_see_is_not_correct(tiny, monkeypatch):
 
 
 def test_a_required_number_left_unread_fails():
+    cli, api = spec.load_entry("cli"), spec.load_entry("fit_mmctm_restarts")
     limits = dict.fromkeys(check.NUMBERS, 1.0)
     values = dict.fromkeys(check.NUMBERS, 0.5)
-    assert check.judge(values, limits, check.required("cli")) == (
+    assert check.judge(values, limits, check.required(cli)) == (
         True, {n: [0.5, 1.0] for n in check.NUMBERS})
     values["outputs"] = None
-    ok, checks = check.judge(values, limits, check.required("fit_mmctm_restarts"))
+    ok, checks = check.judge(values, limits, check.required(api))
     assert ok and "outputs" not in checks
-    ok, checks = check.judge(values, limits, check.required("cli"))
+    ok, checks = check.judge(values, limits, check.required(cli))
     assert not ok and checks["outputs"] == [None, 1.0]
     values["outputs"], values["eta"] = 0.5, None
-    assert not check.judge(values, limits, check.required("fit_mmctm_restarts"))[0]
+    assert not check.judge(values, limits, check.required(api))[0]
 
 
 def test_lambda_is_held_where_the_budgeted_solve_reaches_the_optimum():
