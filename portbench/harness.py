@@ -11,6 +11,7 @@ the seed as they start (reservoir sampling), keep what the check compares
 
 from __future__ import annotations
 
+import gc
 import os
 import statistics
 import sys
@@ -21,7 +22,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from . import check, corpus, trace as trace_mod, yardstick
+from . import check, corpus, program_trace, trace as trace_mod, yardstick
 from .instrument import Recorder
 
 SAMPLED_FITS = 2
@@ -181,26 +182,45 @@ def _run_traced(recorder, job, seed, n, device):
 
 
 def _traced_fits(prog, recorder, job, seed, traffic, device, run):
-    """Profile a bounded run of whole fits after the window; add to `run`
-    the trace's summary and what the kernels' wrappers counted."""
+    """Trace the traffic's `traced_fits` fits after the window, twice on the
+    same seeds: first under the program's tracer alone, which the host-span
+    readers read, then under torch.profiler too, which slows the host and
+    so comes second. Add to `run` each set's snapshot of the program's
+    tracer (portbench/program_trace.py), the device trace's summary and
+    what the kernels' wrappers counted in the profiled set."""
     n = int(traffic.get("traced_fits", 2))
+    program_trace.reset()
     recorder.reset()
+    # a full collection of the process's heap takes 0.1-0.2 s: one now, so
+    # that none stalls the few traced fits
+    gc.collect()
+    with program_trace.recording():
+        _run_traced(recorder, job, seed, n, device)
+    unprofiled = program_trace.snapshot(recorder.lane_steps)
+
+    program_trace.reset()
+    recorder.reset()
+    gc.collect()
     recorder.tracing = True
     before = _launches(prog)
     try:
-        if device == "cuda":
-            with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with program_trace.recording():
+            if device == "cuda":
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    _run_traced(recorder, job, seed, n, device)
+                events = prof.profiler.kineto_results.events()
+            else:  # no device activity to record
                 _run_traced(recorder, job, seed, n, device)
-            events = prof.profiler.kineto_results.events()
-        else:  # no device activity to record
-            _run_traced(recorder, job, seed, n, device)
-            events = []
+                events = []
     finally:
         recorder.tracing = False
     after = _launches(prog)
+    profiled = program_trace.snapshot(recorder.lane_steps)
+    run["program"] = {"unprofiled": unprofiled, "profiled": profiled}
     fits = [sp for sp in recorder.spans if sp[2] == "portbench.fit"]
-    summary = trace_mod.summarize(events, recorder.spans, fits[0][0], fits[-1][1])
+    summary = trace_mod.summarize(events, recorder.spans, fits[0][0], fits[-1][1],
+                                  program=profiled["records"] if profiled else ())
     print(f"portbench: traced {n} fits; the first device event {summary['first_device_s']!r} s "
           "after the first fit began", file=sys.stderr)
     run["trace"] = summary

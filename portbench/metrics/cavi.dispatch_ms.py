@@ -1,7 +1,7 @@
 """cavi.dispatch_ms (ms): the host's time to issue one CAVI step, from the
 program's own spans: its `step` span (the closure of `mmctm.fit_step_fn`:
 E-step, M-step, γ, lls, unsynchronized) over its `loop.steps`, in the
-traced fits (portbench/program_trace.py)."""
+unprofiled traced fits (portbench/program_trace.py)."""
 
 from portbench import program_trace
 

@@ -1,8 +1,8 @@
 """cavi.freeze_ms (ms): the host's time between a CAVI step's return and
 the next step (the lane freeze `_select_lanes` over every state field, the
 ll buffer, n_iters, the convergence test; `done.all()` reads excluded), from
-the program's `loop.freeze` span over its `loop.steps`, in the traced fits
-(portbench/program_trace.py)."""
+the program's `loop.freeze` span over its `loop.steps`, in the unprofiled
+traced fits (portbench/program_trace.py)."""
 
 from portbench import program_trace
 

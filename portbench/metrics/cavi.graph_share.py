@@ -1,14 +1,15 @@
 """cavi.graph_share (%): the share of the CAVI steps whose tail (the MMCTM
 step after its E-step: μ, Σ, Σ⁻¹, γ, E[ln ϕ], the lls) replayed a CUDA
 graph, from the program's `graph.replays.tail` counter over its
-`loop.steps`, in the traced fits (portbench/program_trace.py). None where
-the program counts no graph of the tail, captured or replayed."""
+`loop.steps`, in the profiled traced fits, those of the device trace
+(portbench/program_trace.py). None where the program counts no graph of
+the tail, captured or replayed."""
 
 from portbench import program_trace
 
 
 def read(run):
-    t = program_trace.totals(run)
+    t = program_trace.totals(run, profiled=True)
     if t is None or not t["counts"].get("loop.steps"):
         return None
     counts = t["counts"]

@@ -2,7 +2,7 @@
 kernel's wrapper, from entry to the launch's return (argument checks, the
 outputs' allocation, the layout, the ctypes call), from the program's
 `kernel.eta_host` and `kernel.theta_host` spans over their calls, in the
-traced fits (portbench/program_trace.py)."""
+unprofiled traced fits (portbench/program_trace.py)."""
 
 from portbench import program_trace
 

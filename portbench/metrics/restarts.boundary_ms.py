@@ -1,8 +1,8 @@
 """restarts.boundary_ms (ms): the host's time at the boundaries of the fit
 loops per selected model: the program's `loop.boundary` spans (after each
 segment of `run_cavi` the (n_iters, done) read and the gathers, after the
-last one the final gather) over its `restarts.fits`, in the traced fits
-(portbench/program_trace.py)."""
+last one the final gather) over its `restarts.fits`, in the unprofiled
+traced fits (portbench/program_trace.py)."""
 
 from portbench import program_trace
 

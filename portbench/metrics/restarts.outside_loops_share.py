@@ -2,7 +2,8 @@
 spent outside its fit loops (set-up, inits, the auto pilot's schedule, the
 float64 rescoring, the graft, finalize_fit's ELBO, the model's fields to
 the host), from the program's `restarts.fit` spans less the `loop.run`
-spans inside them, in the traced fits (portbench/program_trace.py)."""
+spans inside them, in the unprofiled traced fits
+(portbench/program_trace.py)."""
 
 from portbench import program_trace
 
@@ -14,4 +15,5 @@ def read(run):
     fit_s = program_trace.seconds(t, "restarts.fit")
     if fit_s <= 0:
         return None
-    return 100.0 * (fit_s - program_trace.seconds_inside("loop.run", "restarts.fit")) / fit_s
+    loops_s = program_trace.seconds_inside(t, "loop.run", "restarts.fit")
+    return 100.0 * (fit_s - loops_s) / fit_s

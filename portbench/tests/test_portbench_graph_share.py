@@ -30,20 +30,26 @@ def _fake(monkeypatch, counts=COUNTS):
     monkeypatch.setattr(program_trace, "_profiling", lambda: fake)
 
 
+def _run(lane_steps):
+    """A traced run's record whose profiled set, the one this reader reads,
+    holds what the program's tracer holds now."""
+    return {"program": {"profiled": program_trace.snapshot(lane_steps)}}
+
+
 def test_the_graph_share_reads_the_tail_replays_over_the_steps(monkeypatch):
     read = spec.load_metric("cavi.graph_share")
-    run = {"traced": {"lane_steps": 12000}}
     _fake(monkeypatch, counts=dict(COUNTS, **{"graph.captures.tail": 5,
                                               "graph.replays.tail": 190}))
-    assert read(run) == pytest.approx(95.0)
+    assert read(_run(12000)) == pytest.approx(95.0)
+    assert read({"program": {"unprofiled": program_trace.snapshot(12000)}}) is None
     _fake(monkeypatch, counts=dict(COUNTS, **{"graph.captures.tail": 5}))  # none replayed
-    assert read(run) == 0.0
+    assert read(_run(12000)) == 0.0
     _fake(monkeypatch)  # a program that counts no graph: the parent of this reader
-    assert read(run) is None
-    assert read({"traced": {"lane_steps": 11999}}) is None
+    assert read(_run(12000)) is None
+    assert read(_run(11999)) is None
     assert read({}) is None
     monkeypatch.setattr(program_trace, "_profiling", lambda: None)
-    assert read(run) is None
+    assert read(_run(12000)) is None
 
 
 class _Replay:
@@ -95,6 +101,5 @@ def test_a_tiny_run_with_graphed_chains_is_correct_and_reads_its_graph_share(
     counts = profiling.totals()["counts"]
     assert counts["loop.lane_steps"] == recorder.lane_steps
     assert 0 < counts["graph.replays.tail"] < counts["loop.steps"]
-    share = spec.load_metric("cavi.graph_share", base)({"traced": {"lane_steps":
-                                                                   recorder.lane_steps}})
+    share = spec.load_metric("cavi.graph_share", base)(_run(recorder.lane_steps))
     assert share == pytest.approx(100.0 * counts["graph.replays.tail"] / counts["loop.steps"])

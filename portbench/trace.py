@@ -1,10 +1,13 @@
 """The device trace of the profiled fits: busy time, idle gaps and the
 kernels' device time, from torch.profiler's device events (the profiler
-records the card's activity only, so the host runs at its own speed).
+records the card's activity only).
 
-The harness's spans (portbench/instrument.py, `Recorder.tracing`), taken
-on the profiler's clock, name what the host was doing during each idle
-gap: the innermost span open at the gap's start.
+Spans on the profiler's clock, `time.time_ns()`, name what the host was
+doing during each idle gap: the innermost span open at the gap's start.
+They are the union of the harness's spans (portbench/instrument.py,
+`Recorder.tracing`), around the calls it wraps, and the program's own
+span records (its utils/profiling.py), inside them; where the program
+recorded nothing, the harness's alone.
 """
 
 from __future__ import annotations
@@ -28,12 +31,16 @@ def _union(intervals):
     return out
 
 
-def summarize(events, spans, t0_ns, t1_ns):
-    """From the profiler's raw events (`kineto_results.events()`) and the
-    harness's spans [(start_ns, end_ns, name)], inside [t0_ns, t1_ns):
-    {"busy_s", "window_s", "eta": [calls, s], "theta": [calls, s],
-    "device_ops": top 10 [name, s], "idle_gaps": top 10 [span, s]} (times
-    as measured)."""
+def summarize(events, spans, t0_ns, t1_ns, program=()):
+    """From the profiler's raw events (`kineto_results.events()`), the
+    harness's spans [(start_ns, end_ns, name)] and the program's span
+    records [{"name", "start_ns", "end_ns", ...}] (`profiling.spans(full=
+    True)`), inside [t0_ns, t1_ns): {"busy_s", "window_s", "eta": [calls,
+    s], "theta": [calls, s], "device_ops": top 10 [name, s], "idle_gaps":
+    [span, s]} (times as measured). `idle_gaps` holds every span that idle
+    time was charged to, longest first, if they are ten at most, else the
+    nine longest and "other spans", the rest together, so that it sums to
+    the whole idle time."""
     dev, first = [], None
     for ev in events:
         if not _is_device(ev):
@@ -43,7 +50,11 @@ def summarize(events, spans, t0_ns, t1_ns):
         if end <= t0_ns or start >= t1_ns:
             continue
         dev.append((max(start, t0_ns), min(end, t1_ns), ev.name()))
-    spans = [sp for sp in spans if sp[1] > t0_ns and sp[0] < t1_ns]
+    spans = list(spans) + [(r["start_ns"], r["end_ns"], r["name"]) for r in program
+                           if r["end_ns"] is not None]
+    # a span of no length holds no gap's start (and, its end sorting before
+    # its start, would stay open in the sweep)
+    spans = [sp for sp in spans if sp[1] > max(t0_ns, sp[0]) and sp[0] < t1_ns]
     kernels = {}
     for s, e, name in dev:
         k = kernels.setdefault(name, [0, 0.0])
@@ -51,17 +62,18 @@ def summarize(events, spans, t0_ns, t1_ns):
         k[1] += (e - s) * 1e-9
     busy = _union([(s, e) for s, e, _ in dev])
     busy_s = sum(e - s for s, e in busy) * 1e-9
-    # sweep in time order with a stack of open spans (they nest): each
-    # idle gap is charged to the innermost span open where it starts
-    marks = [(s, 1, i) for i, (s, _, _) in enumerate(spans)]
-    marks += [(e, 0, i) for i, (_, e, _) in enumerate(spans)]
+    # sweep in time order with a stack of open spans (they nest; of two
+    # that open at one time the longer first): each idle gap is charged to
+    # the innermost span open where it starts
+    marks = [(s, 1, -e, i) for i, (s, e, _) in enumerate(spans)]
+    marks += [(e, 0, 0, i) for i, (_, e, _) in enumerate(spans)]
     prev = t0_ns
     for s, e in busy + [[t1_ns, t1_ns]]:
         if s > prev:
-            marks.append((prev, 2, s - prev))
+            marks.append((prev, 2, 0, s - prev))
         prev = max(prev, e)
     gaps, stack = {}, []
-    for _, kind, x in sorted(marks, key=lambda m: (m[0], m[1])):
+    for _, kind, _, x in sorted(marks, key=lambda m: m[:3]):
         if kind == 1:
             stack.append(x)
         elif kind == 0:
@@ -76,6 +88,9 @@ def summarize(events, spans, t0_ns, t1_ns):
         return [sum(c for c, _ in hits), sum(t for _, t in hits)]
 
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
+    idle = sorted(([n, s] for n, s in gaps.items()), key=lambda x: -x[1])
+    if len(idle) > 10:
+        idle = idle[:9] + [["other spans", sum(s for _, s in idle[9:])]]
     return {
         "busy_s": busy_s,
         "window_s": (t1_ns - t0_ns) * 1e-9,
@@ -85,5 +100,5 @@ def summarize(events, spans, t0_ns, t1_ns):
         "eta": family(ETA_KERNEL),
         "theta": family(THETA_KERNEL),
         "device_ops": [[n[:120], v[1]] for n, v in top],
-        "idle_gaps": sorted(([n, s] for n, s in gaps.items()), key=lambda x: -x[1])[:10],
+        "idle_gaps": idle,
     }
