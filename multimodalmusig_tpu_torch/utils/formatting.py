@@ -1,8 +1,11 @@
 """Count-data formatting API, mirroring the reference's src/utils.jl.
 
-A NumPy-only copy of multimodalmusig_tpu/utils/formatting.py, so the
-PyTorch package imports without JAX (tests/test_torch_package.py pins the
-two copies to equal output).
+A NumPy-only port of multimodalmusig_tpu/utils/formatting.py, so the
+PyTorch package imports without JAX. Its functions give the JAX package's
+output: `sparse_to_dense` builds the dense counts with one vectorized
+scatter where the JAX package loops over documents, with the same bits and
+errors (tests/test_torch_formatting.py and tests/test_torch_package.py pin
+both).
 
 The reference represents each document x modality as an (n, 2) integer matrix
 of (vocab_index, count) rows with 1-based vocab indices (src/utils.jl:1-7).
@@ -72,21 +75,37 @@ def infer_vocab_size(X: Sequence[np.ndarray]) -> int:
 
 
 def sparse_to_dense(X: Sequence[np.ndarray], V: int, dtype=np.float64) -> np.ndarray:
-    """Ragged (n, 2) 1-based (index, count) docs -> dense (D, V) count matrix."""
+    """Ragged (n, 2) 1-based (index, count) docs -> dense (D, V) count matrix.
+
+    One scatter over every document's entries, each entry at its flat cell
+    row * V + index - 1: for float64 `np.bincount`, which sums each cell's
+    entries in input order as `np.add.at` does (so duplicates give the same
+    bits), for any other dtype one `np.add.at` in that dtype. Empty
+    documents ((0, 2), (0,) or []) stay zero rows."""
     D = len(X)
-    dense = np.zeros((D, V), dtype=dtype)
-    for d, doc in enumerate(X):
-        doc = np.asarray(doc)
-        if doc.shape[0] > 0:
-            idx = doc[:, 0].astype(np.int64)
-            if idx.min() < 1 or idx.max() > V:
-                raise ValueError(
-                    f"document {d}: vocab indices must be in 1..{V} "
-                    f"(got {int(idx.min())}..{int(idx.max())}); indices are "
-                    "1-based as in the reference format"
-                )
-            np.add.at(dense[d], idx - 1, doc[:, 1])
-    return dense
+    docs = [np.asarray(doc) for doc in X]
+    lengths = np.fromiter((doc.shape[0] for doc in docs), np.int64, D)
+    if not lengths.any():
+        return np.zeros((D, V), dtype=dtype)
+    entries = np.concatenate([doc for doc, n in zip(docs, lengths) if n > 0])
+    idx = entries[:, 0].astype(np.int64)
+    row = np.repeat(np.arange(D), lengths)
+    bad = (idx < 1) | (idx > V)
+    if bad.any():
+        d = int(row[bad.argmax()])
+        start = int(lengths[:d].sum())
+        doc_idx = idx[start:start + lengths[d]]
+        raise ValueError(
+            f"document {d}: vocab indices must be in 1..{V} "
+            f"(got {int(doc_idx.min())}..{int(doc_idx.max())}); indices are "
+            "1-based as in the reference format"
+        )
+    cell = row * V + idx - 1
+    if np.dtype(dtype) == np.float64:
+        return np.bincount(cell, weights=entries[:, 1], minlength=D * V).reshape(D, V)
+    dense = np.zeros(D * V, dtype=dtype)
+    np.add.at(dense, cell, entries[:, 1])
+    return dense.reshape(D, V)
 
 
 def dense_to_sparse(dense: np.ndarray) -> List[np.ndarray]:
