@@ -758,6 +758,28 @@ def carry_converged(ll_buf, n_iters, done):
     return done & torch.isfinite(_per_lane(last)).all(dim=-1)
 
 
+def _fit_result(result_type, carry, elbo):
+    """A finished CAVI carry as a family's fit result `result_type` (its
+    *FitResult), with the final ELBO `elbo` and each lane's final lls."""
+    state, ll_buf, n_iters, done = carry
+    lanes = torch.arange(ll_buf.shape[0], device=ll_buf.device)
+    return result_type(state=state, ll_history=ll_buf, n_iters=n_iters,
+                       converged=carry_converged(ll_buf, n_iters, done), elbo=elbo,
+                       ll=ll_buf[lanes, n_iters - 1])
+
+
+def _take_result(model, result) -> int:
+    """Lane 0 of a fit result into a family's wrapper: state, converged,
+    ELBO and the final ll (a list over the modalities for the CTM families,
+    a float for LDA and ILDA). Returns the lane's iteration count."""
+    model.state = result.state
+    model.converged = bool(result.converged[0])
+    model.elbo = float(result.elbo[0])
+    ll = result.ll[0]
+    model.ll = float(ll) if ll.dim() == 0 else [float(v) for v in ll.cpu()]
+    return int(result.n_iters[0])
+
+
 def elbo_eta_z_term_dict(lam, nu, zeta, mu, invSigma, sumtheta, N, config, reduce=None):
     """The logistic-normal ELBO pieces {ElnPeta, ElnPZ, ElnQeta}, each (R,)
     (src/MMCTM.jl:286-318, 354-360). With `reduce`, the document sums of

@@ -34,8 +34,9 @@ from . import ctm_base
 from .ctm_base import (
     CTMBaseConfig,
     FrozenTopics,
+    _fit_result,
+    _take_result,
     calculate_sumtheta,
-    carry_converged,
     check_device,
     counts_per_doc,
     elbo_eta_z_term_dict,
@@ -53,7 +54,6 @@ from .mmctm import (
     _eta_list,
     _fit_options,
     _observed,
-    _take_result,
     counts_tensors,
 )
 
@@ -371,16 +371,7 @@ def fit_step_fn(X, N, F, config: IMMCTMConfig, autoalpha: bool = False,
 def finalize_fit(carry, X, N, F, config: IMMCTMConfig) -> IMMCTMFitResult:
     """A finished CAVI carry as an IMMCTMFitResult (final ELBO as at
     src/IMMCTM.jl:463)."""
-    state, ll_buf, n_iters, done = carry
-    lanes = torch.arange(ll_buf.shape[0], device=ll_buf.device)
-    return IMMCTMFitResult(
-        state=state,
-        ll_history=ll_buf,
-        n_iters=n_iters,
-        converged=carry_converged(ll_buf, n_iters, done),
-        elbo=calculate_elbo(state, X, N, F, config),
-        ll=ll_buf[lanes, n_iters - 1],
-    )
+    return _fit_result(IMMCTMFitResult, carry, calculate_elbo(carry[0], X, N, F, config))
 
 
 def fit(state: IMMCTMState, X, F, config: IMMCTMConfig, maxiter: int = 100,

@@ -31,7 +31,8 @@ import torch
 
 from ..ops.special import dirichlet_expectation, gammaln, safe_xlogy, xlogx
 from ..utils.formatting import infer_vocab_size, sparse_to_dense
-from .ctm_base import carry_converged, check_device, full_f32_matmuls, run_cavi, theta_moments_one
+from .ctm_base import (_fit_result, _take_result, check_device, full_f32_matmuls, run_cavi,
+                       theta_moments_one)
 
 __all__ = [
     "LDAConfig",
@@ -287,16 +288,7 @@ def fit_step_fn(X: torch.Tensor, config: LDAConfig):
 def finalize_fit(carry, X: torch.Tensor, config: LDAConfig, elbo=calculate_elbo) -> LDAFitResult:
     """A finished CAVI carry as an LDAFitResult, its ELBO `elbo(state, X,
     config)` (src/LDA.jl:221)."""
-    state, ll_buf, n_iters, done = carry
-    lanes = torch.arange(ll_buf.shape[0], device=ll_buf.device)
-    return LDAFitResult(
-        state=state,
-        ll_history=ll_buf,
-        n_iters=n_iters,
-        converged=carry_converged(ll_buf, n_iters, done),
-        elbo=elbo(state, X, config),
-        ll=ll_buf[lanes, n_iters - 1],
-    )
+    return _fit_result(LDAFitResult, carry, elbo(carry[0], X, config))
 
 
 def fit(state: LDAState, X: torch.Tensor, config: LDAConfig, maxiter: int = 1000,
@@ -359,14 +351,8 @@ def fit_heldout_states(trained: LDAState, state: LDAState, Xheldout: torch.Tenso
 # ---------------------------------------------------------------------------
 
 
-def take_result(model, result) -> int:
-    """Lane 0 of a fit result into an LDA or ILDA wrapper: state, converged,
-    ELBO and the final ll. Returns the lane's iteration count."""
-    model.state = result.state
-    model.converged = bool(result.converged[0])
-    model.elbo = float(result.elbo[0])
-    model.ll = float(result.ll[0])
-    return int(result.n_iters[0])
+# lane 0 of a fit result into an LDA or ILDA wrapper (ctm_base._take_result)
+take_result = _take_result
 
 
 def phi_per_document(model) -> List[np.ndarray]:

@@ -32,8 +32,9 @@ from . import ctm_base
 from .ctm_base import (
     CTMBaseConfig,
     FrozenTopics,
+    _fit_result,
+    _take_result,
     calculate_sumtheta,
-    carry_converged,
     check_device,
     counts_per_doc,
     elbo_eta_z_term_dict,
@@ -519,16 +520,8 @@ def finalize_fit(carry, X, N, config: MMCTMConfig, reduce=None,
     """A finished CAVI carry as an MMCTMFitResult (final ELBO as at
     src/MMCTM.jl:490; with `reduce`, over every process's documents, with
     `vocab_reduce` over every process's vocabulary slice)."""
-    state, ll_buf, n_iters, done = carry
-    lanes = torch.arange(ll_buf.shape[0], device=ll_buf.device)
-    return MMCTMFitResult(
-        state=state,
-        ll_history=ll_buf,
-        n_iters=n_iters,
-        converged=carry_converged(ll_buf, n_iters, done),
-        elbo=calculate_elbo(state, X, N, config, reduce, vocab_reduce),
-        ll=ll_buf[lanes, n_iters - 1],
-    )
+    return _fit_result(MMCTMFitResult, carry,
+                       calculate_elbo(carry[0], X, N, config, reduce, vocab_reduce))
 
 
 def fit(state: MMCTMState, X, config: MMCTMConfig, maxiter: int = 100,
@@ -776,16 +769,6 @@ def _fit_options(config, verbose, autoalpha, update_sigma, kwargs):
     if verbose:
         print(f"inner-solver budgets: {resolved_budgets(config)}")
     return autoalpha, update_sigma
-
-
-def _take_result(model, result) -> int:
-    """Lane 0 of a fit result into a wrapper: state, converged, ELBO and the
-    final lls. Returns the lane's iteration count."""
-    model.state = result.state
-    model.converged = bool(result.converged[0])
-    model.elbo = float(result.elbo[0])
-    model.ll = [float(v) for v in result.ll[0].cpu()]
-    return int(result.n_iters[0])
 
 
 class CTM(MMCTM):

@@ -27,10 +27,11 @@ workers compute R identical models and the rank pick returns the first.
 Stage 2 therefore runs once by default (`stage2_restarts=1`); more lanes
 only add identical copies.
 
-Every fit here can be cut at boundaries (ctm_base.run_cavi): `chunk_iters`
-puts one every chunk_iters iterations, `compact_schedule=(c1, c2, ...)` at
-the given budgets, and `compact_schedule="auto"` derives the budgets from a
-timed pilot of the first lanes (`fit_restarts_auto`). At each boundary the
+One function, `_drive_lanes`, checks and applies the run options of
+every fit here. A fit can be cut at boundaries (ctm_base.run_cavi):
+`chunk_iters` puts one every chunk_iters iterations, `compact_schedule=(c1,
+c2, ...)` at the given budgets, and "auto" at budgets derived from a timed
+pilot of the first lanes (`fit_restarts_auto`); at each boundary the
 finished lanes leave the batch and `progress` hears how many have finished.
 
 `devices=` on the IMMCTM, LDA and ILDA fitters fans the lanes out over one
@@ -217,12 +218,26 @@ def suggest_compact_schedule(
     return tuple(out)
 
 
-def _resolve_schedule(chunk_iters, compact_schedule):
-    """The budgets of ctm_base.run_cavi for the two mutually exclusive ways
-    to cut a fit (restarts.py:1503-1510 of the JAX package): `chunk_iters`,
-    a boundary every chunk_iters iterations (an endless repeat), or
-    `compact_schedule`, the budgets (c1, c2, ...) after which the survivors
-    run to their end. None for both: one uncut run."""
+def _lane_policy(chunk_iters, compact_schedule, devices, auto: bool):
+    """`_drive_lanes`' check of its options, before any lane is fit, with
+    the JAX package's messages (restarts.py:1304-1312, 1503-1510,
+    1572-1577). Returns "auto", or the budgets of ctm_base.run_cavi: every
+    `chunk_iters` iterations (an endless repeat), or a `compact_schedule`
+    tuple, or None (uncut). `devices` excludes both cuts; with `auto`
+    False, "auto" is refused as any other string is."""
+    if devices is not None:
+        if chunk_iters is not None or compact_schedule:
+            raise ValueError(
+                "devices (the shard_map restart fan-out) is incompatible "
+                "with chunk_iters/compact_schedule (host-driven compaction)"
+            )
+        return None
+    if auto and isinstance(compact_schedule, str):
+        if compact_schedule != "auto":
+            raise ValueError(f"compact_schedule: expected 'auto' or a tuple, got {compact_schedule!r}")
+        if chunk_iters is not None:
+            raise ValueError("chunk_iters and compact_schedule='auto' are mutually exclusive")
+        return "auto"
     if chunk_iters is not None and compact_schedule is not None:
         raise ValueError("chunk_iters and compact_schedule are mutually exclusive")
     if isinstance(compact_schedule, str):
@@ -233,42 +248,6 @@ def _resolve_schedule(chunk_iters, compact_schedule):
     if int(chunk_iters) < 1:
         raise ValueError(f"chunk_iters must be at least 1, got {chunk_iters}")
     return itertools.repeat(int(chunk_iters))
-
-
-def _is_auto(compact_schedule, chunk_iters) -> bool:
-    """True for compact_schedule="auto", which excludes chunk_iters; any
-    other string is a ValueError (restarts.py:1304-1312 of the JAX
-    package)."""
-    if not isinstance(compact_schedule, str):
-        return False
-    if compact_schedule != "auto":
-        raise ValueError(f"compact_schedule: expected 'auto' or a tuple, got {compact_schedule!r}")
-    if chunk_iters is not None:
-        raise ValueError("chunk_iters and compact_schedule='auto' are mutually exclusive")
-    return True
-
-
-def _check_devices(devices, chunk_iters, compact_schedule):
-    """`devices` (the restart fan-out) excludes host-driven compaction
-    (restarts.py:1572-1577 of the JAX package)."""
-    if devices is not None and (chunk_iters is not None or compact_schedule):
-        raise ValueError(
-            "devices (the shard_map restart fan-out) is incompatible "
-            "with chunk_iters/compact_schedule (host-driven compaction)"
-        )
-
-
-def _fan_out(fit_from_states, state, args: tuple, maxiter: int, tol: float, devices,
-             progress, run_info):
-    """`fit_from_states(state, *args, maxiter=, tol=)` with the lanes fanned
-    out over `devices` (_ranks.fit_lanes); `progress` hears (R, R) at the
-    end, as after an uncut fit."""
-    result = _ranks.fit_lanes(fit_from_states, state, args, dict(maxiter=maxiter, tol=tol),
-                              devices, run_info)
-    if progress is not None:
-        R = ctm_base.lanes_of(state)[0]
-        progress(R, R)
-    return result
 
 
 def _sync(device: torch.device):
@@ -371,17 +350,33 @@ def _derive_auto_schedule(iters, t_warm, production_restarts, maxiter, max_bound
     return tuple(schedule), info
 
 
+def _timed_pilot(pilot_fit, device, production_restarts: int, maxiter: int,
+                 max_boundaries: int):
+    """`pilot_fit()` timed on `device` from a drained queue to the host read
+    of its n_iters, then `_derive_auto_schedule` for `production_restarts`
+    lanes. Returns (pilot result, schedule, info)."""
+    _sync(device)
+    t0 = time.perf_counter()
+    pilot = pilot_fit()
+    iters = pilot.n_iters.cpu().numpy()
+    t_warm = time.perf_counter() - t0
+    schedule, info = _derive_auto_schedule(
+        iters, t_warm, production_restarts, maxiter, max_boundaries,
+        (pilot.state, pilot.ll_history, pilot.n_iters, pilot.converged),
+    )
+    return pilot, schedule, info
+
+
 def _fit_auto(state, fit_fn, maxiter: int, pilot_restarts: int = 64, max_boundaries: int = 3,
               progress=None):
     """Zero-config compaction with a folded pilot (fit_restarts_auto and
     _family_restarts_auto of the JAX package, restarts.py:904-1057), for
     any family: the first P = max(2, min(pilot_restarts, R // 2)) lanes of
-    the batched initial `state` run uncut and timed (the clock stops at the
-    host read of their n_iters, which waits for the fit), and double as the
-    pilot; the other R − P lanes run with the schedule derived from them.
-    Nothing is fit twice, and lane i of the result is lane i of `state`'s
-    fit. Below 8 lanes it is one uncut fit. `fit_fn(state, schedule,
-    progress)` fits a batched state. Returns (result, info)."""
+    the batched initial `state` run uncut and timed (`_timed_pilot`), and
+    double as the pilot; the other R − P lanes run with the schedule derived
+    from them. Nothing is fit twice, and lane i of the result is lane i of
+    `state`'s fit. Below 8 lanes it is one uncut fit. `fit_fn(state,
+    schedule, progress)` fits a batched state. Returns (result, info)."""
     R, device = ctm_base.lanes_of(state)
     if R < 8:
         result = fit_fn(state, None, progress)
@@ -400,20 +395,45 @@ def _fit_auto(state, fit_fn, maxiter: int, pilot_restarts: int = 64, max_boundar
     P = max(2, min(int(pilot_restarts), R // 2))
     lanes = torch.arange(R, device=device)
     with profiling.span("restarts.pilot"):
-        _sync(device)
-        t0 = time.perf_counter()
-        pilot = fit_fn(ctm_base._index_lanes(state, lanes[:P]), None, None)
-        iters = pilot.n_iters.cpu().numpy()
-        t_warm = time.perf_counter() - t0
+        pilot, schedule, info = _timed_pilot(
+            lambda: fit_fn(ctm_base._index_lanes(state, lanes[:P]), None, None), device, R - P,
+            maxiter, max_boundaries)
         if progress is not None:
             progress(P, R)
-        schedule, info = _derive_auto_schedule(
-            iters, t_warm, R - P, maxiter, max_boundaries,
-            (pilot.state, pilot.ll_history, pilot.n_iters, pilot.converged),
-        )
     rest = fit_fn(ctm_base._index_lanes(state, lanes[P:]), schedule,
                   None if progress is None else lambda d, t: progress(P + d, R))
     return ctm_base._cat_lanes([pilot, rest]), info
+
+
+def _drive_lanes(state, fit, args: tuple, maxiter: int, tol: float, *, chunk_iters=None,
+                 compact_schedule=None, auto: bool = True, pilot_restarts: int = 64,
+                 max_boundaries: int = 3, devices=None, fan_out=None, progress=None,
+                 run_info: Optional[dict] = None):
+    """Every restart fitter of every family fits the lanes of its batched
+    initial `state` here, by the policy that `_lane_policy` reads from the
+    options. `fit(state, *args, maxiter=, tol=, compact_schedule=,
+    progress=)` is the family's fit, looked up by the caller at call time.
+    With `devices` the lanes fan out, one process per device, each fitting
+    its slice uncut with `fan_out`, a module-level `*_from_states` fitter
+    (_ranks.fit_lanes, which fills `run_info`), and `progress` hears (R, R)
+    at the end; "auto" is `_fit_auto` with TF32 off; else one fit, uncut or
+    cut. Returns (result, the "auto" derivation's measurements or None)."""
+    policy = _lane_policy(chunk_iters, compact_schedule, devices, auto)
+    if devices is not None:
+        result = _ranks.fit_lanes(fan_out, state, args, dict(maxiter=maxiter, tol=tol), devices,
+                                  run_info)
+        if progress is not None:
+            R = ctm_base.lanes_of(state)[0]
+            progress(R, R)
+        return result, None
+
+    def fit_fn(st, schedule, prog):
+        return fit(st, *args, maxiter=maxiter, tol=tol, compact_schedule=schedule, progress=prog)
+
+    if isinstance(policy, str):
+        with ctm_base.full_f32_matmuls():
+            return _fit_auto(state, fit_fn, maxiter, pilot_restarts, max_boundaries, progress)
+    return fit_fn(state, policy, progress), None
 
 
 def fit_restarts_from_states(state: MMCTMState, X, config: MMCTMConfig,
@@ -426,16 +446,25 @@ def fit_restarts_from_states(state: MMCTMState, X, config: MMCTMConfig,
     X is a tuple of dense (D, V_m) counts, moved to the state's device.
     `compact_schedule` (any iterable of budgets) and `progress` as in
     `fit_restarts`."""
-    schedule = _resolve_schedule(None, compact_schedule)
     X = mmctm_mod.counts_tensors(X, config, state.lam.device)
-    return mmctm_mod.fit(state, X, config, maxiter=maxiter, tol=tol,
-                         compact_schedule=schedule, progress=progress)
+    return _drive_lanes(state, mmctm_mod.fit, (X, config), maxiter, tol,
+                        compact_schedule=compact_schedule, auto=False, progress=progress)[0]
 
 
 def _generator(seed_or_generator) -> torch.Generator:
     if isinstance(seed_or_generator, torch.Generator):
         return seed_or_generator
     return torch.Generator().manual_seed(int(seed_or_generator))
+
+
+def _init_lanes(seed_or_generator, X, config: MMCTMConfig, alpha, restarts: int,
+                init_method: str, device):
+    """`restarts` MMCTM lane inits drawn from `seed_or_generator` on `device`,
+    as every MMCTM restart fitter draws them, with the dense counts X moved
+    there. Returns (X, state)."""
+    X = mmctm_mod.counts_tensors(X, config, device)
+    return X, mmctm_mod.init_with_alpha(_generator(seed_or_generator), config, X, alpha,
+                                        restarts=restarts, init_method=init_method, device=device)
 
 
 def fit_restarts(seed_or_generator: Union[int, torch.Generator], X, config: MMCTMConfig,
@@ -466,24 +495,10 @@ def fit_restarts(seed_or_generator: Union[int, torch.Generator], X, config: MMCT
     `progress(done, total)` hears the number of finished restarts
     (converged, non-finite or at maxiter) at every boundary and at the end;
     an uncut fit calls it once, at the end."""
-    schedule = _resolve_schedule(chunk_iters, compact_schedule)
-    device = ctm_base.check_device(device)
-    X = mmctm_mod.counts_tensors(X, config, device)
-    state = mmctm_mod.init_with_alpha(
-        _generator(seed_or_generator), config, X, alpha, restarts=restarts,
-        init_method=init_method, device=device,
-    )
-    return fit_restarts_from_states(state, X, config, maxiter=maxiter, tol=tol,
-                                    compact_schedule=schedule, progress=progress)
-
-
-def _fit_mmctm_auto(state, X, config, maxiter, tol, pilot_restarts=64, max_boundaries=3,
-                    progress=None):
-    """`_fit_auto` for a batched MMCTM state; X on the state's device."""
-    def fit_fn(st, schedule, prog):
-        return mmctm_mod.fit(st, X, config, maxiter=maxiter, tol=tol,
-                             compact_schedule=schedule, progress=prog)
-    return _fit_auto(state, fit_fn, maxiter, pilot_restarts, max_boundaries, progress)
+    X, state = _init_lanes(seed_or_generator, X, config, alpha, restarts, init_method,
+                           ctm_base.check_device(device))
+    return _drive_lanes(state, mmctm_mod.fit, (X, config), maxiter, tol, chunk_iters=chunk_iters,
+                        compact_schedule=compact_schedule, auto=False, progress=progress)[0]
 
 
 def fit_restarts_auto(seed_or_generator: Union[int, torch.Generator], X, config: MMCTMConfig,
@@ -504,15 +519,11 @@ def fit_restarts_auto(seed_or_generator: Union[int, torch.Generator], X, config:
     `progress(done, total)` hears (P, R) after the pilot, then the finished
     lanes at each boundary of the rest. Returns (batched MMCTMFitResult over
     all lanes in lane order, info: the derivation's measurements)."""
-    device = ctm_base.check_device(device)
-    X = mmctm_mod.counts_tensors(X, config, device)
-    state = mmctm_mod.init_with_alpha(
-        _generator(seed_or_generator), config, X, alpha, restarts=restarts,
-        init_method=init_method, device=device,
-    )
-    with ctm_base.full_f32_matmuls():
-        return _fit_mmctm_auto(state, X, config, maxiter, tol, pilot_restarts, max_boundaries,
-                               progress)
+    X, state = _init_lanes(seed_or_generator, X, config, alpha, restarts, init_method,
+                           ctm_base.check_device(device))
+    return _drive_lanes(state, mmctm_mod.fit, (X, config), maxiter, tol, compact_schedule="auto",
+                        pilot_restarts=pilot_restarts, max_boundaries=max_boundaries,
+                        progress=progress)
 
 
 def auto_compact_schedule(seed_or_generator: Union[int, torch.Generator], X,
@@ -528,20 +539,13 @@ def auto_compact_schedule(seed_or_generator: Union[int, torch.Generator], X,
     production lanes. Returns (schedule, info). `fit_restarts_auto` does
     the same work without fitting the pilot twice."""
     device = ctm_base.check_device(device)
-    X = mmctm_mod.counts_tensors(X, config, device)
     pilot_R = max(2, min(int(pilot_restarts), int(restarts)))
     gen = torch.Generator().manual_seed(_generator(seed_or_generator).initial_seed() ^ 0x9E3779B9)
-    state = mmctm_mod.init_with_alpha(gen, config, X, alpha, restarts=pilot_R,
-                                      init_method=init_method, device=device)
-    _sync(device)
-    t0 = time.perf_counter()
-    pilot = mmctm_mod.fit(state, X, config, maxiter=maxiter, tol=tol)
-    iters = pilot.n_iters.cpu().numpy()
-    t_warm = time.perf_counter() - t0
-    return _derive_auto_schedule(
-        iters, t_warm, int(restarts), maxiter, max_boundaries,
-        (pilot.state, pilot.ll_history, pilot.n_iters, pilot.converged),
-    )
+    X, state = _init_lanes(gen, X, config, alpha, pilot_R, init_method, device)
+    _, schedule, info = _timed_pilot(
+        lambda: mmctm_mod.fit(state, X, config, maxiter=maxiter, tol=tol), device,
+        int(restarts), maxiter, max_boundaries)
+    return schedule, info
 
 
 # ---------------------------------------------------------------------------
@@ -596,22 +600,16 @@ def two_stage_fit_from_states(state1: MMCTMState, X, config: MMCTMConfig, alpha,
     "stage1_winner_ll" (M,)}: the winners and the scores the pick read.
     Returns (the selected stage-2 lane (R = 1), stage-1 result, stage-2
     result, selected index)."""
-    auto = _is_auto(compact_schedule, chunk_iters)
-    schedule1 = None if auto else _resolve_schedule(chunk_iters, compact_schedule)
-    schedule2 = _resolve_schedule(chunk_iters, None)
     progress1, progress2 = (None, None) if progress is None else (partial(progress, 1),
                                                                   partial(progress, 2))
     device = state1.lam.device
     X = mmctm_mod.counts_tensors(X, config, device)
     with ctm_base.full_f32_matmuls():
-        if auto:
-            stage1, info = _fit_mmctm_auto(state1, X, config, maxiter, stage1_tol,
-                                           pilot_restarts, progress=progress1)
-            if auto_info is not None:
-                auto_info.update(info)
-        else:
-            stage1 = mmctm_mod.fit(state1, X, config, maxiter=maxiter, tol=stage1_tol,
-                                   compact_schedule=schedule1, progress=progress1)
+        stage1, info = _drive_lanes(state1, mmctm_mod.fit, (X, config), maxiter, stage1_tol,
+                                    chunk_iters=chunk_iters, compact_schedule=compact_schedule,
+                                    pilot_restarts=pilot_restarts, progress=progress1)
+        if info is not None and auto_info is not None:
+            auto_info.update(info)
         with profiling.span("restarts.rescore1"):
             if rescore_f64:
                 best_m, sel = select_modality_winners_f64(stage1, X, config)
@@ -642,8 +640,8 @@ def two_stage_fit_from_states(state1: MMCTMState, X, config: MMCTMConfig, alpha,
 
             state2 = state2._replace(gamma=graft(stage1.state.gamma),
                                      Elnphi=graft(stage1.state.Elnphi))
-        stage2 = mmctm_mod.fit(state2, X, config, maxiter=maxiter, tol=stage2_tol,
-                               compact_schedule=schedule2, progress=progress2)
+        stage2, _ = _drive_lanes(state2, mmctm_mod.fit, (X, config), maxiter, stage2_tol,
+                                 chunk_iters=chunk_iters, progress=progress2)
         with profiling.span("restarts.rescore2"):
             if rescore_f64:
                 best, _ = select_best_restart_f64(stage2, X, config)
@@ -672,9 +670,7 @@ def two_stage_fit(seed_or_generator: Union[int, torch.Generator], X, config: MMC
     device = ctm_base.check_device(device)
     with profiling.span("restarts.init"):
         gen = _generator(seed_or_generator)
-        Xt = mmctm_mod.counts_tensors(X, config, device)
-        state1 = mmctm_mod.init_with_alpha(gen, config, Xt, alpha, restarts=restarts,
-                                           init_method=init_method, device=device)
+        Xt, state1 = _init_lanes(gen, X, config, alpha, restarts, init_method, device)
         gen2 = torch.Generator().manual_seed(int(torch.randint(0, 2**62, (1,), generator=gen)))
     return two_stage_fit_from_states(
         state1, Xt, config, alpha, stage2_restarts=stage2_restarts, maxiter=maxiter,
@@ -748,11 +744,7 @@ def fit_mmctm_restarts(k: Sequence[int], alpha: Sequence[float], X,
                     f"{auto_info['lane_iters_per_s']:.0f} lane-iters/s)"
                 )
         with profiling.span("restarts.collect"):
-            model.state = best.state
-            model.converged = bool(best.converged[0])
-            model.elbo = float(best.elbo[0])
-            model.ll = [float(v) for v in best.ll[0].cpu()]
-            n = int(best.n_iters[0])
+            n = ctm_base._take_result(model, best)
             model.ll_history = [[float(v) for v in row] for row in best.ll_history[0, :n].cpu()]
             model.stage1_ll = stage1.ll.detach().to("cpu", torch.float64).numpy()
             model.restart_result = stage1
@@ -763,6 +755,45 @@ def fit_mmctm_restarts(k: Sequence[int], alpha: Sequence[float], X,
             print("Seeded model log-likelihoods:")
             print(np.asarray(model.ll))
     return model
+
+
+# ---------------------------------------------------------------------------
+# One-stage families: fit, score, pick, take (IMMCTM, LDA and ILDA)
+# ---------------------------------------------------------------------------
+
+
+def _fit_best_lane(model, state, fit, args: tuple, fan_out, pick, maxiter: int, tol: float,
+                   chunk_iters, compact_schedule, pilot_restarts: int, devices):
+    """Best-of-N for IMMCTM, LDA and ILDA: every lane of `state` fit by
+    `_drive_lanes`, lane `pick(result)` taken into the wrapper `model` with the
+    batched `restart_result`, an "auto" derivation as `compact_info` and a
+    fan-out's ranks' run as `rank_info`."""
+    rank_info = None if devices is None else {}
+    result, compact_info = _drive_lanes(
+        state, fit, args, maxiter, tol, chunk_iters=chunk_iters, compact_schedule=compact_schedule,
+        pilot_restarts=pilot_restarts, devices=devices, fan_out=fan_out, run_info=rank_info)
+    if compact_info is not None:
+        model.compact_info = compact_info
+    if rank_info is not None:
+        model.rank_info = rank_info
+    ctm_base._take_result(model, lane(result, pick(result)))
+    model.restart_result = result
+    return model
+
+
+def _best_scalar_ll_lane(result, rescore_fn, rescore_f64: bool) -> int:
+    """The lane with the best final ll, for the families with one ll per
+    lane (restarts.py:1513-1526 of the JAX package): read from exact
+    float64 re-scores of the shortlisted lanes (`rescore_fn(lanes)` returns
+    their (n,) scores; rescore.shortlist_lanes) unless `rescore_f64` is
+    False, then from the in-fit lls. Non-finite lanes are masked either
+    way."""
+    ll = result.ll.detach().to("cpu", torch.float64).numpy()
+    if not rescore_f64:
+        return int(np.argmax(np.where(np.isfinite(ll), ll, -np.inf)))
+    cand = shortlist_lanes(ll)
+    ll64 = rescore_fn(cand).cpu().numpy()
+    return int(cand[int(np.argmax(np.where(np.isfinite(ll64), ll64, -np.inf)))])
 
 
 # ---------------------------------------------------------------------------
@@ -780,20 +811,17 @@ def fit_immctm_restarts_from_states(state: IMMCTMState, X, F, config: IMMCTMConf
     (D, V_m) counts) and F (one-hot (V_m, J_mi) features) are moved to the
     state's device and dtype. `compact_schedule` (any iterable of budgets)
     and `progress` as in `fit_restarts`. `devices` fans the lanes out over
-    one process per device, each fitting its slice uncut (`_fan_out`; the
+    one process per device, each fitting its slice uncut (the
     result comes back on the state's device, `run_info` receives the ranks'
     backend, timings and launches)."""
-    if devices is not None:
-        _check_devices(devices, None, compact_schedule)
-        return _fan_out(fit_immctm_restarts_from_states, state, (X, F, config), maxiter, tol,
-                        devices, progress, run_info)
-    schedule = _resolve_schedule(None, compact_schedule)
     device = state.lam.device
     X = mmctm_mod.counts_tensors(X, config, device)
     F = tuple(tuple(torch.as_tensor(f).to(device=device, dtype=config.dtype) for f in Fm)
               for Fm in F)
-    return immctm_mod.fit(state, X, F, config, maxiter=maxiter, tol=tol,
-                          compact_schedule=schedule, progress=progress)
+    return _drive_lanes(state, immctm_mod.fit, (X, F, config), maxiter, tol,
+                        compact_schedule=compact_schedule, auto=False, devices=devices,
+                        fan_out=fit_immctm_restarts_from_states, progress=progress,
+                        run_info=run_info)[0]
 
 
 def fit_immctm_restarts(k, alpha, features, X, restarts: int = 100, maxiter: int = 1000,
@@ -823,83 +851,25 @@ def fit_immctm_restarts(k, alpha, features, X, restarts: int = 100, maxiter: int
     the model config's options of the λ solve (models/ctm_base.CTMBaseConfig).
     Returns that wrapper holding the selected lane; its `restart_result` is
     the batched IMMCTMFitResult of all lanes."""
-    _check_devices(devices, chunk_iters, compact_schedule)
-    auto = _is_auto(compact_schedule, chunk_iters)
-    schedule = None if auto else _resolve_schedule(chunk_iters, compact_schedule)
     model = IMMCTM(k, alpha, features, X, dtype=dtype, device=device)
     model.config = cfg = dataclasses.replace(model.config, lambda_extrap=lambda_extrap,
                                              lambda_solver=lambda_solver)
     state = immctm_mod.init(torch.Generator().manual_seed(int(seed)), cfg, model.alpha,
                             restarts=restarts, device=model.device)
-    if auto:
-        def fit_fn(st, sched, prog):
-            return immctm_mod.fit(st, model.Xdense, model.F, cfg, maxiter=maxiter, tol=tol,
-                                  compact_schedule=sched, progress=prog)
-        with ctm_base.full_f32_matmuls():
-            result, model.compact_info = _fit_auto(state, fit_fn, maxiter, pilot_restarts)
-    else:
-        run_info = None if devices is None else {}
-        result = fit_immctm_restarts_from_states(state, model.Xdense, model.F, cfg,
-                                                 maxiter=maxiter, tol=tol,
-                                                 compact_schedule=schedule, devices=devices,
-                                                 run_info=run_info)
-        if run_info is not None:
-            model.rank_info = run_info
-    score = (rescore_immctm_f64(result.state.lam, result.state.gamma, model.Xdense, model.F, cfg)
-             if rescore_f64 else result.ll)
-    sel = lane(result, int(pick_optimal_restart(score)))
-    model.state = sel.state
-    model.converged = bool(sel.converged[0])
-    model.elbo = float(sel.elbo[0])
-    model.ll = [float(v) for v in sel.ll[0].cpu()]
-    model.restart_result = result
-    return model
+
+    def pick(result):
+        score = (rescore_immctm_f64(result.state.lam, result.state.gamma, model.Xdense, model.F,
+                                    cfg) if rescore_f64 else result.ll)
+        return int(pick_optimal_restart(score))
+
+    return _fit_best_lane(model, state, immctm_mod.fit, (model.Xdense, model.F, cfg),
+                          fit_immctm_restarts_from_states, pick, maxiter, tol, chunk_iters,
+                          compact_schedule, pilot_restarts, devices)
 
 
 # ---------------------------------------------------------------------------
 # LDA and ILDA restarts (restarts.py:1496-1682 of the JAX package)
 # ---------------------------------------------------------------------------
-
-
-def _best_scalar_ll_lane(result, rescore_fn, rescore_f64: bool) -> int:
-    """The lane with the best final ll, for the families with one ll per
-    lane (restarts.py:1513-1526 of the JAX package): read from exact
-    float64 re-scores of the shortlisted lanes (`rescore_fn(lanes)` returns
-    their (n,) scores; rescore.shortlist_lanes) unless `rescore_f64` is
-    False, then from the in-fit lls. Non-finite lanes are masked either
-    way."""
-    ll = result.ll.detach().to("cpu", torch.float64).numpy()
-    if not rescore_f64:
-        return int(np.argmax(np.where(np.isfinite(ll), ll, -np.inf)))
-    cand = shortlist_lanes(ll)
-    ll64 = rescore_fn(cand).cpu().numpy()
-    return int(cand[int(np.argmax(np.where(np.isfinite(ll64), ll64, -np.inf)))])
-
-
-def _fit_scalar_family(model, state, fit_fn, rescore_fn, maxiter: int, chunk_iters,
-                       compact_schedule, rescore_f64: bool, pilot_restarts: int, devices=None):
-    """Fit every lane of the batched `state` with `fit_fn(state, schedule,
-    progress)` (uncut, cut by `chunk_iters` or a `compact_schedule` tuple,
-    or "auto" as `_fit_auto`, which records its derivation as
-    `model.compact_info`), or with `fit_fn(state, None, None, devices,
-    run_info)` fanned out over `devices` (recorded as `model.rank_info`),
-    pick a lane by `_best_scalar_ll_lane` with `rescore_fn(state, lanes)`,
-    and put it into the wrapper `model`, whose `restart_result` is the
-    batched result of all lanes."""
-    _check_devices(devices, chunk_iters, compact_schedule)
-    if devices is not None:
-        model.rank_info = {}
-        result = fit_fn(state, None, None, devices, model.rank_info)
-    elif _is_auto(compact_schedule, chunk_iters):
-        with ctm_base.full_f32_matmuls():
-            result, model.compact_info = _fit_auto(state, fit_fn, maxiter, pilot_restarts)
-    else:
-        result = fit_fn(state, _resolve_schedule(chunk_iters, compact_schedule), None)
-    best = _best_scalar_ll_lane(result, lambda lanes: rescore_fn(result.state, lanes),
-                                rescore_f64)
-    lda_mod.take_result(model, lane(result, best))
-    model.restart_result = result
-    return model
 
 
 def fit_lda_restarts_from_states(state: LDAState, X, config: LDAConfig, maxiter: int = 1000,
@@ -912,14 +882,11 @@ def fit_lda_restarts_from_states(state: LDAState, X, config: LDAConfig, maxiter:
     is moved to the state's device and dtype. `compact_schedule` (any
     iterable of budgets) and `progress` as in `fit_restarts`; `devices` and
     `run_info` as in `fit_immctm_restarts_from_states`."""
-    if devices is not None:
-        _check_devices(devices, None, compact_schedule)
-        return _fan_out(fit_lda_restarts_from_states, state, (X, config), maxiter, tol, devices,
-                        progress, run_info)
-    schedule = _resolve_schedule(None, compact_schedule)
     X = lda_mod.counts_tensor(X, config, ctm_base.lanes_of(state)[1])
-    return lda_mod.fit(state, X, config, maxiter=maxiter, tol=tol, compact_schedule=schedule,
-                       progress=progress)
+    return _drive_lanes(state, lda_mod.fit, (X, config), maxiter, tol,
+                        compact_schedule=compact_schedule, auto=False, devices=devices,
+                        fan_out=fit_lda_restarts_from_states, progress=progress,
+                        run_info=run_info)[0]
 
 
 def fit_lda_restarts(k, alpha, eta, X, V=None, restarts: int = 100, maxiter: int = 1000,
@@ -944,20 +911,17 @@ def fit_lda_restarts(k, alpha, eta, X, V=None, restarts: int = 100, maxiter: int
     lanes."""
     args = (k, alpha, eta) + (() if V is None else (V,)) + (X,)
     model = LDA(*args, dtype=dtype, device=device)
-    cfg = model.config
-    state = lda_mod.init(torch.Generator().manual_seed(int(seed)), cfg, restarts=restarts,
-                         device=model.device)
+    state = lda_mod.init(torch.Generator().manual_seed(int(seed)), model.config,
+                         restarts=restarts, device=model.device)
 
-    def fit_fn(st, schedule, progress, devices=None, run_info=None):
-        return fit_lda_restarts_from_states(st, model.Xdense, cfg, maxiter=maxiter, tol=tol,
-                                            compact_schedule=schedule, progress=progress,
-                                            devices=devices, run_info=run_info)
+    def pick(result):
+        return _best_scalar_ll_lane(
+            result, lambda lanes: rescore_lda_f64(result.state.gamma, result.state.lam,
+                                                  model.Xdense, lanes), rescore_f64)
 
-    def rescore(st, lanes):
-        return rescore_lda_f64(st.gamma, st.lam, model.Xdense, lanes)
-
-    return _fit_scalar_family(model, state, fit_fn, rescore, maxiter, chunk_iters,
-                              compact_schedule, rescore_f64, pilot_restarts, devices)
+    return _fit_best_lane(model, state, lda_mod.fit, (model.Xdense, model.config),
+                          fit_lda_restarts_from_states, pick, maxiter, tol, chunk_iters,
+                          compact_schedule, pilot_restarts, devices)
 
 
 def fit_ilda_restarts_from_states(state: ILDAState, X, F, config: ILDAConfig,
@@ -971,16 +935,13 @@ def fit_ilda_restarts_from_states(state: ILDAState, X, F, config: ILDAConfig,
     device and dtype. `compact_schedule` and `progress` as in
     `fit_restarts`; `devices` and `run_info` as in
     `fit_immctm_restarts_from_states`."""
-    if devices is not None:
-        _check_devices(devices, None, compact_schedule)
-        return _fan_out(fit_ilda_restarts_from_states, state, (X, F, config), maxiter, tol,
-                        devices, progress, run_info)
-    schedule = _resolve_schedule(None, compact_schedule)
     device = ctm_base.lanes_of(state)[1]
     X = lda_mod.counts_tensor(X, config, device)
     F = tuple(torch.as_tensor(f).to(device=device, dtype=config.dtype) for f in F)
-    return ilda_mod.fit(state, X, F, config, maxiter=maxiter, tol=tol, compact_schedule=schedule,
-                        progress=progress)
+    return _drive_lanes(state, ilda_mod.fit, (X, F, config), maxiter, tol,
+                        compact_schedule=compact_schedule, auto=False, devices=devices,
+                        fan_out=fit_ilda_restarts_from_states, progress=progress,
+                        run_info=run_info)[0]
 
 
 def fit_ilda_restarts(k, alpha, eta, features, X, restarts: int = 100, maxiter: int = 1000,
@@ -996,18 +957,14 @@ def fit_ilda_restarts(k, alpha, eta, features, X, restarts: int = 100, maxiter: 
     wrapper holding the selected lane; its `restart_result` is the batched
     fit result of all lanes."""
     model = ILDA(k, alpha, eta, features, X, dtype=dtype, device=device)
-    cfg = model.config
-    state = ilda_mod.init(torch.Generator().manual_seed(int(seed)), cfg, restarts=restarts,
-                          device=model.device)
+    state = ilda_mod.init(torch.Generator().manual_seed(int(seed)), model.config,
+                          restarts=restarts, device=model.device)
 
-    def fit_fn(st, schedule, progress, devices=None, run_info=None):
-        return fit_ilda_restarts_from_states(st, model.Xdense, model.F, cfg, maxiter=maxiter,
-                                             tol=tol, compact_schedule=schedule,
-                                             progress=progress, devices=devices,
-                                             run_info=run_info)
+    def pick(result):
+        return _best_scalar_ll_lane(
+            result, lambda lanes: rescore_ilda_f64(result.state.gamma, result.state.lam,
+                                                   model.Xdense, model.F, lanes), rescore_f64)
 
-    def rescore(st, lanes):
-        return rescore_ilda_f64(st.gamma, st.lam, model.Xdense, model.F, lanes)
-
-    return _fit_scalar_family(model, state, fit_fn, rescore, maxiter, chunk_iters,
-                              compact_schedule, rescore_f64, pilot_restarts, devices)
+    return _fit_best_lane(model, state, ilda_mod.fit, (model.Xdense, model.F, model.config),
+                          fit_ilda_restarts_from_states, pick, maxiter, tol, chunk_iters,
+                          compact_schedule, pilot_restarts, devices)

@@ -47,7 +47,7 @@ from ..models import ctm_base
 from ..models import mmctm as mmctm_mod
 from ..models.mmctm import MMCTMConfig, MMCTMFitResult, MMCTMState
 from . import _ranks
-from .restarts import _generator, fit_restarts_from_states
+from .restarts import _init_lanes, fit_restarts_from_states
 
 __all__ = [
     "Mesh",
@@ -203,13 +203,6 @@ def sharded_fit_from_states(mesh: Mesh, state: MMCTMState, X, config: MMCTMConfi
     return _ranks.join_lanes(per_row, R, device)
 
 
-def _init(seed_or_generator, X, config, alpha, restarts, init_method, device):
-    """The batched init of `restarts.fit_restarts` on `device`."""
-    X = mmctm_mod.counts_tensors(X, config, device)
-    return mmctm_mod.init_with_alpha(_generator(seed_or_generator), config, X, alpha,
-                                     restarts=restarts, init_method=init_method, device=device)
-
-
 def sharded_fit_restarts(mesh: Mesh, seed_or_generator: Union[int, torch.Generator], X,
                          config: MMCTMConfig, alpha, restarts: int, maxiter: int = 1000,
                          tol: float = 1e-4, init_method: str = "random",
@@ -218,8 +211,8 @@ def sharded_fit_restarts(mesh: Mesh, seed_or_generator: Union[int, torch.Generat
     "restart" rows and the documents over its "data" columns; within a row
     the document sums are all-reduced. The inits are fit_restarts's on the
     mesh's first device, where the result comes back."""
-    state = _init(seed_or_generator, X, config, alpha, restarts, init_method,
-                  mesh.devices[0][0])
+    _, state = _init_lanes(seed_or_generator, X, config, alpha, restarts, init_method,
+                           mesh.devices[0][0])
     return sharded_fit_from_states(mesh, state, X, config, maxiter, tol, run_info)
 
 
@@ -249,8 +242,8 @@ def shmap_fit_restarts(seed_or_generator: Union[int, torch.Generator], X, config
     kernels included, on its own slice; the result comes back on the first
     device."""
     devices = _ranks.default_devices() if devices is None else list(devices)
-    state = _init(seed_or_generator, X, config, alpha, restarts, init_method,
-                  _ranks._device(devices[0]))
+    _, state = _init_lanes(seed_or_generator, X, config, alpha, restarts, init_method,
+                           _ranks._device(devices[0]))
     return shmap_fit_restarts_from_states(state, X, config, maxiter, tol, devices, run_info)
 
 
@@ -376,7 +369,7 @@ def dryrun_multichip(n_devices: int) -> None:
     def single(state, maxiter=2):
         return fit_restarts_from_states(state, X, config, maxiter=maxiter, tol=1e-4)
 
-    state = _init(0, X, config, alpha, R, "random", "cpu")
+    _, state = _init_lanes(0, X, config, alpha, R, "random", "cpu")
     got, want = sharded_fit_from_states(mesh, state, X, config, maxiter=2), single(state)
     assert got.ll.shape == (R, 2) and bool(torch.isfinite(got.ll).all()), got.ll
     torch.testing.assert_close(got.ll, want.ll, **close,
@@ -385,12 +378,12 @@ def dryrun_multichip(n_devices: int) -> None:
                                msg="sharded λ state diverged from the one-process fit")
 
     # restart fan-out, padded: R + 1 lanes never divide over an even mesh
-    state = _init(0, X, config, alpha, R + 1, "random", "cpu")
+    _, state = _init_lanes(0, X, config, alpha, R + 1, "random", "cpu")
     got = shmap_fit_restarts_from_states(state, X, config, maxiter=2, devices=devices)
     torch.testing.assert_close(got.ll, single(state).ll, **close,
                                msg="restart fan-out diverged from the one-process fit")
 
-    state = _init(1, X, config, alpha, 1, "random", "cpu")
+    _, state = _init_lanes(1, X, config, alpha, 1, "random", "cpu")
     want = single(state)
     got = sharded_data_parallel_fit(mesh, state, X, config, maxiter=2)
     torch.testing.assert_close(got.ll, want.ll, **close,

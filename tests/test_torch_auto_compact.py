@@ -9,6 +9,8 @@ the last bit; 1e-12 is the JAX package's own bound, tests/test_auto_compact.py);
 the derived schedule and its info equal the JAX package's exactly (the same
 integer DP on the same inputs)."""
 
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -187,6 +189,31 @@ def test_fit_immctm_restarts_cut_selects_the_uncut_lane(small, immctm_whole, cut
     assert hasattr(got, "compact_info") == (cut.get("compact_schedule") == "auto")
 
 
+@pytest.mark.parametrize("compact_schedule, fits", [(None, 1), ("auto", 2)])
+def test_fit_immctm_restarts_reaches_the_names_the_harness_patches(small, monkeypatch,
+                                                                   compact_schedule, fits):
+    """The benchmark's harness wraps `immctm.fit` and
+    `restarts.rescore_immctm_f64` as module attributes
+    (portbench/instrument.py): the restart fitter looks both up when it
+    runs, the fit once per batch (twice with "auto": the pilot and the
+    rest), the re-score once."""
+    calls = []
+
+    def spy(name, orig):
+        def wrapped(*a, **k):
+            calls.append(name)
+            return orig(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(tr, "_SCHEDULE_MEMO", {})
+    monkeypatch.setattr(tr.immctm_mod, "fit", spy("fit", tr.immctm_mod.fit))
+    monkeypatch.setattr(tr, "rescore_immctm_f64", spy("rescore", tr.rescore_immctm_f64))
+    model = mt.fit_immctm_restarts([2, 2], ALPHA, small["features"], small["docs"],
+                                   compact_schedule=compact_schedule, **IMMCTM_KW)
+    assert calls == ["fit"] * fits + ["rescore"]
+    assert model.restart_result.ll.shape == (R, 2)
+
+
 @pytest.mark.parametrize("case", [
     dict(iters=np.minimum(40 + np.random.default_rng(0).gamma(2.0, 45.0, 64).astype(np.int64),
                           400), t_warm=0.41, production=936, maxiter=1000, t_boundary=1.3e-3),
@@ -265,7 +292,8 @@ def test_full_budgets_flag_reaches_the_fit(monkeypatch):
 def _call(name, small):
     X, cfg, docs, features = small["X"], small["cfg"], small["docs"], small["features"]
     kw = dict(restarts=2, maxiter=2, device="cpu")
-    return {
+    lda_docs = [mt.make_count_matrix(row) for row in X[0]]
+    calls = {
         "fit_restarts: chunk_iters and a schedule": lambda: tr.fit_restarts(
             0, X, cfg, ALPHA, chunk_iters=5, compact_schedule=(3,), **kw),
         "fit_restarts: 'auto'": lambda: tr.fit_restarts(
@@ -286,7 +314,18 @@ def _call(name, small):
             [2, 2], ALPHA, features, docs, compact_schedule=(3,), chunk_iters=5, **kw),
         "fit_immctm_restarts: another string": lambda: mt.fit_immctm_restarts(
             [2, 2], ALPHA, features, docs, compact_schedule="fast", **kw),
-    }[name]
+    }
+    for family, fit in (("fit_lda_restarts", lambda **k: mt.fit_lda_restarts(
+                            2, 0.1, 0.1, lda_docs, **kw, **k)),
+                        ("fit_ilda_restarts", lambda **k: mt.fit_ilda_restarts(
+                            2, 0.1, 0.1, features[0], lda_docs, **kw, **k))):
+        calls[f"{family}: 'auto' and chunk_iters"] = partial(fit, compact_schedule="auto",
+                                                             chunk_iters=5)
+        calls[f"{family}: chunk_iters and a schedule"] = partial(fit, compact_schedule=(3,),
+                                                                 chunk_iters=5)
+        calls[f"{family}: another string"] = partial(fit, compact_schedule="fast")
+        calls[f"{family}: chunk_iters=0"] = partial(fit, chunk_iters=0)
+    return calls[name]
 
 
 @pytest.mark.parametrize("name, match", [
@@ -300,6 +339,14 @@ def _call(name, small):
     ("fit_immctm_restarts: 'auto' and chunk_iters", "mutually exclusive"),
     ("fit_immctm_restarts: chunk_iters and a schedule", "mutually exclusive"),
     ("fit_immctm_restarts: another string", "expected 'auto' or a tuple"),
+    ("fit_lda_restarts: 'auto' and chunk_iters", "mutually exclusive"),
+    ("fit_lda_restarts: chunk_iters and a schedule", "mutually exclusive"),
+    ("fit_lda_restarts: another string", "expected 'auto' or a tuple"),
+    ("fit_lda_restarts: chunk_iters=0", "at least 1"),
+    ("fit_ilda_restarts: 'auto' and chunk_iters", "mutually exclusive"),
+    ("fit_ilda_restarts: chunk_iters and a schedule", "mutually exclusive"),
+    ("fit_ilda_restarts: another string", "expected 'auto' or a tuple"),
+    ("fit_ilda_restarts: chunk_iters=0", "at least 1"),
 ])
 def test_options_that_exclude_each_other_raise(small, monkeypatch, name, match):
     """Each raises ValueError before any CAVI iteration runs."""
