@@ -5,10 +5,11 @@
 
 Phases, each of which fails the run (non-zero exit) on any error:
   1. device: a CUDA card must be present; prints its name and power limit;
-  2. build: compiles the three kernels with nvcc for sm_90a, one nvcc
+  2. build: compiles the four kernels with nvcc for sm_90a, one nvcc
      process each, started together: the fused η side (csrc/estep_eta.cu),
      the λ Newton/PCG solve (csrc/lambda_newton.cu; both include
-     csrc/lambda_solve.cuh) and the θ moments (csrc/theta_moments.cu);
+     csrc/lambda_solve.cuh), the θ moments (csrc/theta_moments.cu) and the
+     mixture log-likelihoods (csrc/mixture_ll.cu);
      prints the build times and ptxas reports;
   3. λ kernel against its plain PyTorch version, both on the card, on seeded
      SPD problems, with a repeat launch bit-identical: the f32 CAVI budgets
@@ -197,6 +198,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
      lane's ll per modality; LDA's selected ll) within LL_SLACK of the
      parent's run in this call and of PARENT_K20_PICKS; launches per step:
      (a) one η and two θ, (b) two θ, and nothing else.
+ 21. the mixture log-likelihoods (ops/ll_kernel.py), after phase 5: the
+     kernel against the float64 plain expression (relative gap at most
+     LL_RTOL per lane and modality) and a repeat launch bit-identical at
+     LL_SHAPES, then, at (100, 2780, K=(7, 7, 5)) and (1000, 560, (7, 7)),
+     the kernel's and the plain float32 chain's times (median of 20
+     CUDA-event timings) beside the bound: the larger of its bytes at
+     3.35 TB/s and its operations (2·K·V + 2·V a cell) at 67 TFLOP/s.
+     Each driven path reports the ll wrapper's calls in this process over
+     the whole phase (`mixture_ll`: eager calls and graph captures). After
+     phase 15, one more main-path fit (phase 2's, fused η route) under the
+     program's tracer and torch.profiler: every ll call takes the kernel
+     (`lls.plain` 0, `lls.kernel` > 0 and equal to the wrapper's calls),
+     and the card runs `mixture_ll_kernel` once per eager call and once
+     per tail-graph replay: `lls.kernel` + `graph.replays.tail` times.
 The last two lines of standard output are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
 """
@@ -869,6 +884,128 @@ def theta_phase(tk):
                   f"PyTorch {plain_ms:.4f} ms (median of 20 CUDA-event timings); bound "
                   f"{bound_ms:.6f} ms ({bound_by})")
     return max_err, timings[(96, 7, "ctm")]
+
+
+# (R, D, K, V) of the ll phase: the cells' shapes (BRCA at R = 100 and
+# 1000, PCAWG at R = 100), R = 1 (stage 2, inference), ragged D and the
+# largest K and V the kernel takes; the first two are timed
+LL_SHAPES = (((RESTARTS, 2780, (7, 7, 5), (96, 48, 83)), (1000, 560, (7, 7), (96, 48)),
+              (RESTARTS, 560, (7, 7), (96, 48)), (1, 560, (7, 7), (96, 48)),
+              (1, 2780, (7, 7, 5), (96, 48, 83)), (7, 101, (20, 3), (96, 5)),
+              (3, 29, (128, 128), (128, 128))))
+# the kernel against the float64 plain expression, per lane and modality:
+# half of `correct`'s step_ll limit (portbench/configs, 2e-6)
+LL_RTOL = 1e-6
+
+
+def ll_problem(gen, R, D, K, V):
+    """The ll kernel's inputs on the card: counts 0..9 with about a third
+    of the cells zero, softmax props of λ ~ 2·N(0, 1), ϕ rows of
+    exp(N(0, 1)) normalized."""
+    import torch
+
+    X, props, phi = [], [], []
+    for k, v in zip(K, V):
+        counts = torch.randint(0, 10, (D, v), generator=gen).float()
+        X.append(counts * (torch.rand(D, v, generator=gen) > 0.3))
+        props.append(torch.softmax(2.0 * torch.randn(R, D, k, generator=gen), -1))
+        w = torch.randn(R, k, v, generator=gen).exp()
+        phi.append(w / w.sum(-1, keepdim=True))
+    return [[t.to("cuda") for t in ts] for ts in (X, props, phi)]
+
+
+def ll_bound(R, D, K, V):
+    """The ll kernel: reads props (R, D, K_m), ϕ (R, K_m, V_m) and the
+    counts (D, V_m) once and writes (R, M); per (r, d, v) cell a K-term
+    mixture (2·K operations) and its count's term (2 operations)."""
+    n_bytes = 4 * (R * D * sum(K) + R * sum(k * v for k, v in zip(K, V)) + D * sum(V)
+                   + R * len(K))
+    return bound(n_bytes, R * D * sum(2 * k * v + 2 * v for k, v in zip(K, V)))
+
+
+def ll_phase(llk):
+    import torch
+
+    gen = torch.Generator().manual_seed(2)
+    max_rel = 0.0
+    timings = {}
+    for i, (R, D, K, V) in enumerate(LL_SHAPES):
+        X, props, phi = ll_problem(gen, R, D, K, V)
+        got = llk.mixture_lls(X, props, phi)
+        again = llk.mixture_lls(X, props, phi)
+        want = torch.stack(llk.mixture_lls_plain([x.double() for x in X],
+                                                 [p.double() for p in props],
+                                                 [f.double() for f in phi]), dim=-1)
+        torch.cuda.synchronize()
+        rel = float(((got.double() - want).abs() / want.abs().clamp_min(1e-30)).max())
+        print(f"ll kernel vs float64 (R, D, K, V)=({R}, {D}, {K}, {V}), geometry "
+              f"{tuple(llk.launch_geometry(R, D, len(K)))}: max relative gap {rel:.3e}, repeat "
+              f"launch bit-identical: {bool(torch.equal(got, again))}")
+        if not torch.isfinite(got).all():
+            fail(f"ll kernel not finite at {(R, D, K, V)}")
+        if rel > LL_RTOL:
+            fail(f"ll kernel disagrees with the float64 expression beyond rtol {LL_RTOL} at "
+                 f"{(R, D, K, V)}")
+        if not torch.equal(got, again):
+            fail(f"two ll kernel launches on the same inputs differ at {(R, D, K, V)}")
+        max_rel = max(max_rel, rel)
+        if i < 2:
+            ms = cuda_ms(lambda: llk.mixture_lls(X, props, phi))
+            plain_ms = cuda_ms(lambda: llk.mixture_lls_plain(X, props, phi))
+            bound_ms, bound_by = ll_bound(R, D, K, V)
+            timings[(R, D)] = (ms, plain_ms, bound_ms, bound_by)
+            print(f"ll time at ({R}, {D}, {K}, {V}): kernel {ms:.4f} ms, plain PyTorch chain "
+                  f"{plain_ms:.4f} ms (median of 20 CUDA-event timings); bound "
+                  f"{bound_ms:.6f} ms ({bound_by})")
+    return max_rel, timings
+
+
+def ll_launch_check(mt, llk, X):
+    """The main path's own ll launches: phase 2's fit once more, fused η
+    route, under the program's tracer and torch.profiler, every count set
+    to 0 just before. It runs after the timed paths, as the θ check does.
+    A session that records no device event is tried again, up to three.
+    Returns the device launches of `mixture_ll_kernel` in the fit."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodalmusig_tpu_torch.utils import profiling
+
+    config = mt.MMCTMConfig(K=(7, 7), V=(96, 48), D=560, dtype=torch.float32)
+    kw = dict(restarts=RESTARTS, maxiter=MAXITER, tol=TOL)
+    for session in range(3):
+        torch.cuda.synchronize()
+        llk.LAUNCHES = 0
+        profiling.reset()
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof, profiling.tracing():
+                with_eta_route("fused", lambda: mt.fit_restarts(SEED, X, config, [0.1, 0.1],
+                                                                **kw).ll.cpu())
+                torch.cuda.synchronize()
+            counts = dict(profiling.totals()["counts"])
+        finally:
+            profiling.reset()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        device = sum("mixture_ll_kernel" in n for n in names)
+        finish = sum("mixture_ll_finish" in n for n in names)
+        kernel, plain = counts.get("lls.kernel", 0), counts.get("lls.plain", 0)
+        replays = counts.get("graph.replays.tail", 0)
+        print(f"main path ll launches, session {session + 1}: lls.kernel {kernel}, lls.plain "
+              f"{plain}, wrapper calls {llk.LAUNCHES}, tail captures "
+              f"{counts.get('graph.captures.tail', 0)} and replays {replays}; on the card "
+              f"mixture_ll_kernel {device}, mixture_ll_finish {finish} ({len(names)} device "
+              f"kernels in all)")
+        if names:
+            break
+    if plain != 0 or kernel <= 0 or llk.LAUNCHES != kernel:
+        fail(f"the main path's lls did not all take the kernel: lls.kernel {kernel}, lls.plain "
+             f"{plain}, wrapper calls {llk.LAUNCHES}")
+    if not names:
+        fail("three profiler sessions of the main path recorded no device kernel")
+    if device != kernel + replays or finish != device:
+        fail(f"the card ran mixture_ll_kernel {device} and mixture_ll_finish {finish} times, "
+             f"not once per eager call and tail replay: {kernel} + {replays}")
+    return device
 
 
 def theta_launch_check(tk):
@@ -2463,6 +2600,7 @@ def main(argv=None):
     import multimodalmusig_tpu_torch as mt
     from multimodalmusig_tpu_torch.ops import estep_kernel as ek
     from multimodalmusig_tpu_torch.ops import lambda_kernel as lk
+    from multimodalmusig_tpu_torch.ops import ll_kernel as llk
     from multimodalmusig_tpu_torch.ops import theta_kernel as tk
 
     kernels = (ek, lk, tk)
@@ -2475,8 +2613,9 @@ def main(argv=None):
         return kernel.build(), time.perf_counter() - t0
 
     parent_tk = parent_theta_kernel(args.theta_parent) if args.theta_parent else None
-    with ThreadPoolExecutor(4) as pool:  # one nvcc per source, started together
-        builds = list(pool.map(timed_build, [*kernels, *([parent_tk] if parent_tk else [])]))
+    with ThreadPoolExecutor(5) as pool:  # one nvcc per source, started together
+        builds = list(pool.map(timed_build,
+                               [*kernels, llk, *([parent_tk] if parent_tk else [])]))
     for lib, sec in builds:
         print(f"build: {sec:.2f} s ({lib})")
         with open(lib.rsplit("/", 1)[0] + "/build.log") as f:
@@ -2485,6 +2624,7 @@ def main(argv=None):
     lam_err, (lam_ms, lam_plain_ms), lam_shapes = lambda_phase(lk)
     eta_err, (eta_ms, eta_plain_ms), eta_shapes = eta_phase(ek)
     theta_err, (theta_ms, theta_plain_ms) = theta_phase(tk)
+    ll_rel, ll_times = ll_phase(llk)
     X, terms = load_brca()
     features = brca_features(*terms)
     reference_phase("MMCTM", mmctm_short_fit(mt, X))
@@ -2494,30 +2634,45 @@ def main(argv=None):
     sync_probe(mt, X)
     docs = [[mt.make_count_matrix(X[m][d]) for m in range(2)] for d in range(X[0].shape[0])]
     docs_snv = [doc[0] for doc in docs]
-    immctm_launches, immctm_model = immctm_phase(mt, kernels, X, features)
-    paths = {
-        "main path (fused and split)": main_path_phase(mt, kernels, X),
-        "single model": {"estep_eta": single_model_phase(mt, ek, X), "lambda_newton": 0,
-                         "theta_moments": 0},
-        "IMMCTM": immctm_launches,
-        "compaction": compaction_phase(mt, kernels, X),
-        "two-stage": two_stage_phase(mt, kernels, X),
-        "λ solve options": solver_options_phase(mt, kernels, X, features),
-        "CLI": cli_phase(mt, kernels, terms),
-        "inference, MMCTM": mmctm_inference_phase(mt, kernels, docs),
-        "inference, IMMCTM": inference_phase(mt, kernels, "IMMCTM inference", immctm_model,
-                                             mt.train_test_split_docs(docs, 0.2, seed=0)[1],
-                                             docs)[0],
-        "K selection": k_selection_phase(mt, kernels, docs),
-        "PCAWG scale": pcawg_phase(mt, kernels),
-        "K=(20, 20) two-stage": k20_two_stage_phase(mt, kernels, docs),
-        "LDA and ILDA": lda_phase(mt, kernels, docs_snv, features[0]),
-        "inference, LDA and ILDA": lda_inference_phase(mt, kernels, docs_snv, features[0]),
-        "K=20 θ (phase 20)": k20_theta_phase(mt, kernels, X, docs_snv, parent_tk),
-    }
+
+    def with_ll(phase):
+        """phase(), with the ll wrapper's calls in this process over the whole
+        phase beside the launches it returns (first of a pair)."""
+        llk.LAUNCHES = 0
+        out = phase()
+        (out[0] if isinstance(out, tuple) else out)["mixture_ll"] = llk.LAUNCHES
+        return out
+
+    immctm_launches, immctm_model = with_ll(lambda: immctm_phase(mt, kernels, X, features))
+    paths = {"IMMCTM": immctm_launches}
+    for label, phase in {
+        "main path (fused and split)": lambda: main_path_phase(mt, kernels, X),
+        "single model": lambda: {"estep_eta": single_model_phase(mt, ek, X),
+                                 "lambda_newton": 0, "theta_moments": 0},
+        "compaction": lambda: compaction_phase(mt, kernels, X),
+        "two-stage": lambda: two_stage_phase(mt, kernels, X),
+        "λ solve options": lambda: solver_options_phase(mt, kernels, X, features),
+        "CLI": lambda: cli_phase(mt, kernels, terms),
+        "inference, MMCTM": lambda: mmctm_inference_phase(mt, kernels, docs),
+        "inference, IMMCTM": lambda: inference_phase(
+            mt, kernels, "IMMCTM inference", immctm_model,
+            mt.train_test_split_docs(docs, 0.2, seed=0)[1], docs),
+        "K selection": lambda: k_selection_phase(mt, kernels, docs),
+        "PCAWG scale": lambda: pcawg_phase(mt, kernels),
+        "K=(20, 20) two-stage": lambda: k20_two_stage_phase(mt, kernels, docs),
+        "LDA and ILDA": lambda: lda_phase(mt, kernels, docs_snv, features[0]),
+        "inference, LDA and ILDA": lambda: lda_inference_phase(mt, kernels, docs_snv,
+                                                               features[0]),
+        "K=20 θ (phase 20)": lambda: k20_theta_phase(mt, kernels, X, docs_snv, parent_tk),
+    }.items():
+        out = with_ll(phase)
+        paths[label] = out[0] if isinstance(out, tuple) else out
     cli_subprocess_phase()
     theta_launch_check(tk)
-    paths["multi-device"] = multi_device_phase(mt, X, docs, docs_snv, features)
+    ll_main_launches = ll_launch_check(mt, llk, X)
+    paths["multi-device"] = with_ll(lambda: multi_device_phase(mt, X, docs, docs_snv, features))
+    if paths["main path (fused and split)"]["mixture_ll"] <= 0:
+        fail("the main path made no call of the ll kernel")
     launches = {k: sum(p[k] for p in paths.values()) for k in ("estep_eta", "lambda_newton",
                                                                 "theta_moments")}
     print(f"kernel launches on the driven paths: {paths}")
@@ -2530,6 +2685,7 @@ def main(argv=None):
     print(f"bounds at the main-path shapes: η {eta_bound_ms:.5f} ms ({eta_by}), "
           f"λ {lam_bound_ms:.5f} ms ({lam_by}), θ {theta_bound_ms:.5f} ms ({theta_by}); "
           f"script time {time.perf_counter() - t_start:.1f} s")
+    ll_ms, ll_plain_ms, ll_bound_ms, ll_by = ll_times[(RESTARTS, 2780)]
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "estep_eta",
@@ -2569,6 +2725,20 @@ def main(argv=None):
         "bound_ms": theta_bound_ms,
         "bound_by": theta_by,
         "library_ms": None,
+    }, {
+        "name": "mixture_ll",
+        "route": "cuda",
+        "source": "multimodalmusig_tpu_torch/csrc/mixture_ll.cu",
+        "replaces": None,
+        "wrapper_calls": sum(p["mixture_ll"] for p in paths.values()),
+        "main_path_launches": ll_main_launches,
+        "max_rel_err": ll_rel,
+        "ms": ll_ms,
+        "plain_ms": ll_plain_ms,
+        "bound_ms": ll_bound_ms,
+        "bound_by": ll_by,
+        "library_ms": None,
+        "shapes": {f"{r},{d}": t for (r, d), t in ll_times.items()},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

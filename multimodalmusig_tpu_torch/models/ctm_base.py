@@ -29,7 +29,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops import estep_kernel, flags, lambda_kernel, theta_kernel
+from ..ops import estep_kernel, flags, lambda_kernel, ll_kernel, theta_kernel
 from ..ops.convergence import MIN_ITERS_BEFORE_CONVERGENCE, relative_change
 from ..ops.solvers import (
     CG_F32_CAVI,
@@ -202,6 +202,19 @@ def _theta_route(device_type: str, dtype: torch.dtype, V: int, K: int) -> str:
             and V <= theta_kernel.THETA_MAX_V and K <= theta_kernel.THETA_MAX_K):
         return "kernel"
     return "factorized"
+
+
+def _ll_route(device_type: str, dtype: torch.dtype, K, V) -> str:
+    """How `mmctm.modality_loglikelihoods` sums the mixture log-likelihoods
+    of modalities with topics K and items V: "kernel" (the fused CUDA
+    kernel, ops/ll_kernel.py, which never stores the (R, D, V) mixture) for
+    CUDA float32 within the kernel's limits (M ≤ 16, every K ≤ 128 and
+    V ≤ 128); "plain" (`ll_kernel.mixture_lls_plain`, the PyTorch
+    expression) for CPU tensors, CUDA float64 and larger shapes."""
+    if (device_type == "cuda" and dtype == torch.float32 and len(K) <= ll_kernel.LL_MAX_M
+            and max(K) <= ll_kernel.LL_MAX_K and max(V) <= ll_kernel.LL_MAX_V):
+        return "kernel"
+    return "plain"
 
 
 def theta_moments_one(lam_block, logw, X, want_scatter: bool = True):

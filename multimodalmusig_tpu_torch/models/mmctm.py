@@ -24,6 +24,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..ops import ll_kernel
 from ..ops.solvers import maximize_alpha
 from ..ops.special import dirichlet_expectation, gammaln, logmvbeta_symmetric, safe_xlogy, xlogx
 from ..utils import graphs, profiling
@@ -410,11 +411,23 @@ def modality_loglikelihoods(X, props, phi, reduce=None, vocab_reduce=None,
     documents. With `vocab_reduce`, X and ϕ hold this process's vocabulary
     slice, the lls' sums are reduced over every slice, and `counts` must be
     the denominators over every slice (`_total_counts`, reduced once per
-    fit); without it they default to X's own sums."""
+    fit); without it they default to X's own sums.
+
+    `ctm_base._ll_route` picks how the sums are formed: by the fused CUDA
+    kernel (CUDA float32) or by the plain PyTorch expression, which stores
+    each (R, D, V) mixture. The tracer counts each call as `lls.kernel` or
+    `lls.plain` (in a graph, at its capture)."""
     M = len(X)
     if vocab_reduce is not None and counts is None:
         raise ValueError("a vocab-sharded ll needs the total counts of every slice")
-    sums = [safe_xlogy(X[m], props[m] @ phi[m]).sum(dim=(-2, -1)) for m in range(M)]
+    route = ctm_base._ll_route(props[0].device.type, props[0].dtype,
+                               [p.shape[-1] for p in props], [x.shape[-1] for x in X])
+    if profiling.ON:
+        profiling.count(f"lls.{route}")
+    if route == "kernel":
+        sums = list(ll_kernel.mixture_lls(X, props, phi).unbind(-1))
+    else:
+        sums = ll_kernel.mixture_lls_plain(X, props, phi)
     counts = [X[m].sum() for m in range(M)] if counts is None else list(counts)
     if reduce is not None:
         both = reduce(sums + counts)  # D-reductions: the lls and the counts
